@@ -1,0 +1,93 @@
+"""Dispatch layer over the CUDA kernels and their plain PyTorch versions.
+
+All core/ code calls these functions, never a kernel directly.  Each one
+dispatches on the device of its input tensor and on nothing else:
+
+  * a CUDA tensor launches the hand-written kernel (or the wrapper
+    raises — there is no fallback);
+  * a CPU tensor goes to the plain version in ``ref``.
+
+There is no mode switch.  Code that wants a plain version on the card
+(``chip_smoke.py``, the tests) calls it from ``ref`` by name.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import block_topk as _block_topk
+from repro_torch.kernels import fused_refine as _fused_refine
+from repro_torch.kernels import isax_summarize as _isax_summarize
+from repro_torch.kernels import lb_scan as _lb_scan
+from repro_torch.kernels import ref
+
+_KERNELS = {
+    "isax_summarize": _isax_summarize,
+    "lb_scan": _lb_scan,
+    "block_topk": _block_topk,
+    "fused_panel_topk": _fused_refine,
+}
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    if t.is_cuda:
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+def summarize(x: torch.Tensor, *, w: int, card: int, normalize: bool = True
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(N, n) -> (paa (N, w), sax (N, w) int32)."""
+    if _on_cuda(x):
+        return _isax_summarize.isax_summarize(x, w=w, card=card,
+                                              normalize=normalize)
+    return ref.isax_summarize_ref(x, w=w, card=card, normalize=normalize)
+
+
+def lb_scan_planar(q_paa: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                   *, n: int) -> torch.Tensor:
+    """q_paa (Q, w); lo/hi (w, N) -> (Q, N) squared lower bounds."""
+    if _on_cuda(q_paa):
+        return _lb_scan.lb_scan(q_paa, lo, hi, n=n)
+    return ref.lb_scan_ref(q_paa, lo, hi, n=n)
+
+
+def block_topk(d: torch.Tensor, ids: torch.Tensor, k: int
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dist, id)-lexicographic top-k of a masked panel.
+
+    d (Q, C) f32, ids (Q, C) int32 -> (sel_d (Q, k), sel_id (Q, k)).
+    Contract: within a row ids >= 0 are distinct and every lane with
+    id < 0 carries d == INF.  k may exceed C: the tail is (INF, -1).
+    """
+    if _on_cuda(d):
+        return _block_topk.block_topk(d, ids, k=k)
+    return ref.block_topk_ref(d, ids, k)
+
+
+def fused_panel_topk(q: torch.Tensor, q_paa: torch.Tensor, block: torch.Tensor,
+                     lo: torch.Tensor, hi: torch.Tensor, ids: torch.Tensor,
+                     thr: torch.Tensor, *, k: int, n: int
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused LB + distance + select over one raw block.
+
+    q (Q, n), q_paa (Q, w), block (C, n), lo/hi (w, C) planar bounds,
+    ids (C,) int32, thr (Q,) effective bound (-inf disables a query)
+    -> (sel_d (Q, k), sel_id (Q, k), n_live (Q,) int32).
+    """
+    if _on_cuda(q):
+        return _fused_refine.fused_panel_topk(q, q_paa, block, lo, hi, ids,
+                                              thr, k=k, n=n)
+    return ref.fused_panel_topk_ref(q, q_paa, block, lo, hi, ids, thr,
+                                    k=k, n=n)
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches since the last ``reset_launch_counts()``, by kernel."""
+    return {name: mod.launches for name, mod in _KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for mod in _KERNELS.values():
+        mod.launches = 0

@@ -1,0 +1,108 @@
+"""Plain PyTorch versions of the port's kernels.
+
+Each function computes what its kernel computes, with ordinary tensor
+operations, on any device.  ``ops`` takes them for CPU tensors; the
+tests hold them against ``repro.kernels.ref``; ``chip_smoke.py`` holds
+each CUDA kernel against its plain version on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import isax
+
+INF = float(torch.finfo(torch.float32).max)
+PAD_ID_KEY = int(torch.iinfo(torch.int32).max)   # sort key for id < 0
+
+
+def isax_summarize_ref(x: torch.Tensor, *, w: int, card: int,
+                       normalize: bool = True
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Optional z-norm + PAA/SAX. (N, n) f32 -> PAA (N, w) f32, symbols (N, w) int32."""
+    xx = isax.znorm(x) if normalize else x
+    p = isax.paa(xx, w)
+    return p, isax.sax_from_paa(p, card)
+
+
+def lb_scan_ref(q_paa: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, *,
+                n: int) -> torch.Tensor:
+    """Planar MINDIST lower bounds. q_paa (Q, w); lo/hi (w, N) -> (Q, N)
+    squared bounds with the n/w scale factor."""
+    w = q_paa.shape[1]
+    qe = q_paa[:, :, None]
+    d = torch.clamp(torch.maximum(lo[None] - qe, qe - hi[None]), min=0.0)
+    return (float(n) / float(w)) * torch.sum(d * d, dim=1)
+
+
+def batch_l2_ref(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Squared Euclidean distances. q (Q, n), x (N, n) -> (Q, N) f32.
+
+    Expanded form ||q||^2 + ||x||^2 - 2 q.x, clamped at zero.
+    """
+    q = q.to(torch.float32)
+    x = x.to(torch.float32)
+    qq = torch.sum(q * q, dim=-1, keepdim=True)          # (Q, 1)
+    xx = torch.sum(x * x, dim=-1)[None, :]               # (1, N)
+    cross = q @ x.T                                      # (Q, N)
+    return torch.clamp(qq + xx - 2.0 * cross, min=0.0)
+
+
+def topk_by_dist_id(d: torch.Tensor, ids: torch.Tensor, k: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Ascending (distance, id)-lexicographic top-k along the last axis.
+
+    ids < 0 sort last among equal distances (keyed as INT32_MAX) and come
+    back normalized to -1.  When k exceeds the candidate count the result
+    is padded with (INF, -1).  Two stable sorts (by key, then by
+    distance) give the lexicographic order; ``torch.topk`` does not order
+    ties by id.
+    """
+    m = d.shape[-1]
+    if k > m:
+        pad = k - m
+        d = torch.cat([d, torch.full(d.shape[:-1] + (pad,), INF,
+                                     dtype=d.dtype, device=d.device)], -1)
+        ids = torch.cat([ids, torch.full(ids.shape[:-1] + (pad,), -1,
+                                         dtype=ids.dtype,
+                                         device=ids.device)], -1)
+    key = torch.where(ids >= 0, ids, PAD_ID_KEY)
+    by_key = torch.argsort(key, dim=-1, stable=True)
+    d_k = torch.gather(d, -1, by_key)
+    order = torch.gather(by_key, -1,
+                         torch.argsort(d_k, dim=-1, stable=True))[..., :k]
+    sd = torch.gather(d, -1, order)
+    si = torch.gather(ids, -1, order)
+    return sd, torch.where(si >= 0, si, -1)
+
+
+def block_topk_ref(d: torch.Tensor, ids: torch.Tensor, k: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dist, id)-lex top-k of a masked panel. d (Q, C) f32, ids (Q, C) int32.
+
+    Contract: within a row ids >= 0 are distinct, and every lane with
+    id < 0 carries d == INF.
+    """
+    return topk_by_dist_id(d, ids, k)
+
+
+def fused_panel_topk_ref(q: torch.Tensor, q_paa: torch.Tensor,
+                         block: torch.Tensor, lo: torch.Tensor,
+                         hi: torch.Tensor, ids: torch.Tensor,
+                         thr: torch.Tensor, *, k: int, n: int
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """LB filter + distance + select over one raw block, unfused.
+
+    q (Q, n), q_paa (Q, w), block (C, n), lo/hi (w, C) planar bounds,
+    ids (C,) int32, thr (Q,) effective pruning bound (-inf disables a
+    query).  Returns the (dist, id)-lex top-k of the live lanes — dead
+    lanes are (INF, -1) — plus the per-query live-lane count.
+    """
+    w = q_paa.shape[-1]
+    qe = q_paa[:, :, None]                                    # (Q, w, 1)
+    dd = torch.clamp(torch.maximum(lo[None] - qe, qe - hi[None]), min=0.0)
+    lb = (n / w) * torch.sum(dd * dd, dim=1)                  # (Q, C)
+    live = (lb < thr[:, None]) & (ids >= 0)[None, :]
+    d = torch.where(live, batch_l2_ref(q, block), INF)
+    idm = torch.where(live, ids[None, :], -1)
+    sd, si = topk_by_dist_id(d, idm, k)
+    return sd, si, torch.sum(live, dim=1, dtype=torch.int32)

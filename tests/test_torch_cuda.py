@@ -1,0 +1,153 @@
+"""The four CUDA kernels against their plain versions, on the card.
+
+Marked ``gpu``; run on a machine with an H100 and the CUDA toolkit:
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_cuda.py
+
+Without a card every test skips (decided in the ``cuda`` fixture, never
+at import).  Shapes are small and ragged, including k > C, inactive
+(thr = -inf) and all-dead rows and pad lanes.  Tolerances: block_topk
+bitwise; lb_scan rtol 1e-5 (16 non-negative terms summed in another
+order); isax_summarize PAA rtol 1e-6 + atol 1e-5 with symbol flips only
+within 1e-5 of a breakpoint; fused_panel_topk live counts exact and
+squared distances within 1e-5 * (|q|^2 + max |x|^2), the cancellation
+error of the expanded form summed in another order.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import interop
+from repro_torch.core import isax
+from repro_torch.core.index import build
+from repro_torch.core.search import search_block_major
+from repro_torch.data import random_walk
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.block_topk import block_topk
+from repro_torch.kernels.fused_refine import fused_panel_topk
+from repro_torch.kernels.isax_summarize import isax_summarize
+from repro_torch.kernels.lb_scan import lb_scan
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("normalize", [False, True])
+@pytest.mark.parametrize("shape", [(1, 64), (77, 128), (1000, 256)])
+def test_isax_summarize(cuda, normalize, shape):
+    x = torch.from_numpy(random_walk(*shape, seed=3)).to(cuda)
+    if not normalize:
+        x = isax.znorm(x)
+    pk, sk = isax_summarize(x, w=16, card=256, normalize=normalize)
+    pr, sr = ref.isax_summarize_ref(x, w=16, card=256, normalize=normalize)
+    assert bool(((pk - pr).abs() <= 1e-5 + 1e-6 * pr.abs()).all())
+    flips = sk != sr
+    bps = isax.breakpoints_on(256, cuda)
+    near = (pr[flips] - bps[torch.minimum(sk, sr)[flips].long()]).abs()
+    assert bool((near < 1e-5).all())
+
+
+@pytest.mark.parametrize("qn", [1, 6, 13, 100])
+@pytest.mark.parametrize("n_items", [1, 77, 1000])
+def test_lb_scan(cuda, qn, n_items):
+    g = torch.Generator(device=cuda).manual_seed(qn + n_items)
+    q = torch.randn((qn, 16), generator=g, device=cuda)
+    lo = torch.randn((16, n_items), generator=g, device=cuda)
+    hi = lo + torch.rand((16, n_items), generator=g, device=cuda)
+    got = lb_scan(q, lo, hi, n=256)
+    want = ref.lb_scan_ref(q, lo, hi, n=256)
+    assert bool(((got - want).abs() <= 1e-5 * want.abs()).all())
+
+
+@pytest.mark.parametrize("qn", [1, 6, 13])
+@pytest.mark.parametrize("c", [20, 37, 300, 1024])
+@pytest.mark.parametrize("k", [1, 5, 32, 1030])
+def test_block_topk_bitwise(cuda, qn, c, k):
+    rng = np.random.default_rng(qn * 97 + c + k)
+    d = rng.integers(0, 6, (qn, c)).astype(np.float32)          # many ties
+    ids = np.stack([rng.permutation(10 * c)[:c] for _ in range(qn)]
+                   ).astype(np.int32)
+    pad = rng.random((qn, c)) < 0.2
+    ids[pad], d[pad] = -1, ref.INF
+    if qn > 1:
+        ids[1], d[1] = -1, ref.INF
+    d, ids = torch.from_numpy(d).to(cuda), torch.from_numpy(ids).to(cuda)
+    gd, gi = block_topk(d, ids, k=k)
+    wd, wi = ref.block_topk_ref(d, ids, k)
+    assert torch.equal(gd, wd) and torch.equal(gi, wi)
+
+
+@pytest.mark.parametrize("qn", [1, 6, 13])
+@pytest.mark.parametrize("c", [37, 300, 1024])
+@pytest.mark.parametrize("k", [1, 5, 32, 1030])
+def test_fused_panel_topk(cuda, qn, c, k):
+    n, w = 128, 16
+    rng = np.random.default_rng(qn * 13 + c + k)
+    block = isax.znorm(torch.from_numpy(random_walk(c, n, seed=c)).to(cuda))
+    ids = torch.from_numpy(rng.permutation(5 * c)[:c].astype(np.int32)).to(cuda)
+    ids[-3:] = -1
+    block[-3:] = 1.0e4
+    _, _, bounds = isax.summarize(block, normalize=False)
+    lo = bounds[..., 0].T.contiguous()
+    hi = bounds[..., 1].T.contiguous()
+    pick = torch.from_numpy(rng.integers(0, c - 3, qn)).to(cuda)
+    q = block[pick] + 0.3 * torch.randn((qn, n), device=cuda)
+    q_paa = isax.paa(q, w)
+    full = ref.batch_l2_ref(q, block)
+    thr = torch.quantile(full[:, :-3], 0.3, dim=1)
+    thr[0] = float("-inf")
+    if qn > 2:
+        thr[2] = 0.0
+    if qn > 3:
+        thr[3] = ref.INF
+    gd, gi, gn = fused_panel_topk(q, q_paa, block, lo, hi, ids, thr, k=k, n=n)
+    wd, wi, wn = ref.fused_panel_topk_ref(q, q_paa, block, lo, hi, ids, thr,
+                                          k=k, n=n)
+    assert torch.equal(gn, wn)
+    assert gn[0] == 0 and bool((gi[0] == -1).all())
+    xx = torch.where(ids >= 0, (block * block).sum(1), 0.0).amax()
+    tol = 1e-5 * ((q * q).sum(1) + xx)[:, None]
+    assert torch.equal(gi >= 0, wi >= 0)
+    live = wi >= 0
+    assert bool(((gd - wd).abs() <= tol)[live].all())
+    assert bool((gd[~live] == ref.INF).all())
+    # ids differ only at near ties of the plain distances
+    diff = (gi != wi) & live
+    if bool(diff.any()):
+        qi, ri = torch.nonzero(diff, as_tuple=True)
+        lane = {int(v): j for j, v in enumerate(ids.tolist()) if v >= 0}
+        lanes = torch.tensor([lane[int(v)] for v in gi[qi, ri].tolist()],
+                             device=cuda)
+        assert bool(((full[qi, lanes] - wd[qi, ri]).abs() <= tol[qi, 0]).all())
+
+
+def test_search_on_the_card_matches_the_cpu(cuda):
+    """The card's answers equal the CPU's.  Index arrays may differ where
+    a PAA lies within float noise of a breakpoint (see test_isax_summarize),
+    and lower bounds differ in the last bits, which can reorder tied
+    blocks, so ids and distances are compared, not work counters."""
+    raw = random_walk(5000, 256, seed=21)
+    qs = random_walk(7, 256, seed=22)
+    ops.reset_launch_counts()
+    cpu_idx = build(raw, capacity=256, device="cpu")
+    on_card = build(raw, capacity=256, device=cuda)
+    carried = interop.block_index_from_arrays(
+        interop.block_index_to_arrays(cpu_idx), n=256, w=16, card=256,
+        capacity=256, n_real=5000, device=cuda)
+    for k in (1, 10):
+        want = search_block_major(cpu_idx, qs, k=k, device="cpu")
+        for idx in (on_card, carried):
+            got = search_block_major(idx, qs, k=k)
+            assert torch.equal(got.idx.cpu(), want.idx)
+            gs, ws = got.dist.cpu().double() ** 2, want.dist.double() ** 2
+            assert bool(((gs - ws).abs() <= 1e-5 * 2 * 256).all())
+    counts = ops.launch_counts()
+    assert all(v > 0 for v in counts.values()), counts

@@ -1,0 +1,124 @@
+"""Where the port runs, and what it may import.
+
+* Entry points default to the CUDA card: without one they raise and do
+  not carry on on the CPU (the card's absence is simulated, so the test
+  means the same on any machine).
+* ``ops`` dispatches on the tensor's device alone: a CPU tensor takes
+  the plain version and counts no launch; a kernel wrapper refuses a
+  CPU tensor instead of falling back.
+* No module of ``src/repro_torch`` and neither chip script imports
+  ``jax`` or anything of ``repro`` (an AST scan).
+"""
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import interop, resolve_device
+from repro_torch.core import engine
+from repro_torch.core.index import build
+from repro_torch.core.search import search_block_major
+from repro_torch.data import random_walk
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.block_topk import block_topk
+from repro_torch.kernels.fused_refine import fused_panel_topk
+from repro_torch.kernels.isax_summarize import isax_summarize
+from repro_torch.kernels.lb_scan import lb_scan
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.fixture(scope="module")
+def cpu_index():
+    return build(random_walk(200, 64, seed=1), capacity=32, device="cpu")
+
+
+def test_resolve_device():
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_entry_points_default_to_the_card(no_card, cpu_index):
+    raw = random_walk(50, 64, seed=2)
+    q = torch.from_numpy(raw[:2])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build(raw, capacity=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        search_block_major(cpu_index, q, k=3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        engine.run(cpu_index, q, engine.QueryPlan(k=3))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        interop.block_index_from_arrays(
+            interop.block_index_to_arrays(cpu_index), n=64, w=16, card=256,
+            capacity=32, n_real=200)
+    # the same calls run when the CPU is asked for
+    assert search_block_major(cpu_index, q, k=3, device="cpu").idx.shape == (2, 3)
+
+
+def _imports(path: Path) -> set[str]:
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    return names
+
+
+def test_port_imports_neither_jax_nor_repro():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files += [ROOT / "chip_smoke.py", ROOT / "chip_trace.py"]
+    assert len(files) > 10
+    for path in files:
+        for name in _imports(path):
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), f"{path}: {name}"
+
+
+def test_ops_on_cpu_take_the_plain_versions():
+    ops.reset_launch_counts()
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((40, 64)).astype(np.float32))
+    p, s = ops.summarize(x, w=16, card=256)
+    pr, sr = ref.isax_summarize_ref(x, w=16, card=256)
+    assert torch.equal(p, pr) and torch.equal(s, sr)
+    lo = torch.from_numpy(rng.standard_normal((16, 30)).astype(np.float32))
+    hi = lo + 1
+    assert torch.equal(ops.lb_scan_planar(p[:3], lo, hi, n=64),
+                       ref.lb_scan_ref(p[:3], lo, hi, n=64))
+    d = torch.from_numpy(rng.random((3, 30)).astype(np.float32))
+    ids = torch.arange(90, dtype=torch.int32).reshape(3, 30)
+    for got, want in zip(ops.block_topk(d, ids, 40), ref.block_topk_ref(d, ids, 40)):
+        assert torch.equal(got, want)
+    thr = torch.tensor([float("-inf"), 1e9, 0.0])
+    args = (x[:3], p[:3], x[3:33], lo, hi, ids[0], thr)
+    for got, want in zip(ops.fused_panel_topk(*args, k=5, n=64),
+                         ref.fused_panel_topk_ref(*args, k=5, n=64)):
+        assert torch.equal(got, want)
+    assert ops.launch_counts() == {"isax_summarize": 0, "lb_scan": 0,
+                                   "block_topk": 0, "fused_panel_topk": 0}
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    x = torch.zeros((4, 64))
+    q = torch.zeros((2, 16))
+    lo = torch.zeros((16, 8))
+    ids = torch.zeros((8,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        isax_summarize(x, w=16, card=256)
+    with pytest.raises(ValueError, match="CUDA"):
+        lb_scan(q, lo, lo, n=64)
+    with pytest.raises(ValueError, match="CUDA"):
+        block_topk(torch.zeros((2, 8)), torch.zeros((2, 8), dtype=torch.int32), k=3)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_panel_topk(torch.zeros((2, 64)), q, torch.zeros((8, 64)), lo, lo,
+                         ids, torch.zeros(2), k=3, n=64)
+    assert ops.launch_counts()["block_topk"] == 0

@@ -1,0 +1,143 @@
+"""The port's plain kernel versions against repro.kernels.ref's.
+
+The sweeps follow tests/test_kernels.py: Q in {1, 6, 13}, ragged C,
+k in {1, 5, 32} including k > C, all-dead and thr = -inf rows, pad lanes
+and distance ties (which must break toward the smaller id).  Selection
+(ids, live counts, symbols) must be exactly equal.  Tolerances for
+floats: PAA and lower bounds rtol 1e-6 / atol 1e-6 (reductions of O(1)
+terms in another order); squared distances rtol 1e-5 / atol 1e-4 (the
+expanded form cancels two terms of size ~n = 64, so a few ulps of n).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import isax as jisax
+from repro.kernels import ref as jref
+from repro_torch.kernels import ref as tref
+from repro_torch.data import random_walk
+
+QS = (1, 6, 13)
+KS = (1, 5, 32)
+
+
+def _np(a):
+    return a.numpy() if isinstance(a, torch.Tensor) else np.array(a)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+@pytest.mark.parametrize("normalize", [False, True])
+def test_isax_summarize_ref(normalize):
+    x = random_walk(37, 64, seed=2)
+    if not normalize:
+        x = np.array(jisax.znorm(jnp.asarray(x)))
+    pt, st = tref.isax_summarize_ref(_t(x), w=16, card=256, normalize=normalize)
+    pj, sj = jref.isax_summarize_ref(jnp.asarray(x), w=16, card=256,
+                                     normalize=normalize)
+    np.testing.assert_allclose(_np(pt), _np(pj), rtol=1e-6, atol=1e-6)
+    flips = _np(st) != _np(sj)
+    bp = jisax.breakpoints(256)[np.minimum(_np(st), _np(sj))[flips]]
+    assert np.all(np.abs(_np(pj)[flips] - bp) < 1e-5)
+    assert st.dtype == torch.int32
+
+
+@pytest.mark.parametrize("qn", QS)
+@pytest.mark.parametrize("n_items", [1, 77, 300])
+def test_lb_scan_ref(qn, n_items):
+    rng = np.random.default_rng(qn * 1000 + n_items)
+    q = rng.standard_normal((qn, 16)).astype(np.float32)
+    lo = rng.standard_normal((16, n_items)).astype(np.float32)
+    hi = lo + rng.random((16, n_items)).astype(np.float32)
+    lo[0, 0] = -jisax.SENTINEL
+    hi[1, 0] = jisax.SENTINEL
+    got = tref.lb_scan_ref(_t(q), _t(lo), _t(hi), n=128)
+    want = jref.lb_scan_ref(jnp.asarray(q), jnp.asarray(lo), jnp.asarray(hi),
+                            n=128)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-6, atol=1e-6)
+
+
+def _panel(qn, c, seed):
+    """Masked (Q, C) panel honouring the contract, with many ties."""
+    rng = np.random.default_rng(seed)
+    d = rng.integers(0, 6, (qn, c)).astype(np.float32)   # ties on purpose
+    ids = np.stack([rng.permutation(10 * c)[:c] for _ in range(qn)]
+                   ).astype(np.int32)
+    pad = rng.random((qn, c)) < 0.2
+    ids[pad] = -1
+    d[pad] = float(tref.INF)
+    if qn > 1:
+        ids[1] = -1                    # an all-pad row
+        d[1] = float(tref.INF)
+    return d, ids
+
+
+@pytest.mark.parametrize("qn", QS)
+@pytest.mark.parametrize("c", [20, 37, 200])
+@pytest.mark.parametrize("k", KS)
+def test_block_topk_ref(qn, c, k):
+    d, ids = _panel(qn, c, seed=qn * 31 + c + k)
+    gd, gi = tref.block_topk_ref(_t(d), _t(ids), k)
+    wd, wi = jref.block_topk_ref(jnp.asarray(d), jnp.asarray(ids), k)
+    assert np.array_equal(_np(gd), _np(wd))
+    assert np.array_equal(_np(gi), _np(wi))
+    assert gi.dtype == torch.int32 and gd.shape == (qn, k)
+
+
+def test_topk_by_dist_id_orders_ties_by_id():
+    d = np.array([[3.0, 1.0, 1.0, 1.0, 2.0]], np.float32)
+    ids = np.array([[0, 9, 4, -1, 7]], np.int32)
+    sd, si = tref.topk_by_dist_id(_t(d), _t(ids), 7)
+    assert si.tolist() == [[4, 9, -1, 7, 0, -1, -1]]
+    assert sd[0, :5].tolist() == [1.0, 1.0, 1.0, 2.0, 3.0]
+    assert np.all(_np(sd)[0, 5:] == tref.INF)
+
+
+def test_batch_l2_ref():
+    rng = np.random.default_rng(4)
+    q = rng.standard_normal((6, 64)).astype(np.float32)
+    x = rng.standard_normal((50, 64)).astype(np.float32)
+    np.testing.assert_allclose(
+        _np(tref.batch_l2_ref(_t(q), _t(x))),
+        _np(jref.batch_l2_ref(jnp.asarray(q), jnp.asarray(x))),
+        rtol=1e-5, atol=1e-4)
+
+
+def _refine_inputs(qn, c, seed):
+    n, w = 64, 16
+    rng = np.random.default_rng(seed)
+    block = np.array(jisax.znorm(jnp.asarray(random_walk(c, n, seed=seed))))
+    block[c // 2] = block[0]                  # identical rows: a distance tie
+    ids = rng.permutation(5 * c)[:c].astype(np.int32)
+    ids[-3:] = -1                             # pad lanes
+    block[-3:] = 1.0e4                        # RAW_PAD, as the index pads
+    _, _, bounds = jisax.summarize(jnp.asarray(block), normalize=False)
+    lo = np.ascontiguousarray(np.array(bounds[..., 0]).T)
+    hi = np.ascontiguousarray(np.array(bounds[..., 1]).T)
+    q = block[rng.integers(0, c - 3, qn)] \
+        + 0.3 * rng.standard_normal((qn, n)).astype(np.float32)
+    q_paa = np.array(jisax.paa(jnp.asarray(q), w))
+    full = np.array(jref.batch_l2_ref(jnp.asarray(q), jnp.asarray(block)))
+    thr = np.quantile(full[:, :-3], 0.3, axis=1).astype(np.float32)
+    thr[0] = -np.inf                          # inactive query
+    if qn > 2:
+        thr[2] = 0.0                          # all-dead row
+    return q, q_paa, block, lo, hi, ids, thr, n
+
+
+@pytest.mark.parametrize("qn", QS)
+@pytest.mark.parametrize("c", [37, 130])
+@pytest.mark.parametrize("k", KS)
+def test_fused_panel_topk_ref(qn, c, k):
+    args = _refine_inputs(qn, c, seed=qn * 7 + c)
+    *arrays, n = args
+    gd, gi, gn = tref.fused_panel_topk_ref(*(_t(a) for a in arrays), k=k, n=n)
+    wd, wi, wn = jref.fused_panel_topk_ref(*(jnp.asarray(a) for a in arrays),
+                                           k=k, n=n)
+    assert np.array_equal(_np(gn), _np(wn))
+    assert np.array_equal(_np(gi), _np(wi))
+    np.testing.assert_allclose(_np(gd), _np(wd), rtol=1e-5, atol=1e-4)
+    assert _np(gn)[0] == 0 and np.all(_np(gi)[0] == -1)
