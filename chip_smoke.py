@@ -1,32 +1,46 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card and check it.
+"""Drive the PyTorch port's search paths on one CUDA card and check them.
 
     python3 chip_smoke.py [--seed 0] [--n-series 10000000] [--queries 100]
+                          [--dtw-queries 10]
 
 Run from the root of a checkout on a machine with an NVIDIA H100 and the
 CUDA toolkit.  Phases, each printing one JSON line:
 
-  1. device   — the card's name and count, and nvidia-smi's name and
-                power limit; fails without a card;
-  2. build    — builds the four CUDA kernels from ``src/repro_torch/kernels/csrc``
-                (build seconds, ptxas registers / shared memory / spills);
-  3. main     — the main path through the user's entry points:
-                ``core.build`` over random-walk series generated on the card
-                from ``--seed`` (the paper's Synthetic recipe), then
-                ``core.search_block_major`` for k=1 and k=10 on
-                ``--queries`` random-walk queries from ``--seed + 1``; the
-                kernels' launch counts are set to 0 just before and read
-                just after;
-  4. kernels  — each kernel against its plain PyTorch version on the card,
-                at the main path's shapes and on its data, with the stated
-                tolerance, and timed (CUDA events) beside its plain
-                version, a library call where one exists, and its bound;
-  5. exact    — the index's answers against a brute-force scan of every
-                series with the plain ``batch_l2_ref`` + ``topk_by_dist_id``.
+  1. device    — the card's name and count, and nvidia-smi's name and
+                 power limit; fails without a card;
+  2. build     — builds the six CUDA kernels from
+                 ``src/repro_torch/kernels/csrc`` (build seconds, ptxas
+                 registers / shared memory / spills);
+  3. main      — the main path through the user's entry points:
+                 ``core.build`` over random-walk series generated on the
+                 card from ``--seed`` (the paper's Synthetic recipe), then
+                 ``core.search_block_major`` for k=1 and k=10 on
+                 ``--queries`` random-walk queries from ``--seed + 1``;
+  4. schedules — the same index and queries through ``core.search``
+                 (query-major) and ``core.search_paris`` (the flat ParIS
+                 scan, chunk 4096), k=1 and k=10;
+  5. ucr       — ``core.search_scan`` (the brute-force UCR scan) over the
+                 raw array, k=10;
+  6. dtw       — ``dtw.search_dtw`` (r=12, about 5% of the length) on the
+                 first ``--dtw-queries`` queries, k=1 and k=10, checked
+                 against a banded-DTW scan of every series (the
+                 ``dtw_band_panel`` kernel on shared chunks, merged with
+                 the plain ``topk_by_dist_id``);
+  7. kernels   — each kernel against its plain PyTorch version on the
+                 card, at its paths' shapes and on their data, with the
+                 stated tolerance, and timed (CUDA events) beside its plain
+                 version, a library call where one exists, and its bound;
+  8. exact     — every Euclidean path's answers (block-major, query-major,
+                 flat, UCR) against a brute-force scan of every series with
+                 the plain ``batch_l2_ref`` + ``topk_by_dist_id``.
 
-Then nvidia-smi's line, the ``{"kernels": [...]}`` line and, if every
-check passed, ``{"ok": true, "device": {...}}`` as the last line.  Any
-failed check exits non-zero.  TF32 is off for every fp32 product.
+Each path runs with the kernels' launch counts set to 0 just before it
+and read just after, and fails if a kernel of that path was not
+launched.  Then the run's seconds, nvidia-smi's line, the
+``{"kernels": [...]}`` line and, if every check passed,
+``{"ok": true, "device": {...}}`` as the last line.  Any failed check
+exits non-zero.  TF32 is off for every fp32 product.
 """
 from __future__ import annotations
 
@@ -44,9 +58,11 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import core  # noqa: E402
-from repro_torch.core import engine, frontier, isax  # noqa: E402
+from repro_torch.core import dtw, engine, frontier, isax  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels.batch_l2 import batch_l2  # noqa: E402
 from repro_torch.kernels.block_topk import block_topk  # noqa: E402
+from repro_torch.kernels.dtw_band import dtw_band_panel  # noqa: E402
 from repro_torch.kernels.fused_refine import fused_panel_topk  # noqa: E402
 from repro_torch.kernels.isax_summarize import isax_summarize  # noqa: E402
 from repro_torch.kernels.lb_scan import lb_scan  # noqa: E402
@@ -60,6 +76,19 @@ DIST_REL = 1e-5                # squared-L2 tolerance: DIST_REL * (||q||^2 + ||x
 LENGTH = 256                   # points per series (the paper's Synthetic)
 CAPACITY = 1024                # series per block
 SUMMARIZE_SLICE = 1_000_000    # series the summarize kernel is checked on
+FLAT_CHUNK = 4096              # the flat scan's refinement chunk
+DTW_R = 12                     # Sakoe-Chiba band, ~5% of the length
+SCAN_CHUNK = 1 << 20           # series per step of the brute-force scans
+
+# the kernels each search path must launch (the build's isax_summarize
+# is checked on its own)
+PATH_KERNELS = {
+    "block_major": ("lb_scan", "block_topk", "fused_panel_topk"),
+    "query_major": ("lb_scan", "block_topk"),
+    "flat": ("lb_scan", "block_topk", "batch_l2"),
+    "ucr": ("batch_l2",),
+    "dtw": ("lb_scan", "block_topk", "dtw_band_panel"),
+}
 
 FAILURES: list[str] = []
 
@@ -116,6 +145,42 @@ def random_walk_cuda(n_series: int, length: int, seed: int,
     return out
 
 
+def stats_line(res, secs: float) -> dict:
+    st = res.stats
+    return {"query_seconds": secs,
+            "blocks_visited_mean": st.blocks_visited.float().mean().item(),
+            "blocks_visited_max": int(st.blocks_visited.max()),
+            "series_refined_mean": st.series_refined.float().mean().item(),
+            "lb_series_mean": st.lb_series.float().mean().item(),
+            "iters": int(st.iters)}
+
+
+def run_path(name: str, fn, ks=(1, 10)) -> tuple[dict, dict, dict]:
+    """Run one search path for each k with the launch counts set to 0
+    just before and read just after.  -> ({k: (result, seconds)},
+    {k: stats line}, launches)."""
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    results = {}
+    for k in ks:
+        t0 = time.perf_counter()
+        res = fn(k)
+        torch.cuda.synchronize()
+        results[k] = (res, time.perf_counter() - t0)
+    launches = ops.launch_counts()
+    lines = {}
+    for k, (res, secs) in results.items():
+        lines[f"k{k}"] = stats_line(res, secs)
+        check(bool(torch.isfinite(res.dist).all())
+              and tuple(res.idx.shape) == (res.dist.shape[0], k)
+              and bool((res.idx >= 0).all()),
+              f"{name} k={k}: finite distances of shape (Q, k) with real ids")
+    for kernel in PATH_KERNELS[name]:
+        check(launches[kernel] > 0, f"kernel {kernel} launched on the "
+                                    f"{name} path")
+    return results, lines, launches
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -149,39 +214,103 @@ def phase_main(args, raw: torch.Tensor, queries: torch.Tensor):
     index = core.build(raw, capacity=CAPACITY)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    results = {}
-    for k in (1, 10):
-        t0 = time.perf_counter()
-        res = core.search_block_major(index, queries, k=k)
-        torch.cuda.synchronize()
-        results[k] = (res, time.perf_counter() - t0)
-    launches = ops.launch_counts()
+    build_launches = ops.launch_counts()
+    results, lines, launches = run_path(
+        "block_major", lambda k: core.search_block_major(index, queries, k=k))
+    launches["isax_summarize"] = build_launches["isax_summarize"]
+    check(launches["isax_summarize"] > 0,
+          "kernel isax_summarize launched on the block_major path")
 
     resident = sum(t.numel() * t.element_size() for t in
                    (index.raw, index.slo, index.shi, index.elo, index.ehi,
                     index.ids))
-    line = {"phase": "main", "n_series": args.n_series, "length": LENGTH,
-            "capacity": CAPACITY, "n_blocks": index.n_blocks,
-            "queries": args.queries, "build_seconds": build_s,
-            "index_bytes": resident,
-            "max_memory_allocated": torch.cuda.max_memory_allocated(),
-            "launches": launches}
-    for k, (res, secs) in results.items():
-        st = res.stats
-        line[f"k{k}"] = {
-            "query_seconds": secs,
-            "blocks_visited_mean": st.blocks_visited.float().mean().item(),
-            "blocks_visited_max": int(st.blocks_visited.max()),
-            "series_refined_mean": st.series_refined.float().mean().item(),
-            "lb_series_mean": st.lb_series.float().mean().item(),
-            "iters": int(st.iters)}
-        check(bool(torch.isfinite(res.dist).all()) and tuple(res.idx.shape)
-              == (args.queries, k) and bool((res.idx >= 0).all()),
-              f"main k={k}: finite distances of shape (Q, k) with real ids")
-    emit(line)
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} launched on the main path")
+    emit({"phase": "main", "n_series": args.n_series, "length": LENGTH,
+          "capacity": CAPACITY, "n_blocks": index.n_blocks,
+          "queries": args.queries, "build_seconds": build_s,
+          "index_bytes": resident,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "launches": launches, **lines})
     return index, results, launches
+
+
+def phase_schedules(index, queries) -> tuple[dict, dict]:
+    """Query-major and flat ED on the main path's index and queries."""
+    torch.cuda.reset_peak_memory_stats()
+    out, launches = {}, {}
+    paths = {"query_major": lambda k: core.search(index, queries, k=k),
+             "flat": lambda k: core.search_paris(index, queries, k=k,
+                                                 chunk=FLAT_CHUNK)}
+    line = {"phase": "schedules", "queries": queries.shape[0],
+            "flat_chunk": FLAT_CHUNK}
+    for name, fn in paths.items():
+        out[name], lines, launches[name] = run_path(name, fn)
+        line[name] = {"launches": launches[name], **lines}
+    line["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    emit(line)
+    return out, launches
+
+
+def phase_ucr(raw, queries) -> tuple[dict, dict]:
+    results, lines, launches = run_path(
+        "ucr", lambda k: core.search_scan(raw, queries, k=k), ks=(10,))
+    emit({"phase": "ucr", "queries": queries.shape[0],
+          "chunk": 4096, "launches": launches, **lines})
+    return results, launches
+
+
+def _dtw_scan(raw, q, kmax: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Banded DTW of the z-normed queries against every series: the
+    kernel on shared chunks of z-normed series, merged with the plain
+    (dist, id)-lex top-k."""
+    qn = q.shape[0]
+    best_d = torch.full((qn, kmax), ref.INF, device=q.device)
+    best_i = torch.full((qn, kmax), -1, dtype=torch.int32, device=q.device)
+    for i in range(0, raw.shape[0], SCAN_CHUNK):
+        j = min(i + SCAN_CHUNK, raw.shape[0])
+        d = dtw_band_panel(q, isax.znorm(raw[i:j]), r=DTW_R)
+        ids = torch.arange(i, j, dtype=torch.int32,
+                           device=q.device).expand(qn, -1)
+        cd, ci = ref.topk_by_dist_id(d, ids, kmax)
+        best_d, best_i = ref.topk_by_dist_id(torch.cat([best_d, cd], 1),
+                                             torch.cat([best_i, ci], 1), kmax)
+    return best_d, best_i
+
+
+def phase_dtw(index, raw, queries, n_main: int) -> tuple[dict, dict]:
+    """search_dtw on the same index, checked against a full DTW scan."""
+    results, lines, launches = run_path(
+        "dtw", lambda k: dtw.search_dtw(index, queries, r=DTW_R, k=k))
+    q = isax.znorm(queries)
+    t0 = time.perf_counter()
+    want_d, want_i = _dtw_scan(raw, q, max(results))
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+    line = {"phase": "dtw", "r": DTW_R, "queries": q.shape[0],
+            "cut": f"queries cut from {n_main} to {q.shape[0]} for the "
+                   "time limit",
+            "launches": launches, "scan_seconds": scan_s,
+            "tolerance": f"squared DTW within {DIST_REL} relative; ids "
+                         "equal but at near ties", **lines}
+    for k, (res, _) in results.items():
+        got_i = res.idx
+        got_d = res.dist.double() ** 2
+        wd = want_d[:, :k].double()
+        tol = DIST_REL * wd + 1e-6
+        dist_ok = bool(((got_d - wd).abs() <= tol).all())
+        diff = got_i != want_i[:, :k]
+        ties_ok = True
+        if bool(diff.any()):
+            # the plain banded DTW of every id the walk returned
+            x = isax.znorm(raw[got_i.long().flatten()]).reshape(
+                got_i.shape + (raw.shape[1],))
+            dk = ref.dtw_band_panel_ref(q, x, r=DTW_R).double()
+            ties_ok = bool(((dk - wd).abs() <= tol)[diff].all())
+        line[f"k{k}"]["ids_equal"] = int((~diff).sum())
+        line[f"k{k}"]["near_ties"] = int(diff.sum())
+        check(dist_ok and ties_ok, f"dtw k={k}: search_dtw equals the full "
+                                   "DTW scan (ids, but near ties)")
+    emit(line)
+    return results, launches
 
 
 def _compare_summarize(raw: torch.Tensor, n_slice: int) -> dict:
@@ -363,7 +492,86 @@ def _compare_fused(index, qs, front_thr, block_lb, order) -> dict:
     return line
 
 
-def phase_kernels(raw, index, queries, n_slice: int) -> dict:
+def _compare_batch_l2(q, flat_raw) -> dict:
+    """At the flat scan's first chunk, a ragged chunk, and Q = 1 and 13."""
+    cases = {"first_chunk": (q, flat_raw[:FLAT_CHUNK]),
+             "ragged_n1000": (q, flat_raw[:1000]),
+             "q1": (q[:1], flat_raw[:FLAT_CHUNK]),
+             "q13": (q[:13], flat_raw[:FLAT_CHUNK])}
+    ok_all, max_err = True, 0.0
+    for label, (qq, x) in cases.items():
+        got = batch_l2(qq, x)
+        want = ref.batch_l2_ref(qq, x)
+        tol = DIST_REL * ((qq * qq).sum(1)[:, None] + (x * x).sum(1)[None, :])
+        err = (got - want).abs()
+        ok_all &= check(bool(torch.isfinite(got).all())
+                        and bool((err <= tol).all()),
+                        f"batch_l2 {label} {tuple(qq.shape)} x "
+                        f"{tuple(x.shape)}: within {DIST_REL}*(|q|^2+|x|^2)")
+        max_err = max(max_err, float(err.max()))
+    qn, n = q.shape
+    x = flat_raw[:FLAT_CHUNK]
+    m = x.shape[0]
+    b_ms, b_by = bound(4 * (qn * n + m * n + qn * m), 2 * qn * m * n)
+    line = {"shape": [qn, m, n], "cases": list(cases),
+            "max_abs_err": max_err, "match": ok_all,
+            "ms": time_cuda(lambda: batch_l2(q, x)),
+            "plain_ms": time_cuda(lambda: ref.batch_l2_ref(q, x)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_cuda(lambda: torch.cdist(
+                q, x, compute_mode="use_mm_for_euclid_dist")),
+            "library": "torch.cdist(use_mm_for_euclid_dist): the expanded "
+                       "form plus a sqrt",
+            "tolerance": f"within {DIST_REL}*(|q|^2+|x|^2) per pair"}
+    emit({"phase": "kernels", "kernel": "batch_l2", **line})
+    return line
+
+
+def band_cells(n: int, r: int) -> int:
+    """Cells (i, j) of an n x n matrix with |i - j| <= r."""
+    r = min(r, n - 1)
+    return n * (2 * r + 1) - r * (r + 1)
+
+
+def _compare_dtw(index, q) -> dict:
+    """Shared: the first block (Q, C, n); gathered: each query's first two
+    blocks in its own lower-bound order, as the query-major walk hands
+    them over (Q, 2C, n); bitwise at r in {0, DTW_R, n - 1}."""
+    qs = engine.DTW(r=DTW_R).prep_queries(q, w=index.w)
+    block_lb = engine.DTW(r=DTW_R).block_lb(qs, index.elo, index.ehi,
+                                            n=index.n)
+    order = torch.argsort(block_lb, dim=1, stable=True)[:, :2]
+    qn, n = qs.q.shape
+    shared = index.raw[0]
+    gathered = index.raw[order].reshape(qn, -1, n)
+    ok_all = True
+    for r in (0, DTW_R, n - 1):
+        for label, x in (("shared", shared), ("gathered", gathered)):
+            got = dtw_band_panel(qs.q, x, r=r)
+            want = ref.dtw_band_panel_ref(qs.q, x, r=r)
+            ok_all &= check(torch.equal(got, want),
+                            f"dtw_band_panel {label} {tuple(x.shape)} "
+                            f"r={r}: bitwise")
+    m = gathered.shape[1]
+    cells = qn * m * band_cells(n, DTW_R)
+    b_ms, b_by = bound(4 * (qn * n + qn * m * n + qn * m), 6 * cells)
+    line = {"shape": [qn, m, n], "r": DTW_R, "form": "gathered",
+            "band_cells": cells,
+            "max_abs_err": 0.0 if ok_all else None, "match": ok_all,
+            "ms": time_cuda(lambda: dtw_band_panel(qs.q, gathered, r=DTW_R)),
+            "plain_ms": time_cuda(lambda: ref.dtw_band_panel_ref(
+                qs.q, gathered, r=DTW_R), reps=3, warmup=1),
+            "shared_ms": time_cuda(lambda: dtw_band_panel(qs.q, shared,
+                                                          r=DTW_R)),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "tolerance": f"bitwise, shared {tuple(shared.shape)} and "
+                         f"gathered {tuple(gathered.shape)}, r in "
+                         f"{{0, {DTW_R}, {n - 1}}}"}
+    emit({"phase": "kernels", "kernel": "dtw_band_panel", **line})
+    return line
+
+
+def phase_kernels(raw, index, queries, n_slice: int, n_dtw: int) -> dict:
     metric = engine.ED()
     prep = engine.prepare(metric, index, queries, 10)
     qs = prep.qs
@@ -379,18 +587,22 @@ def phase_kernels(raw, index, queries, n_slice: int) -> dict:
         "block_topk": _compare_block_topk(d0.contiguous(), ids0.contiguous()),
         "fused_panel_topk": _compare_fused(index, qs, prep.front.threshold(),
                                            prep.block_lb, order),
+        "batch_l2": _compare_batch_l2(qs.q, index.raw.reshape(-1, index.n)),
+        "dtw_band_panel": _compare_dtw(index, queries[:n_dtw]),
     }
 
 
-def phase_exact(raw, queries, results, chunk: int = 1 << 20) -> None:
-    """Brute force over every series with the plain versions, not ``ops``."""
+def phase_exact(raw, queries, paths: dict) -> None:
+    """Brute force over every series with the plain versions, not ``ops``;
+    ``paths`` maps a path's name to its {k: (result, seconds)}."""
     q = isax.znorm(queries)
-    qn, kmax = q.shape[0], max(results)
+    qn = q.shape[0]
+    kmax = max(k for results in paths.values() for k in results)
     best_d = torch.full((qn, kmax), ref.INF, device=q.device)
     best_i = torch.full((qn, kmax), -1, dtype=torch.int32, device=q.device)
     t0 = time.perf_counter()
-    for i in range(0, raw.shape[0], chunk):
-        j = min(i + chunk, raw.shape[0])
+    for i in range(0, raw.shape[0], SCAN_CHUNK):
+        j = min(i + SCAN_CHUNK, raw.shape[0])
         d = ref.batch_l2_ref(q, isax.znorm(raw[i:j]))
         ids = torch.arange(i, j, dtype=torch.int32,
                            device=q.device).expand(qn, -1)
@@ -402,25 +614,28 @@ def phase_exact(raw, queries, results, chunk: int = 1 << 20) -> None:
     tol = DIST_REL * 2 * (q * q).sum(1)                  # z-normed: |x|^2 = |q|^2
     line = {"phase": "exact", "scan_seconds": scan_s,
             "tolerance": f"squared distances within {DIST_REL}*(|q|^2+|x|^2)"}
-    for k, (res, _) in results.items():
-        got_i = res.idx
-        want_i, want_d = best_i[:, :k], best_d[:, :k]
-        got_d = res.dist.double() ** 2
-        dist_ok = bool(((got_d - want_d.double()).abs()
-                        <= tol[:, None].double()).all())
-        diff = got_i != want_i
-        ties_ok = True
-        if bool(diff.any()):
-            qi, ri = torch.nonzero(diff, as_tuple=True)
-            x = isax.znorm(raw[got_i[qi, ri].long()])
-            dk = ((q[qi] - x) ** 2).sum(1)
-            ties_ok = bool(((dk - want_d[qi, ri]).abs() <= tol[qi]).all())
-        line[f"k{k}"] = {"ids_equal": int((~diff).sum()),
-                         "near_ties": int(diff.sum()),
-                         "max_sq_dist_err": float((got_d - want_d.double())
-                                                  .abs().max())}
-        check(dist_ok and ties_ok, f"exact k={k}: index answers equal the "
-                                   "brute-force scan (ids, but near ties)")
+    for name, results in paths.items():
+        line[name] = {}
+        for k, (res, _) in results.items():
+            got_i = res.idx
+            want_i, want_d = best_i[:, :k], best_d[:, :k]
+            got_d = res.dist.double() ** 2
+            dist_ok = bool(((got_d - want_d.double()).abs()
+                            <= tol[:, None].double()).all())
+            diff = got_i != want_i
+            ties_ok = True
+            if bool(diff.any()):
+                qi, ri = torch.nonzero(diff, as_tuple=True)
+                x = isax.znorm(raw[got_i[qi, ri].long()])
+                dk = ((q[qi] - x) ** 2).sum(1)
+                ties_ok = bool(((dk - want_d[qi, ri]).abs() <= tol[qi]).all())
+            line[name][f"k{k}"] = {
+                "ids_equal": int((~diff).sum()), "near_ties": int(diff.sum()),
+                "max_sq_dist_err": float((got_d - want_d.double())
+                                         .abs().max())}
+            check(dist_ok and ties_ok, f"exact {name} k={k}: answers equal "
+                                       "the brute-force scan (ids, but near "
+                                       "ties)")
     emit(line)
 
 
@@ -433,14 +648,25 @@ REPLACES = {
                    "src/repro/kernels/block_topk.py:78"),
     "fused_panel_topk": ("src/repro_torch/kernels/csrc/fused_refine.cu",
                          "src/repro/kernels/fused_refine.py:91"),
+    "batch_l2": ("src/repro_torch/kernels/csrc/batch_l2.cu",
+                 "src/repro/kernels/batch_l2.py:36"),
+    "dtw_band_panel": ("src/repro_torch/kernels/csrc/dtw_band.cu",
+                       "src/repro/kernels/dtw_band.py:66"),
 }
+
+# the path whose launch count the kernels line reports for each kernel
+LAUNCH_PATH = {"isax_summarize": "block_major", "lb_scan": "block_major",
+               "block_topk": "block_major", "fused_panel_topk": "block_major",
+               "batch_l2": "flat", "dtw_band_panel": "dtw"}
 
 
 def main(argv=None) -> int:
+    t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n-series", type=int, default=10_000_000)
     ap.add_argument("--queries", type=int, default=100)
+    ap.add_argument("--dtw-queries", type=int, default=10)
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -453,22 +679,33 @@ def main(argv=None) -> int:
     phase_build()
     raw = random_walk_cuda(args.n_series, LENGTH, args.seed)
     queries = random_walk_cuda(args.queries, LENGTH, args.seed + 1)
-    index, results, launches = phase_main(args, raw, queries)
+    index, main_results, main_launches = phase_main(args, raw, queries)
+    sched_results, launches = phase_schedules(index, queries)
+    launches["block_major"] = main_launches
+    ucr_results, launches["ucr"] = phase_ucr(raw, queries)
+    _, launches["dtw"] = phase_dtw(index, raw,
+                                   queries[:args.dtw_queries].contiguous(),
+                                   args.queries)
     lines = phase_kernels(raw, index, queries,
-                          min(SUMMARIZE_SLICE, args.n_series))
-    phase_exact(raw, queries, results)
+                          min(SUMMARIZE_SLICE, args.n_series),
+                          args.dtw_queries)
+    phase_exact(raw, queries, {"block_major": main_results, **sched_results,
+                               "ucr": ucr_results})
 
     kernels = []
     for name, line in lines.items():
         source, replaces = REPLACES[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces,
+                        "launches": launches[LAUNCH_PATH[name]][name],
+                        "launches_path": LAUNCH_PATH[name],
                         "match": line["match"],
                         "max_abs_err": line["max_abs_err"], "ms": line["ms"],
                         "plain_ms": line["plain_ms"],
                         "bound_ms": line["bound_ms"],
                         "bound_by": line["bound_by"],
                         "library_ms": line["library_ms"]})
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(nvidia_smi_line(), flush=True)
     emit({"kernels": kernels})
     if FAILURES:

@@ -1,23 +1,31 @@
-"""One query engine: metric x schedule x backend — the ED x block_major x
-device cell of ``repro.core.engine``.
+"""One query engine: metric x schedule x backend, the device-resident
+backend of ``repro.core.engine``.
 
 ParIS/ParIS+ and MESSI are one skeleton: rank blocks by a lower bound,
 seed a best-so-far top-k, refine survivors under the tightening k-th-best
-bound.  This slice ports the main path: the z-normalized Euclidean
-metric (``ED``), the block-major schedule (each block visited at most
-once, in ascending min-over-queries lower-bound order, with a suffix-min
-stopping table) and the device-resident backend.  The JAX walk is one
-jitted ``lax.while_loop``; here it is a host loop with one host sync per
-block (the stopping test).
+bound.  Each axis is pluggable:
 
-Exactness: a block is only skipped when its lower bound is >= the
-frontier's k-th-best distance for every query, and every bound satisfies
+  * **metric**: ``ED`` (z-normalized Euclidean, the paper's core),
+    ``DTW(r)`` (Sakoe-Chiba band over the unchanged index, the paper's
+    §V) and ``Cosine`` (unit-norm embeddings);
+  * **schedule**: ``query_major`` (paper-faithful per-query priority
+    order), ``block_major`` (each block once, min-over-queries order with
+    a suffix-min stopping table) and ``flat`` (the ParIS whole-SAX-array
+    scan with chunked refinement, ``run_flat``).
+
+The JAX walks are jitted ``lax.while_loop``/``lax.scan`` loops; here they
+are host loops with one host sync per trip or chunk (the stopping test).
+The out-of-core backend (``run_cached``) comes with the on-disk slice.
+
+Exactness: a schedule only skips work whose metric lower bound is >= the
+frontier's k-th-best distance, and every metric's bounds satisfy
 ``block_lb <= series_lb <= distance``, so no true k-NN member is ever
 dismissed.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple
 
 import torch
@@ -25,9 +33,9 @@ import torch
 from repro_torch.core import frontier as frontier_lib
 from repro_torch.core import isax
 from repro_torch.core.frontier import INF, Frontier, SearchStats, query_block_l2
-from repro_torch.core.index import BlockIndex
+from repro_torch.core.index import BlockIndex, FlatIndex
 from repro_torch.device import resolve_device
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 SCHEDULES = ("query_major", "block_major", "flat")
 
@@ -43,23 +51,85 @@ class QueryState(NamedTuple):
 # metric adapters
 # ---------------------------------------------------------------------------
 
+def prep_vectors(v: torch.Tensor, unit_norm: bool = True) -> torch.Tensor:
+    """Embedding preparation for the Cosine metric.
+
+    Unit-normalization makes Euclidean top-k == cosine top-k; the sqrt(d)
+    rescale keeps per-dim values ~N(0,1)-sized so the iSAX breakpoints
+    (standard-normal quantiles) stay discriminative.
+    """
+    v = v.to(torch.float32)
+    if unit_norm:
+        v = v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True),
+                            min=1e-8)
+        v = v * math.sqrt(v.shape[-1])
+    return v
+
+
+def query_envelope(q: torch.Tensor, r: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Keogh envelope: U_i = max(q[i-r:i+r+1]), L_i = min(...). q (..., n)."""
+    n = q.shape[-1]
+    pad = q.new_full(q.shape[:-1] + (r,), float("inf"))
+    qu = torch.cat([-pad, q, -pad], dim=-1)
+    ql = torch.cat([pad, q, pad], dim=-1)
+    iu = (torch.arange(n, device=q.device)[:, None]
+          + torch.arange(2 * r + 1, device=q.device)[None, :])
+    return qu[..., iu].amax(dim=-1), ql[..., iu].amin(dim=-1)
+
+
+def lb_keogh(q_env: tuple[torch.Tensor, torch.Tensor], x: torch.Tensor
+             ) -> torch.Tensor:
+    """LB_Keogh(Q, x)^2 for raw candidates. u, l (Q, n); x (N, n) -> (Q, N)."""
+    u, l = q_env
+    above = torch.clamp(x[None] - u[:, None], min=0.0)
+    below = torch.clamp(l[:, None] - x[None], min=0.0)
+    d = above + below   # at most one of the two is nonzero per element
+    return torch.sum(d * d, dim=-1)
+
+
+def interval_planar_lb(u_paa: torch.Tensor, l_paa: torch.Tensor,
+                       lo: torch.Tensor, hi: torch.Tensor, *, n: int
+                       ) -> torch.Tensor:
+    """Squared MINDIST of the interval [l_paa, u_paa] to regions [lo, hi].
+
+    Per segment max(0, lo - u, l - hi), zero when they overlap, which
+    lower-bounds LB_Keogh_PAA and hence DTW against any series in the
+    region.  Two passes of the planar ``lb_scan`` kernel: u against
+    (lo, +S) and l against (-S, hi).  lo/hi (w, M): blocks or series.
+    """
+    big = isax.SENTINEL
+    plane = torch.full(lo.shape, big, dtype=torch.float32, device=lo.device)
+    above = ops.lb_scan_planar(u_paa, lo, plane, n=n)
+    below = ops.lb_scan_planar(l_paa, -plane, hi, n=n)
+    return above + below
+
+
+def dtw_band(a: torch.Tensor, b: torch.Tensor, r: int) -> torch.Tensor:
+    """Exact squared DTW with band r, a (..., n) vs b (..., n), broadcast:
+    the generic entry point (the plain anti-diagonal DP).  Panel-shaped
+    refines go through ``ops.dtw_panel``, which launches the kernel."""
+    return ref.dtw_band_ref(a, b, r)
+
+
 @dataclasses.dataclass(frozen=True)
 class ED:
     """Z-normalized Euclidean distance — the paper's core metric.
 
     ``lb_filter`` is the per-series MINDIST filter inside a surviving
-    block; this slice runs it through the fused kernel.  Without it the
-    refine needs the ``batch_l2`` kernel, which comes in slice 2.
-    ``normalize=False`` is the prepared-vector path.
+    block (the fused kernel on a shared panel); without it a panel is
+    ``batch_l2`` then ``block_topk``.  ``normalize=False`` is the
+    prepared-vector path.
     """
     normalize: bool = True
     lb_filter: bool = True
 
-    def __post_init__(self):
-        if not self.lb_filter:
-            raise NotImplementedError(
-                "ED(lb_filter=False) needs the batch_l2 kernel, which "
-                "comes in slice 2 of the port")
+    # per-series filtering reads the stored iSAX region bounds
+    needs_bounds = True
+
+    @property
+    def filters(self) -> bool:
+        return self.lb_filter
 
     def prep_queries(self, queries: torch.Tensor, *, w: int) -> QueryState:
         q = (isax.znorm(queries) if self.normalize
@@ -68,29 +138,41 @@ class ED:
 
     def block_lb(self, qs: QueryState, lo: torch.Tensor, hi: torch.Tensor, *,
                  n: int) -> torch.Tensor:
-        """MINDIST of each query to planar (w, M) region bounds -> (Q, M)."""
+        """MINDIST of each query to planar (w, M) region bounds -> (Q, M);
+        M may be blocks (envelopes) or series (the flat schedule)."""
         return ops.lb_scan_planar(qs.aux[0], lo, hi, n=n)
 
+    def series_lb(self, qs: QueryState, block: torch.Tensor, lo: torch.Tensor,
+                  hi: torch.Tensor, *, n: int, w: int) -> torch.Tensor:
+        """Per-series MINDIST of gathered (Q, K, w, C) bounds -> (Q, K, C)."""
+        qe = qs.aux[0][:, None, :, None]                   # (Q, 1, w, 1)
+        dd = torch.clamp(torch.maximum(lo - qe, qe - hi), min=0.0)
+        return (n / w) * torch.sum(dd * dd, dim=2)
+
     def distances(self, qs: QueryState, block: torch.Tensor) -> torch.Tensor:
-        """Per-query gathered blocks (Q, ..., C, n) -> (Q, ..., C)."""
+        """Shared (C, n) panel -> (Q, C) through the ``batch_l2`` kernel;
+        per-query gathered blocks (Q, ..., C, n) -> (Q, ..., C)."""
         if block.ndim == 2:
-            raise NotImplementedError(
-                "shared-panel distances need the batch_l2 kernel, which "
-                "comes in slice 2 of the port")
+            return ops.batch_l2(qs.q, block)
         return query_block_l2(qs.q, block)
 
     def panel_topk(self, qs: QueryState, block: torch.Tensor,
-                   ids_b: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
-                   active: torch.Tensor, thr: torch.Tensor, k: int, *,
-                   n: int, w: int
+                   ids_b: torch.Tensor, lo: torch.Tensor | None,
+                   hi: torch.Tensor | None, active: torch.Tensor,
+                   thr: torch.Tensor, k: int, *, n: int, w: int
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """LB-filter + distance + (dist, id)-lex top-k over one (C, n)
-        panel, as ONE fused kernel -> (sel_d (Q, k), sel_id (Q, k),
-        n_live (Q,)).  The per-query ``active`` mask folds into the
-        threshold as -inf (``lb < -inf`` is never true)."""
-        return ops.fused_panel_topk(
-            qs.q, qs.aux[0], block, lo, hi, ids_b,
-            torch.where(active, thr, float("-inf")), k=k, n=n)
+        panel -> (sel_d (Q, k), sel_id (Q, k), n_live (Q,)).  With the
+        filter it is ONE fused kernel, the per-query ``active`` mask
+        folded into the threshold as -inf (``lb < -inf`` is never true)."""
+        if self.lb_filter:
+            return ops.fused_panel_topk(
+                qs.q, qs.aux[0], block, lo, hi, ids_b,
+                torch.where(active, thr, float("-inf")), k=k, n=n)
+        live = active[:, None] & (ids_b >= 0)[None, :]
+        d = torch.where(live, self.distances(qs, block), INF)
+        sd, si = ops.block_topk(d, torch.where(live, ids_b[None, :], -1), k)
+        return sd, si, torch.sum(live, dim=1, dtype=torch.int32)
 
     def finalize_stats(self, stats: SearchStats, capacity: int
                        ) -> SearchStats:
@@ -101,22 +183,86 @@ class ED:
 
 @dataclasses.dataclass(frozen=True)
 class Cosine(ED):
-    """Cosine similarity over embeddings (``repro.core.engine.Cosine``)."""
+    """Cosine similarity over embeddings, served as Euclidean top-k.
 
-    def __post_init__(self):
-        raise NotImplementedError(
-            "the Cosine metric comes in slice 2 of the port")
+    ``prep_vectors`` maps corpus and queries onto the sqrt(d)-scaled unit
+    sphere, where d^2 = dim * (2 - 2 cos) is monotone in cosine, so the
+    exact ED frontier is the exact cosine top-k.
+    """
+    normalize: bool = False     # never z-norm embeddings
+    unit_norm: bool = True
+
+    def prep_queries(self, queries: torch.Tensor, *, w: int) -> QueryState:
+        q = prep_vectors(queries, self.unit_norm)
+        return QueryState(q=q, aux=(isax.paa(q, w),))
 
 
 @dataclasses.dataclass(frozen=True)
 class DTW:
-    """Sakoe-Chiba-band DTW (``repro.core.engine.DTW``)."""
+    """Sakoe-Chiba-band DTW over the UNCHANGED Euclidean index (paper §V).
+
+    The block lower bound widens the query to its Keogh envelope and takes
+    the interval-to-region MINDIST, which lower-bounds LB_Keogh_PAA and
+    hence DTW.  The per-series filter is LB_Keogh on the raw values; it
+    reads the block itself, so it needs no stored bounds.
+    """
     r: int
 
-    def __post_init__(self):
-        raise NotImplementedError(
-            "the DTW metric and its dtw_band kernel come in slice 2 of "
-            "the port")
+    filters = True
+    needs_bounds = False
+
+    def prep_queries(self, queries: torch.Tensor, *, w: int) -> QueryState:
+        q = isax.znorm(queries).to(torch.float32)
+        u, l = query_envelope(q, self.r)
+        return QueryState(q=q, aux=(u, l, isax.paa(u, w), isax.paa(l, w)))
+
+    def block_lb(self, qs: QueryState, lo: torch.Tensor, hi: torch.Tensor, *,
+                 n: int) -> torch.Tensor:
+        """Interval [l_paa, u_paa] to region [lo, hi] MINDIST -> (Q, M)."""
+        return interval_planar_lb(qs.aux[2], qs.aux[3], lo, hi, n=n)
+
+    def series_lb(self, qs: QueryState, block: torch.Tensor, lo, hi, *,
+                  n: int, w: int) -> torch.Tensor:
+        u, l = qs.aux[0], qs.aux[1]
+        if block.ndim == 2:                               # panel (C, n)
+            return lb_keogh((u, l), block)                # (Q, C)
+        above = torch.clamp(block - u[:, None, None, :], min=0.0)
+        below = torch.clamp(l[:, None, None, :] - block, min=0.0)
+        dd = above + below
+        return torch.sum(dd * dd, dim=-1)                 # (Q, K, C)
+
+    def distances(self, qs: QueryState, block: torch.Tensor) -> torch.Tensor:
+        """Shared (C, n) or gathered (Q, C, n) -> the ``dtw_band_panel``
+        kernel; (Q, K, C, n) goes to its gathered form as (Q, K*C, n)."""
+        if block.ndim <= 3:
+            return ops.dtw_panel(qs.q, block, r=self.r)
+        qn, kb, c, n = block.shape
+        return ops.dtw_panel(qs.q, block.reshape(qn, kb * c, n),
+                             r=self.r).reshape(qn, kb, c)
+
+    def panel_topk(self, qs: QueryState, block: torch.Tensor,
+                   ids_b: torch.Tensor, lo, hi, active: torch.Tensor,
+                   thr: torch.Tensor, k: int, *, n: int, w: int
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """LB_Keogh filter + banded-DP panel + top-k select."""
+        s_lb = self.series_lb(qs, block, lo, hi, n=n, w=w)      # (Q, C)
+        live = ((s_lb < thr[:, None]) & active[:, None]
+                & (ids_b >= 0)[None, :])
+        d = torch.where(live, self.distances(qs, block), INF)
+        sd, si = ops.block_topk(d, torch.where(live, ids_b[None, :], -1), k)
+        return sd, si, torch.sum(live, dim=1, dtype=torch.int32)
+
+    def finalize_stats(self, stats: SearchStats, capacity: int
+                       ) -> SearchStats:
+        """DTW's convention on every schedule: each visited block costs a
+        full panel of LB_Keogh bounds and of banded-DP distances (the DP
+        runs for all candidates, then masks), so ``series_refined ==
+        lb_series == blocks_visited * capacity`` and ``iters == 0``."""
+        v = stats.blocks_visited
+        return SearchStats(blocks_visited=v, series_refined=v * capacity,
+                           lb_series=v * capacity,
+                           iters=torch.zeros((), dtype=torch.int32,
+                                             device=v.device))
 
 
 # ---------------------------------------------------------------------------
@@ -165,12 +311,13 @@ def _check_prepared(prepared: PreparedSearch, plan: "QueryPlan",
 
 @dataclasses.dataclass(frozen=True)
 class QueryPlan:
-    """One cell of the metric x schedule matrix, plus its knobs.  The
-    query-major width and flat-chunk knobs arrive with those schedules."""
+    """One cell of the metric x schedule matrix, plus its knobs."""
     metric: object = ED()
     schedule: str = "block_major"
     k: int = 1
+    blocks_per_iter: int = 4        # query_major refine width
     deadline_blocks: int | None = None   # anytime cap; None = exact
+    chunk: int = 4096               # flat-schedule refinement chunk
 
     def __post_init__(self):
         if self.schedule not in SCHEDULES:
@@ -207,13 +354,14 @@ def prepare(metric, index: BlockIndex, queries: torch.Tensor, k: int
 
 def panel_refine(metric, qs: QueryState, front: Frontier, stats: SearchStats,
                  block: torch.Tensor, ids_b: torch.Tensor,
-                 lo: torch.Tensor, hi: torch.Tensor,
+                 lo: torch.Tensor | None, hi: torch.Tensor | None,
                  active: torch.Tensor, thr: torch.Tensor, *,
                  n: int, w: int) -> tuple[Frontier, SearchStats]:
     """Refine one (C, n) raw block panel against every query at once:
-    the metric's fused ``panel_topk``, a 2k-wide ``insert_topk`` merge and
-    the work-stat updates.  ``active`` (Q,) masks queries whose block
-    lower bound beat ``thr``."""
+    the metric's ``panel_topk``, a 2k-wide ``insert_topk`` merge and the
+    work-stat updates.  ``active`` (Q,) masks queries whose block lower
+    bound beat ``thr``; ``lo``/``hi`` are the block's (w, C) bounds, None
+    when the metric filters off the raw values or not at all."""
     c = block.shape[0]
     sd, si, nlive = metric.panel_topk(qs, block, ids_b, lo, hi, active,
                                       thr, front.k, n=n, w=w)
@@ -222,9 +370,74 @@ def panel_refine(metric, qs: QueryState, front: Frontier, stats: SearchStats,
     stats = SearchStats(
         blocks_visited=stats.blocks_visited + act,
         series_refined=stats.series_refined + nlive,
-        lb_series=stats.lb_series + act * c,
+        lb_series=stats.lb_series + (act * c if metric.filters else 0),
         iters=stats.iters,
     )
+    return front, stats
+
+
+# ---------------------------------------------------------------------------
+# device backend: the two ordered schedules + the flat scan
+# ---------------------------------------------------------------------------
+
+def _query_major(metric, index: BlockIndex, qs: QueryState, front: Frontier,
+                 block_lb: torch.Tensor, stats: SearchStats, *,
+                 blocks_per_iter: int, deadline_blocks: int | None,
+                 initial_threshold: torch.Tensor | None
+                 ) -> tuple[Frontier, SearchStats]:
+    """Paper-faithful order: each query refines ITS next-best blocks.
+
+    A per-query LB-argsorted schedule and a host loop refining the next
+    ``blocks_per_iter`` blocks of every query per trip, with one sync per
+    trip (the stopping test: every query's next block LB >= its bound).
+    Ordered traversal plus that rule are the paper's priority-queue
+    semantics.  The JAX walk's skipped branch (no active block in a trip)
+    is the masked refine here: nothing is live, so the frontier and every
+    counter but ``iters`` stay as they are.
+    """
+    b, c, n = index.raw.shape
+    qn = qs.q.shape[0]
+    kb = min(blocks_per_iter, b)
+    # stable: block bounds often tie (at 0.0), and the visit order and
+    # every counter follow jnp.argsort's stable order
+    order = torch.argsort(block_lb, dim=1, stable=True)      # (Q, B)
+    max_ptr = b if deadline_blocks is None else min(b, deadline_blocks)
+    ptr = 0
+    while ptr < max_ptr:
+        thr = frontier_lib.bound(front, initial_threshold)
+        safe = min(ptr, b - 1)
+        nxt = torch.gather(block_lb, 1, order[:, safe:safe + 1])[:, 0]
+        if not bool((nxt < thr).any()):                   # sync: once per trip
+            break
+        # lax.dynamic_slice clamps its start so that kb blocks fit
+        start = min(ptr, b - kb)
+        idxs = order[:, start:start + kb]                         # (Q, K)
+        active = torch.gather(block_lb, 1, idxs) < thr[:, None]   # (Q, K)
+        blocks = index.raw[idxs]                                  # (Q,K,C,n)
+        ids = index.ids[idxs]                                     # (Q,K,C)
+        if metric.filters:
+            lo = index.slo[idxs] if metric.needs_bounds else None
+            hi = index.shi[idxs] if metric.needs_bounds else None
+            s_lb = metric.series_lb(qs, blocks, lo, hi, n=n, w=index.w)
+            s_act = (s_lb < thr[:, None, None]) & active[..., None]
+        else:
+            s_act = active[..., None].expand(ids.shape)
+        d = metric.distances(qs, blocks)                          # (Q,K,C)
+        live = s_act & (ids >= 0)
+        # blocks partition the series and idxs rows are distinct, so ids
+        # are unique per row: block_topk's subset-exactness holds
+        sd, si = ops.block_topk(
+            torch.where(live, d, INF).reshape(qn, -1),
+            torch.where(live, ids, -1).reshape(qn, -1), front.k)
+        front = front.insert_topk(sd, si)
+        n_act = torch.sum(active, dim=1, dtype=torch.int32)
+        stats = SearchStats(
+            blocks_visited=stats.blocks_visited + n_act,
+            series_refined=stats.series_refined
+            + torch.sum(live, dim=(1, 2), dtype=torch.int32),
+            lb_series=stats.lb_series + (n_act * c if metric.filters else 0),
+            iters=stats.iters + 1)
+        ptr += kb
     return front, stats
 
 
@@ -260,6 +473,7 @@ def _block_major(metric, index: BlockIndex, qs: QueryState, front: Frontier,
     order, _, suffix = block_major_schedule(block_lb)
     order_h = order.tolist()                      # sync: once per batch
     max_ptr = b if deadline_blocks is None else min(b, deadline_blocks)
+    bounds = metric.filters and metric.needs_bounds
     ptr = 0
     while ptr < max_ptr:
         thr = frontier_lib.bound(front, initial_threshold)
@@ -269,11 +483,20 @@ def _block_major(metric, index: BlockIndex, qs: QueryState, front: Frontier,
         active = block_lb[:, b_id] < thr                      # (Q,)
         front, stats = panel_refine(
             metric, qs, front, stats, index.raw[b_id], index.ids[b_id],
-            index.slo[b_id], index.shi[b_id], active, thr, n=index.n,
+            index.slo[b_id] if bounds else None,
+            index.shi[b_id] if bounds else None, active, thr, n=index.n,
             w=index.w)
         stats = stats._replace(iters=stats.iters + 1)
         ptr += 1
     return front, stats
+
+
+def _as_device(queries, initial_threshold, dev: torch.device):
+    queries = torch.as_tensor(queries, device=dev)
+    if initial_threshold is not None:
+        initial_threshold = torch.as_tensor(initial_threshold,
+                                            dtype=torch.float32, device=dev)
+    return queries, initial_threshold
 
 
 def run(index: BlockIndex, queries, plan: QueryPlan,
@@ -292,25 +515,92 @@ def run(index: BlockIndex, queries, plan: QueryPlan,
     dev = resolve_device(device)
     if index.device != dev:
         raise ValueError(f"the index lives on {index.device}, not on {dev}")
-    if plan.schedule != "block_major":
-        raise NotImplementedError(
-            f"the {plan.schedule!r} schedule comes in slice 2 of the port")
-    if not isinstance(plan.metric, ED):
-        raise NotImplementedError(
-            f"metric {type(plan.metric).__name__} comes in slice 2 of the port")
-    queries = torch.as_tensor(queries, device=dev)
-    if initial_threshold is not None:
-        initial_threshold = torch.as_tensor(initial_threshold,
-                                            dtype=torch.float32, device=dev)
+    if plan.schedule == "flat":
+        raise ValueError("the flat schedule scans a FlatIndex — use "
+                         "engine.run_flat (or paris.search_flat)")
+    queries, initial_threshold = _as_device(queries, initial_threshold, dev)
     if prepared is None:
         prepared = prepare(plan.metric, index, queries, plan.k)
     else:
         _check_prepared(prepared, plan, index.n_blocks, queries.shape[0])
-    front, stats = _block_major(
-        plan.metric, index, prepared.qs, prepared.front, prepared.block_lb,
-        prepared.stats, deadline_blocks=plan.deadline_blocks,
-        initial_threshold=initial_threshold)
+    walk_args = (plan.metric, index, prepared.qs, prepared.front,
+                 prepared.block_lb, prepared.stats)
+    if plan.schedule == "query_major":
+        front, stats = _query_major(
+            *walk_args, blocks_per_iter=plan.blocks_per_iter,
+            deadline_blocks=plan.deadline_blocks,
+            initial_threshold=initial_threshold)
+    else:
+        front, stats = _block_major(
+            *walk_args, deadline_blocks=plan.deadline_blocks,
+            initial_threshold=initial_threshold)
     stats = plan.metric.finalize_stats(stats, index.capacity)
+    return SearchResult(dist=frontier_lib.result_dists(front),
+                        idx=front.ids, stats=stats)
+
+
+def run_flat(index: FlatIndex, queries, plan: QueryPlan,
+             block_index: BlockIndex | None = None,
+             initial_threshold: torch.Tensor | None = None, *,
+             device: str | torch.device | None = "cuda"):
+    """The ParIS schedule: one planar LB pass over EVERY series, then
+    chunked candidate refinement with the running frontier.
+
+    ``block_index`` (optional) enables stage-A seeding from the block
+    view; without it the scan starts from an empty frontier.  A host loop
+    over chunks with one sync per chunk (does any candidate survive?); a
+    chunk with no survivor is skipped.  The last chunk is ragged instead
+    of padded: padding lanes are never live, so the answer and counters
+    are those of the padded JAX scan.  ``plan.deadline_blocks`` caps the
+    number of chunks refined (anytime, in chunk units).
+    """
+    from repro_torch.core.search import SearchResult
+    dev = resolve_device(device)
+    if index.device != dev:
+        raise ValueError(f"the index lives on {index.device}, not on {dev}")
+    queries, initial_threshold = _as_device(queries, initial_threshold, dev)
+    metric = plan.metric
+    npad, n = index.raw.shape
+    if block_index is not None:
+        prep = prepare(metric, block_index, queries, plan.k)
+        qs, front = prep.qs, prep.front
+    else:
+        qs = metric.prep_queries(queries, w=index.w)
+        front = frontier_lib.init(qs.q.shape[0], plan.k, dev)
+    qn = qs.q.shape[0]
+    c = min(plan.chunk, npad)
+    nchunks = -(-npad // c)
+
+    # phase 2 — the flat LB scan over the ENTIRE SAX array (one kernel pass)
+    lb = metric.block_lb(qs, index.lo, index.hi, n=n)         # (Q, Np)
+
+    # phase 3 — chunked candidate refinement with the running frontier
+    refined = torch.zeros((qn,), dtype=torch.int32, device=dev)
+    nref = 0
+    for j in range(nchunks):
+        if plan.deadline_blocks is not None and nref >= plan.deadline_blocks:
+            break                         # every later chunk is skipped
+        s, e = j * c, min((j + 1) * c, npad)
+        ids_k = index.ids[s:e]
+        thr = frontier_lib.bound(front, initial_threshold)
+        act = (lb[:, s:e] < thr[:, None]) & (ids_k[None, :] >= 0)
+        if not bool(act.any()):                       # sync: once per chunk
+            continue
+        d = torch.where(act, metric.distances(qs, index.raw[s:e]), INF)
+        sd, si = ops.block_topk(d, torch.where(act, ids_k[None, :], -1),
+                                front.k)
+        front = front.insert_topk(sd, si)
+        refined = refined + torch.sum(act, dim=1, dtype=torch.int32)
+        nref += 1
+
+    stats = SearchStats(
+        blocks_visited=torch.full((qn,), nchunks, dtype=torch.int32,
+                                  device=dev),
+        series_refined=refined,
+        lb_series=torch.full((qn,), index.n_real, dtype=torch.int32,
+                             device=dev),                 # whole array
+        iters=torch.tensor(nchunks, dtype=torch.int32, device=dev),
+    )
     return SearchResult(dist=frontier_lib.result_dists(front),
                         idx=front.ids, stats=stats)
 

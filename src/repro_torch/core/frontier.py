@@ -19,7 +19,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.core import isax
+from repro_torch.kernels import ops, ref
 
 # float32 max, not inf: f32 arithmetic on empty slots stays finite.  The
 # same value as ref.INF, defined here too because importing ref first
@@ -55,6 +56,9 @@ class Frontier(NamedTuple):
         """(Q,) k-th best distance — the pruning bound. INF until full."""
         return self.dists[..., -1]
 
+    def insert(self, d: torch.Tensor, ids: torch.Tensor) -> "Frontier":
+        return insert_batch(self, d, ids)
+
     def insert_topk(self, d: torch.Tensor, ids: torch.Tensor) -> "Frontier":
         return insert_topk(self, d, ids)
 
@@ -67,22 +71,26 @@ def init(qn: int, k: int, device: torch.device) -> Frontier:
         ids=torch.full((qn, k), -1, dtype=torch.int32, device=device))
 
 
-def insert_batch(f: Frontier, d: torch.Tensor, ids: torch.Tensor
-                 ) -> Frontier:
+def insert_batch(f: Frontier, d: torch.Tensor, ids: torch.Tensor, *,
+                 assume_unique: bool = False) -> Frontier:
     """Fold a batch of candidates (Q, M) into the frontier.
 
     Candidates with id < 0 are ignored.  A candidate whose id is already
     held (the stage-A block is visited again by the walk) keeps one slot,
     at the MIN of both distances: the same pair recomputed by another
     kernel can differ in the last ulps.  Within one batch ids must be
-    distinct.
+    distinct.  ``assume_unique=True`` skips the (Q, M, K) duplicate mask
+    for callers whose candidates cannot collide with held ids (the UCR
+    scan: globally unique ids, each seen once).
     """
     d = torch.where(ids >= 0, d.to(torch.float32), INF)
-    same = (ids[..., :, None] == f.ids[..., None, :]) \
-        & (ids[..., :, None] >= 0)                           # (Q, M, K)
-    held = torch.where(same, d[..., :, None], INF).amin(dim=-2)
-    dists = torch.minimum(f.dists, held)
-    d = torch.where(same.any(dim=-1), INF, d)
+    dists = f.dists
+    if not assume_unique:
+        same = (ids[..., :, None] == f.ids[..., None, :]) \
+            & (ids[..., :, None] >= 0)                       # (Q, M, K)
+        held = torch.where(same, d[..., :, None], INF).amin(dim=-2)
+        dists = torch.minimum(dists, held)
+        d = torch.where(same.any(dim=-1), INF, d)
     all_d = torch.cat([dists, d], dim=-1)
     all_i = torch.cat([f.ids, ids], dim=-1)
     nd, ni = ref.topk_by_dist_id(all_d, all_i, f.k)
@@ -126,10 +134,58 @@ def query_block_l2(q: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
     """Per-query distances to its own gathered block(s).
 
     q (Q, n); blocks (Q, ..., C, n) -> (Q, ..., C) squared distances, in
-    the expanded form the kernels use.
+    the expanded form the kernels use, evaluated in float64 and rounded
+    once, as ``ref.batch_l2_ref`` is (see there why).
     """
+    q = q.to(torch.float64)
+    blocks = blocks.to(torch.float64)
     qq = torch.sum(q * q, dim=-1)                             # (Q,)
     xx = torch.sum(blocks * blocks, dim=-1)                   # (Q, ..., C)
     cross = torch.einsum("qn,q...n->q...", q, blocks)
     qq = qq.reshape(qq.shape + (1,) * (xx.ndim - 1))
-    return torch.clamp(qq + xx - 2.0 * cross, min=0.0)
+    return torch.clamp(qq + xx - 2.0 * cross, min=0.0).to(torch.float32)
+
+
+def approximate(index, q: torch.Tensor, q_paa: torch.Tensor, k: int = 1
+                ) -> tuple[Frontier, torch.Tensor]:
+    """Stage A: seed a frontier from each query's best-envelope block.
+
+    -> (frontier, block_lb (Q, B)).  One lower-bound kernel pass over the
+    block envelopes, then the exact distances to each query's argmin
+    block, inserted whole.
+    """
+    block_lb = ops.lb_scan_planar(q_paa, index.elo, index.ehi, n=index.n)
+    b0 = torch.argmin(block_lb, dim=1)                        # (Q,)
+    d = query_block_l2(q, index.raw[b0])                      # (Q, C)
+    f = init(q.shape[0], k, q.device).insert(d, index.ids[b0])
+    return f, block_lb
+
+
+class QuerySetup(NamedTuple):
+    """Shared query-side prep for the search paths."""
+    q: torch.Tensor                    # (Q, n) prepared (z-normed / cast) queries
+    q_paa: torch.Tensor | None         # (Q, w) PAA, when an index is involved
+    frontier: Frontier                 # stage-A-seeded (or empty) top-k frontier
+    block_lb: torch.Tensor | None      # (Q, B) stage-A envelope lower bounds
+    stats: SearchStats
+
+
+def prepare(queries: torch.Tensor, k: int, *, index=None, w: int | None = None,
+            normalize: bool = True) -> QuerySetup:
+    """z-norm/PAA + stage-A seeding + stats init, on the queries' device.
+
+    ``index``: a BlockIndex enables stage-A approximate seeding.  ``w``:
+    compute the PAA without an index.
+    """
+    q = (isax.znorm(queries) if normalize else queries).to(torch.float32)
+    qn = q.shape[0]
+    q_paa = block_lb = None
+    if index is not None:
+        q_paa = isax.paa(q, index.w)
+        front, block_lb = approximate(index, q, q_paa, k)
+    else:
+        if w is not None:
+            q_paa = isax.paa(q, w)
+        front = init(qn, k, q.device)
+    return QuerySetup(q=q, q_paa=q_paa, frontier=front, block_lb=block_lb,
+                      stats=stats_init(qn, q.device))

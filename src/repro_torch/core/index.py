@@ -55,6 +55,23 @@ class BlockIndex:
         return self.raw.device
 
 
+@dataclasses.dataclass(frozen=True)
+class FlatIndex:
+    """ParIS view: the SAX-array scan needs no blocks, just planar bounds."""
+    raw: torch.Tensor   # (Np, n) f32
+    lo: torch.Tensor    # (w, Np) f32
+    hi: torch.Tensor    # (w, Np) f32
+    ids: torch.Tensor   # (Np,) int32 (-1 = padding)
+    n: int
+    w: int
+    card: int
+    n_real: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.raw.device
+
+
 def block_layout(n_series: int, capacity: int) -> tuple[int, int, int]:
     """-> (cap, n_blocks, n_padded): how N series cut into fixed-capacity
     blocks."""
@@ -134,3 +151,33 @@ def assemble_blocks(xn: torch.Tensor, bounds: torch.Tensor, ids: torch.Tensor,
     return BlockIndex(raw=raw_b.contiguous(), slo=slo, shi=shi, elo=elo,
                       ehi=ehi, ids=ids_b, n=n, w=w, card=card, capacity=cap,
                       n_real=n_series)
+
+
+def flat_view(index: BlockIndex) -> FlatIndex:
+    """Reinterpret the block index as a ParIS-style flat SAX array.  The
+    raw series and ids are views; the planar bounds are one (w, B*C) copy
+    each."""
+    b, c, n = index.raw.shape
+    w = index.w
+    lo = index.slo.permute(1, 0, 2).reshape(w, b * c).contiguous()
+    hi = index.shi.permute(1, 0, 2).reshape(w, b * c).contiguous()
+    return FlatIndex(raw=index.raw.reshape(b * c, n), lo=lo, hi=hi,
+                     ids=index.ids.reshape(b * c), n=index.n, w=w,
+                     card=index.card, n_real=index.n_real)
+
+
+def build_flat(raw, *, w: int = isax.W, card: int = isax.CARD,
+               normalize: bool = True,
+               device: str | torch.device | None = "cuda") -> FlatIndex:
+    """Build only the ParIS flat SAX array (no sort, as in the paper), on
+    ``device`` (the card unless the caller asks for the CPU)."""
+    dev = resolve_device(device)
+    raw = torch.as_tensor(raw, device=dev)
+    n_series, n = raw.shape
+    xn = isax.znorm(raw) if normalize else raw.to(torch.float32)
+    _, sax = ops.summarize(xn, w=w, card=card, normalize=False)
+    bounds = isax.bounds_from_sax(sax, card)                  # (N, w, 2)
+    return FlatIndex(raw=xn, lo=bounds[..., 0].T.contiguous(),
+                     hi=bounds[..., 1].T.contiguous(),
+                     ids=torch.arange(n_series, dtype=torch.int32, device=dev),
+                     n=n, w=w, card=card, n_real=n_series)

@@ -3,11 +3,12 @@ engine (``repro.core.search``).
 
   Stage A  "search the tree for the query's leaf, compute real distances
            in it, store the minimum in BSF"       -> ``engine.prepare``
-  Stage C  surviving leaves refined in lower-bound order under the
-           k-th-best bound                        -> the ``block_major``
-           schedule (each block once, suffix-min stopping table)
-  per-series lower-bound filtering inside a leaf  -> the fused kernel of
-           ``ED.panel_topk``
+  Stage C  "surviving leaves go into priority queues ordered by lower
+           bound; workers pop, stop a queue when its head's LB >= BSF"
+                                                  -> the ``query_major``
+           schedule (``search``); ``block_major`` is the batched order
+           (each block once, suffix-min stopping table)
+  per-series lower-bound filtering inside a leaf  -> ``ED(lb_filter=True)``
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import torch
 
 from repro_torch.core import engine
 from repro_torch.core.engine import ED, QueryPlan
-from repro_torch.core.frontier import SearchStats
+from repro_torch.core.frontier import Frontier, SearchStats
 from repro_torch.core.index import BlockIndex
 
 
@@ -35,6 +36,40 @@ class SearchResult(NamedTuple):
     def nn_idx(self) -> torch.Tensor:
         """(Q,) nearest-neighbour id (the k=1 column)."""
         return self.idx[..., 0]
+
+
+def refine_panel(q: torch.Tensor, q_paa: torch.Tensor, front: Frontier,
+                 stats: SearchStats, block: torch.Tensor, ids_b: torch.Tensor,
+                 lo: torch.Tensor | None, hi: torch.Tensor | None,
+                 active: torch.Tensor, thr: torch.Tensor, *, n: int, w: int,
+                 lb_filter: bool) -> tuple[Frontier, SearchStats]:
+    """The ED specialization of ``engine.panel_refine``."""
+    qs = engine.QueryState(q=q, aux=(q_paa,))
+    return engine.panel_refine(ED(lb_filter=lb_filter), qs, front, stats,
+                               block, ids_b, lo, hi, active, thr, n=n, w=w)
+
+
+def search(index: BlockIndex, queries, *, k: int = 1,
+           blocks_per_iter: int = 4, lb_filter: bool = True,
+           initial_threshold: torch.Tensor | None = None,
+           deadline_blocks: int | None = None,
+           normalize_queries: bool = True,
+           device: str | torch.device | None = "cuda") -> SearchResult:
+    """Exact k-NN with the paper's query-major schedule, on ``device``.
+
+    Each query refines its own next-best ``blocks_per_iter`` blocks per
+    trip, until every query's next block lower bound reaches its k-th
+    best distance.  ``initial_threshold`` tightens the pruning bound
+    (squared distance); ``deadline_blocks`` caps the refined blocks per
+    query (an anytime answer); ``normalize_queries=False`` is the
+    prepared-vector path (``core.vector``).
+    """
+    plan = QueryPlan(metric=ED(normalize=normalize_queries,
+                               lb_filter=lb_filter),
+                     schedule="query_major", k=k,
+                     blocks_per_iter=blocks_per_iter,
+                     deadline_blocks=deadline_blocks)
+    return engine.run(index, queries, plan, initial_threshold, device=device)
 
 
 def search_block_major(index: BlockIndex, queries, *, k: int = 1,

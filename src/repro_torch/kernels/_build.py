@@ -41,6 +41,8 @@ SIGNATURES = {
     "block_topk_launch": (_P, _P, _P, _P, _I, _I, _I, _P),
     "fused_panel_topk_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _F, _P),
+    "batch_l2_launch": (_P, _P, _P, _I, _L, _I, _P),
+    "dtw_band_panel_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

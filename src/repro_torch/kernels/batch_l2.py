@@ -1,0 +1,41 @@
+"""CUDA kernel wrapper: batched squared Euclidean distances.
+
+Replaces the TPU kernel ``src/repro/kernels/batch_l2.py`` (``batch_l2``):
+out[q, j] = max(||q||^2 + ||x_j||^2 - 2 q.x_j, 0) for a (Q, n) query
+panel against (N, n) series.  It refines every chunk of the flat ParIS
+scan, the shared panels of ``ED(lb_filter=False)`` and each chunk of the
+UCR brute-force scan.
+
+Bound on the H100: fp32 operations (2QNn, outside the tensor cores) at
+the query batches the engine runs; bytes at Q = 1.  Design
+(``csrc/batch_l2.cu``): 64 x 64 output tiles, a 4 x 4 FFMA register
+tile per thread over 16-wide slices staged in shared memory, the row
+norms summed from the same slices; never TF32, never cuBLAS.  Sums run in
+another order than the plain ``ref.batch_l2_ref``, so the two agree
+within a tolerance, not bitwise.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+launches = 0   # launches of the kernel since the last ops.reset_launch_counts()
+
+
+def batch_l2(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """q (Q, n), x (N, n), f32 on CUDA -> (Q, N) squared distances."""
+    global launches
+    qn, n = q.shape
+    n_items = x.shape[0]
+    _build.check_tensor(q, "q", torch.float32, (qn, n))
+    _build.check_tensor(x, "x", torch.float32, (n_items, n), q.device)
+    out = torch.empty((qn, n_items), dtype=torch.float32, device=q.device)
+    lib = _build.library().lib
+    with torch.cuda.device(q.device):
+        status = lib.batch_l2_launch(q.data_ptr(), x.data_ptr(), out.data_ptr(),
+                                     qn, n_items, n,
+                                     _build.stream_handle(q.device))
+    _build.check_status(status, "batch_l2")
+    launches += 1
+    return out

@@ -14,7 +14,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import batch_l2 as _batch_l2
 from repro_torch.kernels import block_topk as _block_topk
+from repro_torch.kernels import dtw_band as _dtw_band
 from repro_torch.kernels import fused_refine as _fused_refine
 from repro_torch.kernels import isax_summarize as _isax_summarize
 from repro_torch.kernels import lb_scan as _lb_scan
@@ -25,6 +27,8 @@ _KERNELS = {
     "lb_scan": _lb_scan,
     "block_topk": _block_topk,
     "fused_panel_topk": _fused_refine,
+    "batch_l2": _batch_l2,
+    "dtw_band_panel": _dtw_band,
 }
 
 
@@ -51,6 +55,13 @@ def lb_scan_planar(q_paa: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     if _on_cuda(q_paa):
         return _lb_scan.lb_scan(q_paa, lo, hi, n=n)
     return ref.lb_scan_ref(q_paa, lo, hi, n=n)
+
+
+def batch_l2(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """q (Q, n), x (N, n) -> (Q, N) squared distances."""
+    if _on_cuda(q):
+        return _batch_l2.batch_l2(q, x)
+    return ref.batch_l2_ref(q, x)
 
 
 def block_topk(d: torch.Tensor, ids: torch.Tensor, k: int
@@ -81,6 +92,14 @@ def fused_panel_topk(q: torch.Tensor, q_paa: torch.Tensor, block: torch.Tensor,
                                               thr, k=k, n=n)
     return ref.fused_panel_topk_ref(q, q_paa, block, lo, hi, ids, thr,
                                     k=k, n=n)
+
+
+def dtw_panel(q: torch.Tensor, x: torch.Tensor, *, r: int) -> torch.Tensor:
+    """Banded squared-DTW panel. q (Q, n); x (C, n) shared -> (Q, C), or
+    x (Q, M, n) gathered -> (Q, M)."""
+    if _on_cuda(q):
+        return _dtw_band.dtw_band_panel(q, x, r=r)
+    return ref.dtw_band_panel_ref(q, x, r=r)
 
 
 def launch_counts() -> dict[str, int]:

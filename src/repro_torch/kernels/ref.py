@@ -37,14 +37,19 @@ def lb_scan_ref(q_paa: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, *,
 def batch_l2_ref(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Squared Euclidean distances. q (Q, n), x (N, n) -> (Q, N) f32.
 
-    Expanded form ||q||^2 + ||x||^2 - 2 q.x, clamped at zero.
+    Expanded form ||q||^2 + ||x||^2 - 2 q.x, clamped at zero, evaluated in
+    float64 and rounded once.  An fp32 expanded form lands a few ulps of
+    ||q||^2 + ||x||^2 off the exact value, by an amount that depends on
+    the order of its sums (XLA's and torch's CPU products differ); the
+    plain version stays at the exact value, so it is within one such error
+    of any fp32 evaluation, the kernel's and the reference's.
     """
-    q = q.to(torch.float32)
-    x = x.to(torch.float32)
+    q = q.to(torch.float64)
+    x = x.to(torch.float64)
     qq = torch.sum(q * q, dim=-1, keepdim=True)          # (Q, 1)
     xx = torch.sum(x * x, dim=-1)[None, :]               # (1, N)
     cross = q @ x.T                                      # (Q, N)
-    return torch.clamp(qq + xx - 2.0 * cross, min=0.0)
+    return torch.clamp(qq + xx - 2.0 * cross, min=0.0).to(torch.float32)
 
 
 def topk_by_dist_id(d: torch.Tensor, ids: torch.Tensor, k: int
@@ -106,3 +111,47 @@ def fused_panel_topk_ref(q: torch.Tensor, q_paa: torch.Tensor,
     idm = torch.where(live, ids[None, :], -1)
     sd, si = topk_by_dist_id(d, idm, k)
     return sd, si, torch.sum(live, dim=1, dtype=torch.int32)
+
+
+def dtw_band_ref(a: torch.Tensor, b: torch.Tensor, r: int) -> torch.Tensor:
+    """Exact squared DTW with Sakoe-Chiba band r. a (..., n) vs b (..., n),
+    broadcast -> (...).
+
+    The anti-diagonal DP of ``repro.kernels.ref.dtw_band_ref``, op for op:
+    diagonal k holds cells (i, k - i), each diagonal depends on the two
+    before it, cells off the band or off the matrix cost INF, and each
+    cell is min(c + min(min(prev, shift(prev)), shift(prev2)), INF) with
+    c = (a - b) * (a - b).  Pure elementwise arithmetic: the kernel that
+    computes only the band gives the same bits.
+    """
+    a, b = torch.broadcast_tensors(a, b)
+    n = a.shape[-1]
+    dev = a.device
+    i_idx = torch.arange(n, device=dev)
+    inf_col = torch.full(a.shape[:-1] + (1,), INF, dtype=torch.float32,
+                         device=dev)
+
+    def shift_down(d):                        # d[i] -> d[i-1]
+        return torch.cat([inf_col, d[..., :-1]], dim=-1)
+
+    prev = torch.full(a.shape, INF, dtype=torch.float32, device=dev)
+    prev2 = prev
+    for k in range(2 * n - 1):
+        j = k - i_idx
+        valid = (j >= 0) & (j < n) & ((i_idx - j).abs() <= r)
+        diff = a - b[..., j.clamp(0, n - 1)]
+        c = torch.where(valid, diff * diff, INF)
+        best = torch.minimum(torch.minimum(prev, shift_down(prev)),
+                             shift_down(prev2))
+        cur = c + (best if k else 0.0)
+        prev2, prev = prev, torch.clamp(cur, max=INF)   # keep INF from overflow
+    return prev[..., n - 1]     # cell (n-1, n-1) lives on diag 2n-2 at i=n-1
+
+
+def dtw_band_panel_ref(q: torch.Tensor, x: torch.Tensor, *, r: int
+                       ) -> torch.Tensor:
+    """Banded squared-DTW panel: q (Q, n) against a shared panel x (C, n)
+    -> (Q, C), or against gathered x (Q, M, n) -> (Q, M)."""
+    if x.ndim == 2:
+        return dtw_band_ref(q[:, None, :], x[None, :, :], r)
+    return dtw_band_ref(q[:, None, :], x, r)

@@ -1,4 +1,4 @@
-"""The four CUDA kernels against their plain versions, on the card.
+"""The six CUDA kernels against their plain versions, on the card.
 
 Marked ``gpu``; run on a machine with an H100 and the CUDA toolkit:
 
@@ -11,19 +11,22 @@ bitwise; lb_scan rtol 1e-5 (16 non-negative terms summed in another
 order); isax_summarize PAA rtol 1e-6 + atol 1e-5 with symbol flips only
 within 1e-5 of a breakpoint; fused_panel_topk live counts exact and
 squared distances within 1e-5 * (|q|^2 + max |x|^2), the cancellation
-error of the expanded form summed in another order.
+error of the expanded form summed in another order; batch_l2 within
+1e-5 * (|q|^2 + |x|^2) per pair; dtw_band_panel bitwise.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import interop
-from repro_torch.core import isax
+from repro_torch.core import dtw, isax, paris
 from repro_torch.core.index import build
 from repro_torch.core.search import search_block_major
+from repro_torch.kernels.batch_l2 import batch_l2
 from repro_torch.data import random_walk
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.block_topk import block_topk
+from repro_torch.kernels.dtw_band import dtw_band_panel
 from repro_torch.kernels.fused_refine import fused_panel_topk
 from repro_torch.kernels.isax_summarize import isax_summarize
 from repro_torch.kernels.lb_scan import lb_scan
@@ -129,6 +132,35 @@ def test_fused_panel_topk(cuda, qn, c, k):
         assert bool(((full[qi, lanes] - wd[qi, ri]).abs() <= tol[qi, 0]).all())
 
 
+@pytest.mark.parametrize("qn", [1, 6, 13, 100])
+@pytest.mark.parametrize("n_items", [1, 77, 1000, 4096])
+def test_batch_l2(cuda, qn, n_items):
+    q = isax.znorm(torch.from_numpy(random_walk(qn, 256, seed=qn)).to(cuda))
+    x = isax.znorm(torch.from_numpy(random_walk(n_items, 256,
+                                                seed=n_items)).to(cuda))
+    x[-1] = 1.0e4                                  # a RAW_PAD row
+    got = batch_l2(q, x)
+    want = ref.batch_l2_ref(q, x)
+    tol = 1e-5 * ((q * q).sum(1)[:, None] + (x * x).sum(1)[None, :])
+    assert bool(torch.isfinite(got).all())
+    assert bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("gathered", [False, True])
+@pytest.mark.parametrize("r", [0, 3, 127])
+@pytest.mark.parametrize("qn,m", [(1, 1), (3, 37), (7, 300)])
+def test_dtw_band_panel_bitwise(cuda, gathered, r, qn, m):
+    n = 128
+    q = isax.znorm(torch.from_numpy(random_walk(qn, n, seed=m)).to(cuda))
+    x = torch.from_numpy(random_walk(qn * m if gathered else m, n,
+                                     seed=r + 7)).to(cuda)
+    x = isax.znorm(x).reshape((qn, m, n) if gathered else (m, n))
+    x[..., -1, :] = 1.0e4                          # a RAW_PAD row
+    got = dtw_band_panel(q, x.contiguous(), r=r)
+    want = ref.dtw_band_panel_ref(q, x, r=r)
+    assert torch.equal(got, want)
+
+
 def test_search_on_the_card_matches_the_cpu(cuda):
     """The card's answers equal the CPU's.  Index arrays may differ where
     a PAA lies within float noise of a breakpoint (see test_isax_summarize),
@@ -150,4 +182,34 @@ def test_search_on_the_card_matches_the_cpu(cuda):
             gs, ws = got.dist.cpu().double() ** 2, want.dist.double() ** 2
             assert bool(((gs - ws).abs() <= 1e-5 * 2 * 256).all())
     counts = ops.launch_counts()
-    assert all(v > 0 for v in counts.values()), counts
+    assert all(counts[name] > 0 for name in ("isax_summarize", "lb_scan",
+                                             "block_topk", "fused_panel_topk")
+               ), counts
+
+
+def test_paris_and_dtw_on_the_card_match_the_cpu(cuda):
+    """search_paris and search_dtw on the card against the same searches
+    on the CPU, over one index carried to both: ids equal, squared
+    distances within 1e-5 * 2n (ED; z-normed |x|^2 = n) and bitwise-DP
+    DTW distances within 1e-5 relative (the queries are z-normed in
+    another summation order)."""
+    raw = random_walk(3000, 128, seed=23)
+    qs = random_walk(5, 128, seed=24)
+    cpu_idx = build(raw, capacity=128, device="cpu")
+    on_card = interop.block_index_from_arrays(
+        interop.block_index_to_arrays(cpu_idx), n=128, w=16, card=256,
+        capacity=128, n_real=3000, device=cuda)
+    ops.reset_launch_counts()
+    for k in (1, 10):
+        want = paris.search_paris(cpu_idx, qs, k=k, chunk=512, device="cpu")
+        got = paris.search_paris(on_card, qs, k=k, chunk=512)
+        assert torch.equal(got.idx.cpu(), want.idx)
+        gs, ws = got.dist.cpu().double() ** 2, want.dist.double() ** 2
+        assert bool(((gs - ws).abs() <= 1e-5 * 2 * 128).all())
+        want = dtw.search_dtw(cpu_idx, qs, r=6, k=k, device="cpu")
+        got = dtw.search_dtw(on_card, qs, r=6, k=k)
+        assert torch.equal(got.idx.cpu(), want.idx)
+        gs, ws = got.dist.cpu().double() ** 2, want.dist.double() ** 2
+        assert bool(((gs - ws).abs() <= 1e-5 * ws + 1e-6).all())
+    counts = ops.launch_counts()
+    assert counts["batch_l2"] > 0 and counts["dtw_band_panel"] > 0, counts

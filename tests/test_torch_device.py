@@ -22,7 +22,9 @@ from repro_torch.core.index import build
 from repro_torch.core.search import search_block_major
 from repro_torch.data import random_walk
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.batch_l2 import batch_l2
 from repro_torch.kernels.block_topk import block_topk
+from repro_torch.kernels.dtw_band import dtw_band_panel
 from repro_torch.kernels.fused_refine import fused_panel_topk
 from repro_torch.kernels.isax_summarize import isax_summarize
 from repro_torch.kernels.lb_scan import lb_scan
@@ -61,6 +63,28 @@ def test_entry_points_default_to_the_card(no_card, cpu_index):
             capacity=32, n_real=200)
     # the same calls run when the CPU is asked for
     assert search_block_major(cpu_index, q, k=3, device="cpu").idx.shape == (2, 3)
+
+
+@pytest.mark.parametrize("entry", ["search", "search_paris", "search_scan",
+                                   "search_dtw", "search_vectors",
+                                   "build_flat"])
+def test_slice2_entry_points_default_to_the_card(no_card, cpu_index, entry):
+    from repro_torch import core
+    from repro_torch.core import dtw, vector
+    raw = random_walk(50, 64, seed=2)
+    q = raw[:2]
+    call = {"search": lambda **kw: core.search(cpu_index, q, k=3, **kw),
+            "search_paris": lambda **kw: core.search_paris(cpu_index, q, k=3,
+                                                           **kw),
+            "search_scan": lambda **kw: core.search_scan(raw, q, k=3, **kw),
+            "search_dtw": lambda **kw: dtw.search_dtw(cpu_index, q, r=3, k=3,
+                                                      **kw),
+            "search_vectors": lambda **kw: vector.search_vectors(
+                cpu_index, q, k=3, **kw),
+            "build_flat": lambda **kw: core.build_flat(raw, **kw)}[entry]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()
+    call(device="cpu")               # the same call runs on the CPU
 
 
 def _imports(path: Path) -> set[str]:
@@ -103,8 +127,14 @@ def test_ops_on_cpu_take_the_plain_versions():
     for got, want in zip(ops.fused_panel_topk(*args, k=5, n=64),
                          ref.fused_panel_topk_ref(*args, k=5, n=64)):
         assert torch.equal(got, want)
+    assert torch.equal(ops.batch_l2(x[:3], x[3:]), ref.batch_l2_ref(x[:3], x[3:]))
+    gathered = x[3:33].reshape(3, 10, 64)
+    for panel in (x[3:13], gathered):
+        assert torch.equal(ops.dtw_panel(x[:3], panel, r=4),
+                           ref.dtw_band_panel_ref(x[:3], panel, r=4))
     assert ops.launch_counts() == {"isax_summarize": 0, "lb_scan": 0,
-                                   "block_topk": 0, "fused_panel_topk": 0}
+                                   "block_topk": 0, "fused_panel_topk": 0,
+                                   "batch_l2": 0, "dtw_band_panel": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -121,4 +151,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         fused_panel_topk(torch.zeros((2, 64)), q, torch.zeros((8, 64)), lo, lo,
                          ids, torch.zeros(2), k=3, n=64)
+    with pytest.raises(ValueError, match="CUDA"):
+        batch_l2(q, torch.zeros((8, 16)))
+    with pytest.raises(ValueError, match="CUDA"):
+        dtw_band_panel(q, torch.zeros((2, 8, 16)), r=2)
     assert ops.launch_counts()["block_topk"] == 0

@@ -60,3 +60,28 @@ def test_insert_topk_merge_bound_and_result_dists():
                           np.array(jf.result_dists(ja)))
     empty = tf.init(2, 4, torch.device("cpu"))
     assert torch.all(empty.ids == -1) and torch.all(empty.threshold() == tf.INF)
+
+
+@pytest.mark.parametrize("seeded", [False, True])
+def test_prepare_matches_reference(seeded):
+    """Query prep with and without stage-A seeding from a block index."""
+    import repro.core as jcore
+    from _torch_parity import carry
+    from repro_torch.data import random_walk
+    raw = random_walk(300, 64, seed=3)
+    qs = raw[:4] + 0.5
+    ji = jcore.build(jnp.asarray(raw), capacity=32)
+    kw = dict(index=ji) if seeded else dict(w=16)
+    want = jf.prepare(jnp.asarray(qs), 5, **kw)
+    kw = dict(index=carry(ji)) if seeded else dict(w=16)
+    got = tf.prepare(torch.from_numpy(qs), 5, **kw)
+    np.testing.assert_allclose(got.q.numpy(), np.array(want.q),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got.q_paa.numpy(), np.array(want.q_paa),
+                               rtol=1e-6, atol=1e-6)
+    assert np.array_equal(got.frontier.ids.numpy(),
+                          np.array(want.frontier.ids))
+    np.testing.assert_allclose(got.frontier.dists.numpy(),
+                               np.array(want.frontier.dists),
+                               rtol=1e-5, atol=1e-4)
+    assert (got.block_lb is None) == (want.block_lb is None)

@@ -7,6 +7,9 @@ and distance ties (which must break toward the smaller id).  Selection
 floats: PAA and lower bounds rtol 1e-6 / atol 1e-6 (reductions of O(1)
 terms in another order); squared distances rtol 1e-5 / atol 1e-4 (the
 expanded form cancels two terms of size ~n = 64, so a few ulps of n).
+The banded DTW is elementwise arithmetic with no reduction and must be
+bitwise equal: XLA does not contract its (a - b) * (a - b) + best into an
+FMA here, because a select on the band mask sits between the two.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -96,14 +99,46 @@ def test_topk_by_dist_id_orders_ties_by_id():
     assert np.all(_np(sd)[0, 5:] == tref.INF)
 
 
-def test_batch_l2_ref():
-    rng = np.random.default_rng(4)
-    q = rng.standard_normal((6, 64)).astype(np.float32)
+@pytest.mark.parametrize("qn", QS)
+def test_batch_l2_ref(qn):
+    rng = np.random.default_rng(4 + qn)
+    q = rng.standard_normal((qn, 64)).astype(np.float32)
     x = rng.standard_normal((50, 64)).astype(np.float32)
+    x[-2:] = 1.0e4                            # RAW_PAD rows stay finite
+    got = _np(tref.batch_l2_ref(_t(q), _t(x)))
     np.testing.assert_allclose(
-        _np(tref.batch_l2_ref(_t(q), _t(x))),
-        _np(jref.batch_l2_ref(jnp.asarray(q), jnp.asarray(x))),
+        got, _np(jref.batch_l2_ref(jnp.asarray(q), jnp.asarray(x))),
         rtol=1e-5, atol=1e-4)
+    assert np.all(np.isfinite(got)) and got.dtype == np.float32
+
+
+@pytest.mark.parametrize("gathered", [False, True])
+@pytest.mark.parametrize("r", [0, 3, 63])
+def test_dtw_band_panel_ref_bitwise(gathered, r):
+    n, m = 64, 23
+    rng = np.random.default_rng(r + 100 * gathered)
+    q = np.array(jisax.znorm(jnp.asarray(random_walk(5, n, seed=r + 1))))
+    shape = (5, m, n) if gathered else (m, n)
+    x = np.cumsum(rng.standard_normal(shape), axis=-1).astype(np.float32)
+    x[..., 0, :] = 1.0e4                      # a RAW_PAD row
+    got = _np(tref.dtw_band_panel_ref(_t(q), _t(x), r=r))
+    want = _np(jref.dtw_band_panel_ref(jnp.asarray(q), jnp.asarray(x), r=r))
+    assert got.shape == (5, m) and np.array_equal(got, want)
+
+
+def test_dtw_band_ref_matches_the_dp():
+    """The anti-diagonal order against the textbook row-by-row DP."""
+    rng = np.random.default_rng(9)
+    a, b = rng.standard_normal((2, 20)).astype(np.float32)
+    for r in (0, 2, 19):
+        dp = np.full((21, 21), np.inf)
+        dp[0, 0] = 0.0
+        for i in range(1, 21):
+            for j in range(max(1, i - r), min(20, i + r) + 1):
+                dp[i, j] = (float(a[i - 1]) - float(b[j - 1])) ** 2 + min(
+                    dp[i - 1, j], dp[i, j - 1], dp[i - 1, j - 1])
+        got = float(tref.dtw_band_ref(_t(a), _t(b), r))
+        np.testing.assert_allclose(got, dp[20, 20], rtol=1e-5)
 
 
 def _refine_inputs(qn, c, seed):

@@ -89,12 +89,13 @@ def test_tiny_padding_matches_reference(tiny, k):
 
 def test_tiny_k1_zero_distance_noise_moves_only_stats(tiny):
     """Known parity limit: each tiny query is a scaled copy of an indexed
-    series, so after z-normalization its true nearest distance is 0 and
-    each package's expanded form returns last-bit noise around it (JAX
-    clamps to exactly 0.0, the port may keep ~1e-5).  The pruning
-    threshold then differs inside that noise band, and a block whose
-    lower bound is 0.0 is visited by the side with the larger threshold.
-    Ids and distances still agree; only that query's counters move."""
+    series, so after z-normalization its true nearest distance is 0.  Both
+    packages clamp the expanded form at 0, but the reference's fp32
+    products land a few ulps of ||q||^2 + ||x||^2 either side of 0 while
+    the port's float64 evaluation lands next to it, so the two k=1
+    thresholds differ inside that noise band, and a block whose lower
+    bound is 0.0 is visited by the side with the larger threshold.  Ids
+    and distances still agree; only that query's counters move."""
     ji, ti, qs = tiny
     got = t_search(ti, qs, k=1, device="cpu")
     want = j_search(ji, jnp.asarray(qs), k=1)
@@ -154,12 +155,8 @@ def test_plan_validation_and_later_slices(indexes, data):
         tengine.QueryPlan(deadline_blocks=0)
     with pytest.raises(ValueError, match="schedule"):
         tengine.QueryPlan(schedule="nope")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tengine.run(ti, data[1], tengine.QueryPlan(schedule="query_major"),
+    with pytest.raises(ValueError, match="run_flat"):
+        tengine.run(ti, data[1], tengine.QueryPlan(schedule="flat"),
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tengine.ED(lb_filter=False)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tengine.DTW(r=4)
     with pytest.raises(NotImplementedError, match="slice 3"):
         tengine.run_cached(ti, data[1], tengine.QueryPlan())
