@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's search paths on one CUDA card and check them.
+"""Drive and check the port's search paths and Hymba serving on one card.
 
     python3 chip_smoke.py [--seed 0] [--n-series 10000000] [--queries 100]
-                          [--dtw-queries 10]
+                          [--dtw-queries 10] [--lm-batch 4]
+                          [--lm-prompt 2048] [--lm-gen 32] [--lm-smoke]
 
 Run from the root of a checkout on a machine with an NVIDIA H100 and the
 CUDA toolkit.  Phases, each printing one JSON line:
 
   1. device    — the card's name and count, and nvidia-smi's name and
                  power limit; fails without a card;
-  2. build     — builds the six CUDA kernels from
+  2. build     — builds the seven CUDA kernels from
                  ``src/repro_torch/kernels/csrc`` (build seconds, ptxas
                  registers / shared memory / spills);
   3. main      — the main path through the user's entry points:
@@ -27,11 +28,20 @@ CUDA toolkit.  Phases, each printing one JSON line:
                  against a banded-DTW scan of every series (the
                  ``dtw_band_panel`` kernel on shared chunks, merged with
                  the plain ``topk_by_dist_id``);
-  7. kernels   — each kernel against its plain PyTorch version on the
+  7. lm        — Hymba serving (``hymba-1.5b``, full width and depth,
+                 fp32 weights from ``--seed``): ``--lm-batch`` requests of
+                 ``--lm-prompt`` random tokens (from ``--seed + 2``) through
+                 ``launch.serve.greedy_generate`` (prefill, then greedy
+                 decode to ``--lm-gen`` tokens), checked against the
+                 teacher-forced ``forward`` over prompt and generated
+                 tokens, and layer 0's Mamba mixer (the ``ssm_scan``
+                 kernel) against the plain ``mamba_naive`` on its real
+                 input;
+  8. kernels   — each kernel against its plain PyTorch version on the
                  card, at its paths' shapes and on their data, with the
                  stated tolerance, and timed (CUDA events) beside its plain
                  version, a library call where one exists, and its bound;
-  8. exact     — every Euclidean path's answers (block-major, query-major,
+  9. exact     — every Euclidean path's answers (block-major, query-major,
                  flat, UCR) against a brute-force scan of every series with
                  the plain ``batch_l2_ref`` + ``topk_by_dist_id``.
 
@@ -66,11 +76,13 @@ from repro_torch.kernels.dtw_band import dtw_band_panel  # noqa: E402
 from repro_torch.kernels.fused_refine import fused_panel_topk  # noqa: E402
 from repro_torch.kernels.isax_summarize import isax_summarize  # noqa: E402
 from repro_torch.kernels.lb_scan import lb_scan  # noqa: E402
+from repro_torch.kernels.ssm_scan import ssm_scan  # noqa: E402
+from repro_torch.configs import count_params, get_config  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import common, mamba, transformer  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 rate outside the tensor cores
-PAA_RTOL, PAA_ATOL = 1e-6, 1e-5
-SAX_FLIP_BAND = 1e-5           # a symbol may differ only this close to a breakpoint
 LB_RTOL = 1e-5                 # 16 non-negative terms summed in another order
 DIST_REL = 1e-5                # squared-L2 tolerance: DIST_REL * (||q||^2 + ||x||^2)
 LENGTH = 256                   # points per series (the paper's Synthetic)
@@ -79,6 +91,11 @@ SUMMARIZE_SLICE = 1_000_000    # series the summarize kernel is checked on
 FLAT_CHUNK = 4096              # the flat scan's refinement chunk
 DTW_R = 12                     # Sakoe-Chiba band, ~5% of the length
 SCAN_CHUNK = 1 << 20           # series per step of the brute-force scans
+LM_ARCH = "hymba-1.5b"
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32   # requests, tokens each, generated
+LOGIT_REL = 1e-3               # serving vs forward: |dlogit| <= LOGIT_REL * max |logit|
+MIX_TOL = 1e-3                 # mixer vs mamba_naive, rtol and atol
+SSM_REL = 1e-4                 # ssm_scan vs ssm_scan_ref: SSM_REL * (|ref| + max |ref|)
 
 # the kernels each search path must launch (the build's isax_summarize
 # is checked on its own)
@@ -88,6 +105,7 @@ PATH_KERNELS = {
     "flat": ("lb_scan", "block_topk", "batch_l2"),
     "ucr": ("batch_l2",),
     "dtw": ("lb_scan", "block_topk", "dtw_band_panel"),
+    "lm": ("ssm_scan",),
 }
 
 FAILURES: list[str] = []
@@ -313,7 +331,116 @@ def phase_dtw(index, raw, queries, n_main: int) -> tuple[dict, dict]:
     return results, launches
 
 
+def lm_setup(seed: int, batch: int, prompt_len: int, smoke: bool = False):
+    """Hymba's config, its parameters on the card from ``seed``, and
+    ``batch`` prompts of ``prompt_len`` random tokens from ``seed + 2``."""
+    cfg = get_config(LM_ARCH, smoke=smoke)
+    params = serve.build_params(cfg, seed)
+    dev = params["embed"].device
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 2)
+    prompt = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=g,
+                           device=dev)
+    return cfg, params, prompt
+
+
+def phase_lm(args) -> tuple[dict, dict]:
+    """Hymba serving through the user's entry points, its consistency with
+    the teacher-forced forward, and layer 0's mixer against its oracle.
+    -> (launches, layer 0's scan inputs for the kernels phase)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    b, s_p, gen = args.lm_batch, args.lm_prompt, args.lm_gen
+    cfg, params, prompt = lm_setup(args.seed, b, s_p, args.lm_smoke)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    tensors = [t for _, t in common.leaves(params)]
+    n_params = sum(t.numel() for t in tensors)
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    out = serve.greedy_generate(params, cfg, prompt, gen)
+    launches = ops.launch_counts()
+    serve_peak = torch.cuda.max_memory_allocated()
+    mixer_calls = cfg.n_layers * gen        # one per layer: the prefill, then
+    check(launches["ssm_scan"] == mixer_calls,   # each of the gen-1 steps
+          f"lm: ssm_scan launched {launches['ssm_scan']} times, once per "
+          f"mamba_mix call ({mixer_calls})")
+
+    # 1. serving against the teacher-forced forward over the same tokens
+    t0 = time.perf_counter()
+    seq = torch.cat([prompt, out.tokens], dim=1)
+    full = transformer.forward(params, {"tokens": seq}, cfg)
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    want = full[:, s_p - 1:s_p + gen - 1]
+    scale = float(want.abs().max())
+    tol = LOGIT_REL * scale
+    err = float((out.logits - want).abs().max())
+    top2 = torch.topk(want, 2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > tol
+    greedy = torch.argmax(want, dim=-1)
+    tok_ok = torch.equal(out.tokens[clear], greedy[clear])
+    check(err <= tol, f"lm: serving logits within {LOGIT_REL} x max|logit| "
+                      f"({tol:.3g}) of the forward's, got {err:.3g}")
+    check(tok_ok, "lm: every greedy token with a top-2 gap above the "
+                  "tolerance is the forward's argmax")
+    finite = bool(torch.isfinite(out.logits).all()) and bool(
+        torch.isfinite(full).all())
+    check(finite, "lm: every logit finite")
+    check(tuple(out.tokens.shape) == (b, gen)
+          and tuple(out.logits.shape) == (b, gen, cfg.vocab),
+          "lm: tokens (B, gen) and logits (B, gen, V)")
+
+    # 2. layer 0's mixer on its real input: kernel against the plain oracle
+    p0 = transformer._layer(params["layers"], 0)
+    x = transformer.embed_inputs(params, prompt, cfg)
+    h = common.rmsnorm(x, p0["ln1"])
+    with torch.no_grad():
+        got, gst = mamba.mamba_mix(h, p0["mamba"], d_inner=cfg.q_dim)
+        t0 = time.perf_counter()
+        ref_out, rst = mamba.mamba_naive(h, p0["mamba"], d_inner=cfg.q_dim)
+        torch.cuda.synchronize()
+        naive_s = time.perf_counter() - t0
+        xc, _, _ = mamba._mixer_in(h, p0["mamba"], cfg.q_dim, None)
+        dt, bt, ct, a_mat = mamba._dt_bc(xc, p0["mamba"])
+    mix_err = max(float((got - ref_out).abs().max()),
+                  float((gst.h - rst.h).abs().max()))
+    mix_ok = (torch.allclose(got, ref_out, rtol=MIX_TOL, atol=MIX_TOL)
+              and torch.allclose(gst.h, rst.h, rtol=MIX_TOL, atol=MIX_TOL))
+    check(mix_ok, f"lm: layer 0 mamba_mix (ssm_scan kernel) within "
+                  f"{MIX_TOL} of mamba_naive")
+    n_dec = max(gen - 1, 1)
+    emit({"phase": "lm", "arch": cfg.name, "smoke_config": args.lm_smoke,
+          "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "params": n_params, "count_params": count_params(cfg),
+          "param_bytes": sum(t.numel() * t.element_size() for t in tensors),
+          "param_build_seconds": build_s, "batch": b, "prompt": s_p,
+          "gen": gen, "positions_with_meta": cfg.meta_tokens + s_p + gen,
+          "prefill_seconds": out.prefill_s,
+          "decode_ms_per_token": out.decode_s * 1e3 / n_dec,
+          "launches": launches, "ssm_scan_per_call": cfg.n_layers,
+          "max_memory_allocated_serving": serve_peak,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "forward_seconds": forward_s,
+          "consistency": {"max_abs_err": err, "logit_scale": scale,
+                          "tolerance": tol, "clear_tokens": int(clear.sum()),
+                          "tokens_equal": int((out.tokens == greedy).sum()),
+                          "compared_positions": [s_p - 1, s_p + gen - 2]},
+          "mixer_vs_naive": {"max_abs_err": mix_err, "match": mix_ok,
+                             "naive_seconds": naive_s,
+                             "tolerance": f"rtol and atol {MIX_TOL}"},
+          "sample_tokens": out.tokens[0, :16].tolist()})
+    scan_in = {"xc": xc.contiguous(), "dt": dt.contiguous(),
+               "bm": bt.contiguous(), "cm": ct.contiguous(),
+               "a": a_mat.contiguous(), "h_last": gst.h}
+    return launches, scan_in
+
+
 def _compare_summarize(raw: torch.Tensor, n_slice: int) -> dict:
+    """Bitwise: the kernel and the plain version evaluate the same float64
+    operations in the same order and round the PAA once."""
     x_raw = raw[:n_slice]
     x_norm = isax.znorm(x_raw)
     bps = isax.breakpoints_on(isax.CARD, raw.device)
@@ -323,19 +450,11 @@ def _compare_summarize(raw: torch.Tensor, n_slice: int) -> dict:
         pr, sr = ref.isax_summarize_ref(x, w=isax.W, card=isax.CARD,
                                         normalize=normalize)
         err = (pk - pr).abs()
-        paa_ok = bool((err <= PAA_ATOL + PAA_RTOL * pr.abs()).all())
-        flips = sk != sr
-        # a flip is excused only where the plain PAA lies within the band
-        # of the breakpoint between the two symbols
-        lo_sym = torch.minimum(sk, sr)[flips].long()
-        near = (pr[flips] - bps[lo_sym.clamp(max=bps.numel() - 1)]).abs()
-        n_flips = int(flips.sum())
-        flips_ok = bool((near < SAX_FLIP_BAND).all()) and bool(
-            ((sk - sr).abs() <= 1).all())
-        check(paa_ok, f"isax_summarize normalize={normalize}: PAA within "
-                      f"rtol {PAA_RTOL} + atol {PAA_ATOL}")
-        check(flips_ok, f"isax_summarize normalize={normalize}: symbol flips "
-                        f"only within {SAX_FLIP_BAND} of a breakpoint")
+        n_flips = int((sk != sr).sum())
+        paa_ok = check(torch.equal(pk, pr), f"isax_summarize normalize="
+                                            f"{normalize}: PAA bitwise")
+        flips_ok = check(n_flips == 0, f"isax_summarize normalize={normalize}:"
+                                       f" {n_flips} symbol flips, want 0")
         ms = time_cuda(lambda: isax_summarize(x, w=isax.W, card=isax.CARD,
                                               normalize=normalize))
         plain_ms = time_cuda(lambda: ref.isax_summarize_ref(
@@ -350,9 +469,7 @@ def _compare_summarize(raw: torch.Tensor, n_slice: int) -> dict:
                           "symbol_flips": n_flips, "match": paa_ok and flips_ok,
                           "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                           "bound_by": b_by, "library_ms": None,
-                          "tolerance": f"PAA rtol {PAA_RTOL} + atol {PAA_ATOL}; "
-                                       f"symbol flips within {SAX_FLIP_BAND} "
-                                       "of a breakpoint"}
+                          "tolerance": "bitwise: PAA and symbols"}
         emit({"phase": "kernels", "kernel": "isax_summarize", **out[normalize]})
     return out[False]           # the main path's branch
 
@@ -571,7 +688,63 @@ def _compare_dtw(index, q) -> dict:
     return line
 
 
-def phase_kernels(raw, index, queries, n_slice: int, n_dtw: int) -> dict:
+def _ssm_bound(b, s, d, n, with_h0: bool) -> tuple[float, str]:
+    """Bytes: xc, dt, y (B, S, D), B, C (B, S, N), A (D, N), h_last and h0
+    (B, D, N).  Operations (fp32): per (b, t, d, n) dt*A, its exp (counted
+    as one), (dt*x)*B, a*h + b (two), h*C and one reduction add; per
+    (b, t, d) dt*x."""
+    nbytes = 4 * (3 * b * s * d + 2 * b * s * n + d * n
+                  + (2 if with_h0 else 1) * b * d * n)
+    return bound(nbytes, 7 * b * s * d * n + b * s * d)
+
+
+def _compare_ssm(scan_in: dict) -> dict:
+    """At the prefill shape on layer 0's real coefficients, and at the
+    decode shape (S = 1) from that scan's last state."""
+    xc, dt, bm, cm, a = (scan_in[k] for k in ("xc", "dt", "bm", "cm", "a"))
+    one = lambda t: t[:, -1:].contiguous()
+    cases = {"prefill": (xc, dt, bm, cm, a, None),
+             "decode": (one(xc), one(dt), one(bm), one(cm), a,
+                        scan_in["h_last"])}
+    ok_all, line = True, {}
+    for label, args in cases.items():
+        y, h_last = ssm_scan(*args)
+        yr, hr = ref.ssm_scan_ref(*args)
+        errs = []
+        for name, got, want in (("y", y, yr), ("h_last", h_last, hr)):
+            err = (got - want).abs()
+            tol = SSM_REL * (want.abs() + want.abs().max())
+            ok_all &= check(bool(torch.isfinite(got).all())
+                            and bool((err <= tol).all()),
+                            f"ssm_scan {label} {name}: within {SSM_REL} x "
+                            f"(|ref| + max|ref|)")
+            errs.append(float(err.max()))
+        b, s_len, d = args[0].shape
+        n = args[2].shape[-1]
+        b_ms, b_by = _ssm_bound(b, s_len, d, n, args[5] is not None)
+        line[label] = {"shape": [b, s_len, d, n],
+                       "max_abs_err_y": errs[0], "max_abs_err_h_last": errs[1],
+                       "ms": time_cuda(lambda: ssm_scan(*args)),
+                       "plain_ms": time_cuda(lambda: ref.ssm_scan_ref(*args),
+                                             reps=3, warmup=1),
+                       "bound_ms": b_ms, "bound_by": b_by}
+    pre = line["prefill"]
+    out = {"shape": pre["shape"], "cases": line,
+           "max_abs_err": max(max(c["max_abs_err_y"], c["max_abs_err_h_last"])
+                              for c in line.values()),
+           "match": ok_all, "ms": pre["ms"], "plain_ms": pre["plain_ms"],
+           "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
+           "library_ms": None,
+           "library": "none: no single PyTorch call computes a selective scan",
+           "tolerance": f"y and h_last within {SSM_REL} x (|ref| + max|ref|): "
+                        "fp32 with FMA contraction and expf an ulp or two "
+                        "from torch.exp, over a recurrence that decays"}
+    emit({"phase": "kernels", "kernel": "ssm_scan", **out})
+    return out
+
+
+def phase_kernels(raw, index, queries, n_slice: int, n_dtw: int,
+                  scan_in: dict) -> dict:
     metric = engine.ED()
     prep = engine.prepare(metric, index, queries, 10)
     qs = prep.qs
@@ -589,6 +762,7 @@ def phase_kernels(raw, index, queries, n_slice: int, n_dtw: int) -> dict:
                                            prep.block_lb, order),
         "batch_l2": _compare_batch_l2(qs.q, index.raw.reshape(-1, index.n)),
         "dtw_band_panel": _compare_dtw(index, queries[:n_dtw]),
+        "ssm_scan": _compare_ssm(scan_in),
     }
 
 
@@ -652,12 +826,14 @@ REPLACES = {
                  "src/repro/kernels/batch_l2.py:36"),
     "dtw_band_panel": ("src/repro_torch/kernels/csrc/dtw_band.cu",
                        "src/repro/kernels/dtw_band.py:66"),
+    "ssm_scan": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
+                 "src/repro/kernels/ssm_scan.py:54"),
 }
 
 # the path whose launch count the kernels line reports for each kernel
 LAUNCH_PATH = {"isax_summarize": "block_major", "lb_scan": "block_major",
                "block_topk": "block_major", "fused_panel_topk": "block_major",
-               "batch_l2": "flat", "dtw_band_panel": "dtw"}
+               "batch_l2": "flat", "dtw_band_panel": "dtw", "ssm_scan": "lm"}
 
 
 def main(argv=None) -> int:
@@ -667,6 +843,11 @@ def main(argv=None) -> int:
     ap.add_argument("--n-series", type=int, default=10_000_000)
     ap.add_argument("--queries", type=int, default=100)
     ap.add_argument("--dtw-queries", type=int, default=10)
+    ap.add_argument("--lm-batch", type=int, default=LM_BATCH)
+    ap.add_argument("--lm-prompt", type=int, default=LM_PROMPT)
+    ap.add_argument("--lm-gen", type=int, default=LM_GEN)
+    ap.add_argument("--lm-smoke", action="store_true",
+                    help="serve Hymba's smoke() config instead of full()")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -686,9 +867,10 @@ def main(argv=None) -> int:
     _, launches["dtw"] = phase_dtw(index, raw,
                                    queries[:args.dtw_queries].contiguous(),
                                    args.queries)
+    launches["lm"], scan_in = phase_lm(args)
     lines = phase_kernels(raw, index, queries,
                           min(SUMMARIZE_SLICE, args.n_series),
-                          args.dtw_queries)
+                          args.dtw_queries, scan_in)
     phase_exact(raw, queries, {"block_major": main_results, **sched_results,
                                "ucr": ucr_results})
 

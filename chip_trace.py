@@ -1,16 +1,22 @@
 #!/usr/bin/env python3
-"""Where a query batch's time goes on the card: one profiled search.
+"""Where the time goes on the card: one profiled search batch, or one
+profiled Hymba prefill and a few decode steps.
 
     python3 chip_trace.py [--seed 0] [--n-series 10000000] [--queries 100] [--k 10]
+    python3 chip_trace.py --path lm [--seed 0]
 
-Builds the same index as ``chip_smoke.py`` (random-walk series generated
-on the card from ``--seed``, capacity 1024), runs one warm-up search and
-one timed search, then traces one ``search_block_major`` with
-``torch.profiler`` and prints one JSON line: the batch's wall time (host
-clock, synchronized) without and with the profiler, the device's busy
-time (the sum of the device events' times in the trace) and its share of
-the profiled wall time, and the kernels that took the most device time.
-Needs one CUDA card.
+``--path block_major`` (the default) builds the same index as
+``chip_smoke.py`` (random-walk series generated on the card from
+``--seed``, capacity 1024), runs one warm-up search and one timed search,
+then traces one ``search_block_major`` with ``torch.profiler``.
+``--path lm`` builds ``hymba-1.5b`` ``full()`` and the prompts from
+``--seed`` as ``chip_smoke.py`` does (4 of 2,048 tokens), serves one
+warm-up batch, then traces the prefill and, separately, 8 greedy decode
+steps.  Each trace prints one JSON line: the
+wall time (host clock, synchronized) without and with the profiler, the
+device's busy time (the sum of the device events' times in the trace)
+and its share of the profiled wall time, the device events a step, and
+the kernels that took the most device time.  Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -26,8 +32,82 @@ import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from chip_smoke import CAPACITY, LENGTH, random_walk_cuda  # noqa: E402
+from chip_smoke import (CAPACITY, LENGTH, LM_BATCH, LM_PROMPT,  # noqa: E402
+                        lm_setup, random_walk_cuda)
 from repro_torch import core  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+
+LM_STEPS = 8          # decode steps traced
+
+
+def _device_events(prof):
+    """Kernel and memcpy events of a trace, by name; their summed time."""
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in events)
+    top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)
+    return events, busy_us, [{"name": e.key[:80], "count": e.count,
+                              "device_ms": e.self_device_time_total / 1e3}
+                             for e in top[:12]]
+
+
+def trace_lm(args) -> int:
+    """Profile one prefill and LM_STEPS decode steps of Hymba."""
+    b, s_p, steps = LM_BATCH, LM_PROMPT, LM_STEPS
+    cfg, params, prompt = lm_setup(args.seed, b, s_p)
+    serve.greedy_generate(params, cfg, prompt, 2)                # warm-up
+
+    def fresh_cache():
+        return transformer.init_cache(cfg, b, s_p + steps, dtype=torch.float32)
+
+    def prefill_stage():
+        cache = fresh_cache()
+        return lambda: transformer.prefill(params, {"tokens": prompt}, cache,
+                                           cfg)
+
+    def decode_stage():
+        logits, cache = transformer.prefill(params, {"tokens": prompt},
+                                            fresh_cache(), cfg)
+        tok0 = torch.argmax(logits[:, -1], dim=-1)[:, None]
+
+        def run():
+            tok = tok0
+            for i in range(steps):
+                out, _ = transformer.decode_step(params, tok, s_p + i, cache,
+                                                 cfg)
+                tok = torch.argmax(out[:, -1], dim=-1)[:, None]
+        return run
+
+    ok = True
+    for stage, setup, n_steps in (("prefill", prefill_stage, 1),
+                                  ("decode", decode_stage, steps)):
+        run = setup()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t0
+        run = setup()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events, busy_us, top = _device_events(prof)
+        print(json.dumps({
+            "phase": "trace", "path": "lm", "stage": stage,
+            "device": torch.cuda.get_device_name(0), "arch": cfg.name,
+            "batch": b, "prompt": s_p, "steps": n_steps,
+            "wall_seconds_unprofiled": plain_wall, "wall_seconds": wall,
+            "ms_per_step_unprofiled": plain_wall * 1e3 / n_steps,
+            "device_busy_seconds": busy_us / 1e6,
+            "device_busy_share": busy_us / 1e6 / wall,
+            "device_events_per_step": sum(e.count for e in events) / n_steps,
+            "kernels": top}), flush=True)
+        ok &= busy_us > 0
+    return 0 if ok else 1
 
 
 def main(argv=None) -> int:
@@ -36,11 +116,15 @@ def main(argv=None) -> int:
     ap.add_argument("--n-series", type=int, default=10_000_000)
     ap.add_argument("--queries", type=int, default=100)
     ap.add_argument("--k", type=int, default=10)
+    ap.add_argument("--path", choices=("block_major", "lm"),
+                    default="block_major")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_trace: no CUDA card available", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.path == "lm":
+        return trace_lm(args)
     raw = random_walk_cuda(args.n_series, LENGTH, args.seed)
     queries = random_walk_cuda(args.queries, LENGTH, args.seed + 1)
     index = core.build(raw, capacity=CAPACITY)
@@ -58,10 +142,7 @@ def main(argv=None) -> int:
         res = core.search_block_major(index, queries, k=args.k)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]          # kernels, memcpys
-    busy_us = sum(e.self_device_time_total for e in events)
-    top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)
+    _, busy_us, top = _device_events(prof)
     print(json.dumps({
         "phase": "trace", "device": torch.cuda.get_device_name(0),
         "n_series": args.n_series, "queries": args.queries, "k": args.k,
@@ -69,9 +150,7 @@ def main(argv=None) -> int:
         "wall_seconds": wall,
         "device_busy_seconds": busy_us / 1e6,
         "device_busy_share": busy_us / 1e6 / wall,
-        "kernels": [{"name": e.key[:80], "count": e.count,
-                     "device_ms": e.self_device_time_total / 1e3}
-                    for e in top[:12]]}), flush=True)
+        "kernels": top}), flush=True)
     return 0 if busy_us > 0 else 1
 
 

@@ -2,9 +2,12 @@
 
 Same module layout as the JAX package ``repro`` (its reference): each
 module here has one counterpart there.  This package imports torch,
-numpy and scipy only.  Slice 1 covers the main path: the in-memory
-MESSI build and the block-major exact Euclidean k-NN, with the four
-kernels on that path hand-written in CUDA for Hopper (``kernels/csrc``).
+numpy and scipy only.  It covers the in-memory MESSI build, every device
+search path of ``repro.core`` (block-major, query-major, flat ParIS, the
+UCR scan, DTW, Cosine) and, in its LM wing, Hymba serving (``configs``,
+``models``, ``train.step``, ``launch.serve``).  Each of the seven kernels
+that ``repro`` wrote in Pallas is hand-written in CUDA for Hopper
+(``kernels/csrc``).
 """
 from repro_torch.device import resolve_device
 

@@ -1,9 +1,13 @@
-"""Carry an index across as plain numpy arrays.
+"""Carry an index, a model's parameters or its cache across as plain
+numpy arrays.
 
 The array names and layouts are those of ``repro.core.index.BlockIndex``
 (raw (B, C, n), slo/shi (B, w, C), elo/ehi (w, B), ids (B, C)) and
 ``FlatIndex`` (raw (Np, n), lo/hi (w, Np), ids (Np,)), so an index built
-by either package can be searched by the other on identical data.
+by either package can be searched by the other on identical data.  A
+parameter tree is the reference's nested dict with its names and stacked
+(L, ...) layouts, and a cache its list of per-segment dicts, so weights
+and caches cross name for name.
 """
 from __future__ import annotations
 
@@ -49,3 +53,39 @@ def flat_index_from_arrays(arrays: dict[str, np.ndarray], *, n: int, w: int,
     return FlatIndex(**_tensors(arrays, FLAT_ARRAYS, device), n=n, w=w,
                      card=card, n_real=n_real)
 
+
+
+def _to_tensors(tree: dict, dev: torch.device) -> dict:
+    return {k: _to_tensors(v, dev) if isinstance(v, dict)
+            else torch.tensor(np.ascontiguousarray(v), device=dev)
+            for k, v in tree.items()}
+
+
+def _to_arrays(tree: dict) -> dict:
+    return {k: _to_arrays(v) if isinstance(v, dict) else v.cpu().numpy()
+            for k, v in tree.items()}
+
+
+def params_from_arrays(tree: dict, device: str | torch.device | None = "cuda"
+                       ) -> dict:
+    """A nested dict of numpy arrays (e.g. ``repro``'s parameters through
+    ``np.asarray``) -> the same tree of tensors on ``device``.  The bits
+    and dtypes are kept."""
+    return _to_tensors(tree, resolve_device(device))
+
+
+def params_to_arrays(params: dict) -> dict:
+    """A parameter tree of tensors -> the same tree of numpy arrays."""
+    return _to_arrays(params)
+
+
+def cache_from_arrays(cache: list, device: str | torch.device | None = "cuda"
+                      ) -> list:
+    """A list of per-segment dicts of numpy arrays -> tensors on ``device``."""
+    dev = resolve_device(device)
+    return [_to_tensors(seg, dev) for seg in cache]
+
+
+def cache_to_arrays(cache: list) -> list:
+    """A list of per-segment dicts of tensors -> numpy arrays."""
+    return [_to_arrays(seg) for seg in cache]

@@ -43,6 +43,7 @@ SIGNATURES = {
                                 _I, _I, _I, _I, _I, _F, _P),
     "batch_l2_launch": (_P, _P, _P, _I, _L, _I, _P),
     "dtw_band_panel_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "ssm_scan_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

@@ -6,20 +6,33 @@
 // point) and (N, w) PAA values and symbols written; the arithmetic is a
 // few operations a point.  Design: one warp per series, lanes on
 // consecutive points so every load is coalesced.  The warp stages its
-// series in shared memory; with normalization on, warp reductions give the
-// mean and then the population variance about it (two passes over the
-// staged copy, as the plain z-norm does — E[x^2] - mean^2 loses digits on
-// random walks whose offset is large against their spread).  Lane s then
-// averages segment s, and finds its symbol by binary search over the
-// ascending breakpoint table, which the caller passes in (scipy's float32
-// values), so the symbols quantize against the same bits as the plain
-// version's compare.
+// series in shared memory; lane s then averages segment s and finds its
+// symbol by binary search over the ascending breakpoint table, which the
+// caller passes in (scipy's float32 values).
+//
+// The card's symbols are bitwise those of the plain version
+// (ref.isax_summarize_ref), because both evaluate the same float64
+// operations in the same order and round the PAA to float32 once:
+//   * the mean and the variance about it: lane l sums points l, l + 32,
+//     ... in order, then the 32 lane sums meet in an xor butterfly
+//     (offsets 16, 8, 4, 2, 1);
+//   * each point z-normed as (x - mean) / max(sqrt(var), 1e-8);
+//   * each window summed point by point in order, divided by its length.
+// Every operation is a correctly rounded intrinsic (__dadd_rn, __dsub_rn,
+// __dmul_rn, __ddiv_rn, __dsqrt_rn), so nvcc contracts nothing into an
+// FMA and no approximate reciprocal or rsqrt enters.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+
+__device__ __forceinline__ double warp_sum_rn(double v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = __dadd_rn(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
 
 __global__ void __launch_bounds__(kThreads)
 isax_summarize_kernel(const float* __restrict__ x, const float* __restrict__ bps,
@@ -35,32 +48,36 @@ isax_summarize_kernel(const float* __restrict__ x, const float* __restrict__ bps
   const long long series = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
   if (series >= N) return;                              // no block barrier below
   const float* xr = x + series * n;
+  const double dn = static_cast<double>(n);
 
-  float sum = 0.f;
+  double sum = 0.0;
   for (int j = lane; j < n; j += 32) {
     const float v = xr[j];
     s_x[j] = v;
-    sum += v;
+    sum = __dadd_rn(sum, static_cast<double>(v));
   }
+  double mu = 0.0, den = 1.0;
   if (normalize) {
-    const float mu = warp_sum(sum) / static_cast<float>(n);
-    float ss = 0.f;
+    mu = __ddiv_rn(warp_sum_rn(sum), dn);
+    double ss = 0.0;
     for (int j = lane; j < n; j += 32) {
-      const float c = s_x[j] - mu;
-      ss += c * c;
+      const double c = __dsub_rn(static_cast<double>(s_x[j]), mu);
+      ss = __dadd_rn(ss, __dmul_rn(c, c));
     }
-    const float sd = sqrtf(warp_sum(ss) / static_cast<float>(n));
-    const float den = fmaxf(sd, 1e-8f);
-    for (int j = lane; j < n; j += 32) s_x[j] = (s_x[j] - mu) / den;
+    den = fmax(__dsqrt_rn(__ddiv_rn(warp_sum_rn(ss), dn)), 1e-8);
   }
   __syncwarp();
 
   const int seg = n / w;
   for (int s = lane; s < w; s += 32) {
     const float* xs = s_x + s * seg;
-    float acc = 0.f;
-    for (int t = 0; t < seg; ++t) acc += xs[t];
-    const float p = acc / static_cast<float>(seg);
+    double acc = 0.0;
+    for (int t = 0; t < seg; ++t) {
+      double v = static_cast<double>(xs[t]);
+      if (normalize) v = __ddiv_rn(__dsub_rn(v, mu), den);
+      acc = __dadd_rn(acc, v);
+    }
+    const float p = __double2float_rn(__ddiv_rn(acc, static_cast<double>(seg)));
     int lo = 0, hi = nbp;                               // upper bound of p
     while (lo < hi) {
       const int mid = (lo + hi) >> 1;

@@ -21,6 +21,7 @@ from repro_torch.kernels import fused_refine as _fused_refine
 from repro_torch.kernels import isax_summarize as _isax_summarize
 from repro_torch.kernels import lb_scan as _lb_scan
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssm_scan as _ssm_scan
 
 _KERNELS = {
     "isax_summarize": _isax_summarize,
@@ -29,6 +30,7 @@ _KERNELS = {
     "fused_panel_topk": _fused_refine,
     "batch_l2": _batch_l2,
     "dtw_band_panel": _dtw_band,
+    "ssm_scan": _ssm_scan,
 }
 
 
@@ -100,6 +102,16 @@ def dtw_panel(q: torch.Tensor, x: torch.Tensor, *, r: int) -> torch.Tensor:
     if _on_cuda(q):
         return _dtw_band.dtw_band_panel(q, x, r=r)
     return ref.dtw_band_panel_ref(q, x, r=r)
+
+
+def ssm_scan(xc: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
+             cm: torch.Tensor, a: torch.Tensor, h0: torch.Tensor | None = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Selective-SSM scan. xc, dt (B, S, D); bm, cm (B, S, N); a (D, N);
+    h0 (B, D, N) or None -> (y (B, S, D), h_last (B, D, N))."""
+    if _on_cuda(xc):
+        return _ssm_scan.ssm_scan(xc, dt, bm, cm, a, h0)
+    return ref.ssm_scan_ref(xc, dt, bm, cm, a, h0)
 
 
 def launch_counts() -> dict[str, int]:

@@ -15,12 +15,51 @@ INF = float(torch.finfo(torch.float32).max)
 PAD_ID_KEY = int(torch.iinfo(torch.int32).max)   # sort key for id < 0
 
 
+def _lane_sum(v: torch.Tensor) -> torch.Tensor:
+    """Sum (N, n) float64 along the last axis in the order of a warp that
+    holds point j on lane j % 32: each lane adds its points in order, then
+    the 32 lane sums meet in an xor butterfly (offsets 16, 8, 4, 2, 1).
+    -> (N, 1)."""
+    pad = (-v.shape[-1]) % 32
+    if pad:
+        v = torch.cat([v, v.new_zeros(v.shape[:-1] + (pad,))], dim=-1)
+    rows = v.reshape(v.shape[0], -1, 32)
+    acc = torch.zeros_like(rows[:, 0])
+    for r in range(rows.shape[1]):
+        acc = acc + rows[:, r]
+    lane = torch.arange(32, device=v.device)
+    for off in (16, 8, 4, 2, 1):
+        acc = acc + acc[:, lane ^ off]
+    return acc[:, :1]
+
+
 def isax_summarize_ref(x: torch.Tensor, *, w: int, card: int,
                        normalize: bool = True
                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Optional z-norm + PAA/SAX. (N, n) f32 -> PAA (N, w) f32, symbols (N, w) int32."""
-    xx = isax.znorm(x) if normalize else x
-    p = isax.paa(xx, w)
+    """Optional z-norm + PAA/SAX. (N, n) f32 -> PAA (N, w) f32, symbols (N, w) int32.
+
+    Evaluated in float64 in the kernel's order (``csrc/isax_summarize.cu``):
+    the mean and the population variance about it summed as one warp sums
+    them, each point z-normed as (x - mean) / max(std, 1e-8), each window
+    summed point by point and divided by its length, and the PAA rounded to
+    float32 once.  Every step is one correctly rounded IEEE operation, so
+    the kernel's PAA and symbols are bitwise these.
+    """
+    n = x.shape[-1]
+    if n % w:
+        raise ValueError(f"series length {n} not divisible by w={w}")
+    xd = x.to(torch.float64)
+    if normalize:
+        mu = _lane_sum(xd) / n
+        c = xd - mu
+        sd = torch.sqrt(_lane_sum(c * c) / n)
+        xd = (xd - mu) / torch.clamp(sd, min=1e-8)
+    seg = n // w
+    win = xd.reshape(xd.shape[0], w, seg)
+    acc = torch.zeros_like(win[..., 0])
+    for t in range(seg):
+        acc = acc + win[..., t]
+    p = (acc / seg).to(torch.float32)
     return p, isax.sax_from_paa(p, card)
 
 
@@ -155,3 +194,30 @@ def dtw_band_panel_ref(q: torch.Tensor, x: torch.Tensor, *, r: int
     if x.ndim == 2:
         return dtw_band_ref(q[:, None, :], x[None, :, :], r)
     return dtw_band_ref(q[:, None, :], x, r)
+
+
+def ssm_scan_ref(xc: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
+                 cm: torch.Tensor, a: torch.Tensor,
+                 h0: torch.Tensor | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sequential selective-SSM scan, in the op order of
+    ``repro.kernels.ref.ssm_scan_ref``: per step a_t = exp(dt_t * A),
+    b_t = (dt_t * xc_t) * B_t, h = a_t * h + b_t, y_t = sum_n h * C_t.
+
+    xc, dt (B, S, D); bm, cm (B, S, N); a (D, N) (the negative A =
+    -exp(a_log)); h0 (B, D, N) or None (zeros) -> (y (B, S, D) f32,
+    h_last (B, D, N) f32).  The coefficients are formed one step at a
+    time, so nothing of size (B, S, D, N) is held.
+    """
+    f32 = torch.float32
+    xc, dt, bm, cm, a = (t.to(f32) for t in (xc, dt, bm, cm, a))
+    bsz, s, d = xc.shape
+    h = (torch.zeros((bsz, d, bm.shape[-1]), dtype=f32, device=xc.device)
+         if h0 is None else h0.to(f32))
+    y = torch.empty((bsz, s, d), dtype=f32, device=xc.device)
+    for t in range(s):
+        at = torch.exp(dt[:, t, :, None] * a[None])                # (B, D, N)
+        bt = (dt[:, t] * xc[:, t])[:, :, None] * bm[:, t, None, :]
+        h = at * h + bt
+        y[:, t] = torch.sum(h * cm[:, t, None, :], dim=-1)
+    return y, h

@@ -1,0 +1,59 @@
+"""CUDA kernel wrapper: the fused selective-SSM forward scan.
+
+Replaces the TPU kernel ``src/repro/kernels/ssm_scan.py`` (``ssm_scan``),
+the recurrence of Hymba's Mamba heads: every ``models.mamba.mamba_mix``
+call (prefill, decode, the teacher-forced forward) is one launch.
+
+    h_t = exp(dt_t A) h_{t-1} + dt_t xc_t B_t,   y_t = sum_n h_t C_t
+
+Beside ``y`` it returns the last state ``h_last``, and starts from
+``h0`` when one is given: the state that the TPU kernel keeps in VMEM,
+which serving carries from the prefill into every decode step.
+
+Bound on the H100: bytes at the prefill shape (xc, dt and y), with an
+expf per (b, t, d, n) close behind.  Design (``csrc/ssm_scan.cu``): one
+channel per group of N lanes, one state element per lane in a register,
+B_t / C_t and the channels' xc / dt staged a tile of time steps at a
+time, y_t by a shuffle reduction; nothing of size (B, S, D, N) is ever
+written.  The plain version is ``ref.ssm_scan_ref``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+launches = 0   # launches of the kernel since the last ops.reset_launch_counts()
+STATE_SIZES = (4, 8, 16, 32)   # N the kernel is compiled for
+
+
+def ssm_scan(xc: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
+             cm: torch.Tensor, a: torch.Tensor, h0: torch.Tensor | None = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """xc, dt (B, S, D); bm, cm (B, S, N); a (D, N); h0 (B, D, N) or None
+    (zeros), all f32 on CUDA -> (y (B, S, D), h_last (B, D, N))."""
+    global launches
+    b, s, d = xc.shape
+    n = bm.shape[-1]
+    if n not in STATE_SIZES:
+        raise ValueError(f"state size {n} not in {STATE_SIZES}")
+    _build.check_tensor(xc, "xc", torch.float32, (b, s, d))
+    dev = xc.device
+    _build.check_tensor(dt, "dt", torch.float32, (b, s, d), dev)
+    _build.check_tensor(bm, "bm", torch.float32, (b, s, n), dev)
+    _build.check_tensor(cm, "cm", torch.float32, (b, s, n), dev)
+    _build.check_tensor(a, "a", torch.float32, (d, n), dev)
+    if h0 is not None:
+        _build.check_tensor(h0, "h0", torch.float32, (b, d, n), dev)
+    y = torch.empty((b, s, d), dtype=torch.float32, device=dev)
+    h_last = torch.empty((b, d, n), dtype=torch.float32, device=dev)
+    lib = _build.library().lib
+    with torch.cuda.device(dev):
+        status = lib.ssm_scan_launch(
+            xc.data_ptr(), dt.data_ptr(), bm.data_ptr(), cm.data_ptr(),
+            a.data_ptr(), None if h0 is None else h0.data_ptr(),
+            y.data_ptr(), h_last.data_ptr(), b, s, d, n,
+            _build.stream_handle(dev))
+    _build.check_status(status, "ssm_scan")
+    launches += 1
+    return y, h_last

@@ -28,6 +28,7 @@ from repro_torch.kernels.dtw_band import dtw_band_panel
 from repro_torch.kernels.fused_refine import fused_panel_topk
 from repro_torch.kernels.isax_summarize import isax_summarize
 from repro_torch.kernels.lb_scan import lb_scan
+from repro_torch.kernels.ssm_scan import ssm_scan
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -87,6 +88,54 @@ def test_slice2_entry_points_default_to_the_card(no_card, cpu_index, entry):
     call(device="cpu")               # the same call runs on the CPU
 
 
+@pytest.mark.parametrize("entry", ["serve_main", "build_params",
+                                   "init_cache", "forward", "prefill",
+                                   "decode_step", "greedy_generate",
+                                   "params_from_arrays"])
+def test_serve_entry_points_default_to_the_card(no_card, entry):
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    cfg = get_config("hymba-1.5b", smoke=True)
+    params = serve.build_params(cfg, 0, "cpu")
+    tokens = np.zeros((1, 4), dtype=np.int64)
+
+    def cache(**kw):
+        return T.init_cache(cfg, 1, 8, dtype=torch.float32, **kw)
+
+    call = {
+        "serve_main": lambda **kw: serve.main(
+            ["--arch", "hymba-1.5b", "--smoke", "--batch", "1",
+             "--prompt-len", "4", "--gen", "2"]
+            + (["--device", kw["device"]] if kw else [])),
+        "build_params": lambda **kw: serve.build_params(cfg, 0, **kw),
+        "init_cache": cache,
+        "forward": lambda **kw: T.forward(params, {"tokens": tokens}, cfg,
+                                          **kw),
+        "prefill": lambda **kw: T.prefill(params, {"tokens": tokens},
+                                          cache(device="cpu"), cfg, **kw),
+        "decode_step": lambda **kw: T.decode_step(
+            params, tokens[:, :1], 0, cache(device="cpu"), cfg, **kw),
+        "greedy_generate": lambda **kw: serve.greedy_generate(
+            params, cfg, tokens, 2, **kw),
+        "params_from_arrays": lambda **kw: interop.params_from_arrays(
+            {"w": np.zeros(3, np.float32)}, **kw)}[entry]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()
+    call(device="cpu")               # the same call runs on the CPU
+
+
+def test_model_entry_points_refuse_parameters_elsewhere():
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    cfg = get_config("hymba-1.5b", smoke=True)
+    params = serve.build_params(cfg, 0, "cpu")
+    with pytest.raises(ValueError, match="parameters are on cpu"):
+        T.forward(params, {"tokens": np.zeros((1, 4), np.int64)}, cfg,
+                  device="meta")
+
+
 def _imports(path: Path) -> set[str]:
     names = set()
     for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
@@ -132,9 +181,16 @@ def test_ops_on_cpu_take_the_plain_versions():
     for panel in (x[3:13], gathered):
         assert torch.equal(ops.dtw_panel(x[:3], panel, r=4),
                            ref.dtw_band_panel_ref(x[:3], panel, r=4))
+    xc = x[:6].reshape(2, 3, 64)
+    bm = xc[..., :4].contiguous()
+    a = -x[6:22].reshape(64, 16)[:, :4].abs()
+    for got, want in zip(ops.ssm_scan(xc, xc.abs(), bm, bm, a),
+                         ref.ssm_scan_ref(xc, xc.abs(), bm, bm, a)):
+        assert torch.equal(got, want)
     assert ops.launch_counts() == {"isax_summarize": 0, "lb_scan": 0,
                                    "block_topk": 0, "fused_panel_topk": 0,
-                                   "batch_l2": 0, "dtw_band_panel": 0}
+                                   "batch_l2": 0, "dtw_band_panel": 0,
+                                   "ssm_scan": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -155,4 +211,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         batch_l2(q, torch.zeros((8, 16)))
     with pytest.raises(ValueError, match="CUDA"):
         dtw_band_panel(q, torch.zeros((2, 8, 16)), r=2)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssm_scan(torch.zeros((1, 3, 8)), torch.zeros((1, 3, 8)),
+                 torch.zeros((1, 3, 4)), torch.zeros((1, 3, 4)),
+                 torch.zeros((8, 4)))
     assert ops.launch_counts()["block_topk"] == 0
+    assert ops.launch_counts()["ssm_scan"] == 0

@@ -9,7 +9,9 @@ terms in another order); squared distances rtol 1e-5 / atol 1e-4 (the
 expanded form cancels two terms of size ~n = 64, so a few ulps of n).
 The banded DTW is elementwise arithmetic with no reduction and must be
 bitwise equal: XLA does not contract its (a - b) * (a - b) + best into an
-FMA here, because a select on the band mask sits between the two.
+FMA here, because a select on the band mask sits between the two.  The
+selective scan agrees to rtol / atol 1e-4, the bar of
+tests/test_kernels.py's scan test, at that test's shapes.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -176,3 +178,27 @@ def test_fused_panel_topk_ref(qn, c, k):
     assert np.array_equal(_np(gi), _np(wi))
     np.testing.assert_allclose(_np(gd), _np(wd), rtol=1e-5, atol=1e-4)
     assert _np(gn)[0] == 0 and np.all(_np(gi)[0] == -1)
+
+
+@pytest.mark.parametrize("b,s,d,n", [(1, 16, 8, 4), (2, 32, 100, 16),
+                                     (1, 64, 128, 8)])
+def test_ssm_scan_ref(b, s, d, n):
+    rng = np.random.default_rng(b * 1000 + s + d + n)
+    mk = lambda *sh: rng.standard_normal(sh).astype(np.float32) * 0.5
+    xc, dt = mk(b, s, d), np.abs(mk(b, s, d)) * 0.2
+    bm, cm = mk(b, s, n), mk(b, s, n)
+    a = -np.abs(mk(d, n)) - 0.1
+    y, h_last = tref.ssm_scan_ref(*(_t(v) for v in (xc, dt, bm, cm, a)))
+    want = jref.ssm_scan_ref(*(jnp.asarray(v) for v in (xc, dt, bm, cm, a)))
+    np.testing.assert_allclose(_np(y), _np(want), rtol=1e-4, atol=1e-4)
+    assert y.dtype == torch.float32 and tuple(h_last.shape) == (b, d, n)
+    # a scan split in two, the second half from the first half's state,
+    # is the scan of the whole
+    half = s // 2
+    cut = lambda v, lo, hi: _t(np.ascontiguousarray(v[:, lo:hi]))
+    y1, h1 = tref.ssm_scan_ref(*(cut(v, 0, half) for v in (xc, dt, bm, cm)),
+                               _t(a))
+    y2, h2 = tref.ssm_scan_ref(*(cut(v, half, s) for v in (xc, dt, bm, cm)),
+                               _t(a), h1)
+    assert torch.equal(torch.cat([y1, y2], 1), y)
+    assert torch.equal(h2, h_last)
