@@ -39,8 +39,13 @@ CUDA toolkit.  Phases, each printing one JSON line:
                  input;
   8. kernels   — each kernel against its plain PyTorch version on the
                  card, at its paths' shapes and on their data, with the
-                 stated tolerance, and timed (CUDA events) beside its plain
-                 version, a library call where one exists, and its bound;
+                 stated tolerance, and timed beside its plain version, a
+                 library call where one exists, and its bound: ``ms`` is
+                 CUDA events around back-to-back calls (the wrapper's host
+                 time included where it is the longer), ``device_ms`` the
+                 kernel's own device time from the profiler over the same
+                 calls; ``fused_panel_topk`` is timed at the walk's first
+                 block and at a late block with few live lanes;
   9. exact     — every Euclidean path's answers (block-major, query-major,
                  flat, UCR) against a brute-force scan of every series with
                  the plain ``batch_l2_ref`` + ``topk_by_dist_id``.
@@ -66,6 +71,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+from torch.autograd import DeviceType  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro_torch import core  # noqa: E402
 from repro_torch.core import dtw, engine, frontier, isax  # noqa: E402
@@ -108,6 +115,12 @@ PATH_KERNELS = {
     "lm": ("ssm_scan",),
 }
 
+# the substring of each kernel's symbol the profiler's device events carry
+SYMBOL = {"isax_summarize": "isax_summarize", "lb_scan": "lb_scan",
+          "block_topk": "block_topk", "fused_panel_topk": "fused_panel_topk",
+          "batch_l2": "batch_l2", "dtw_band_panel": "dtw_band",
+          "ssm_scan": "ssm_scan"}
+
 FAILURES: list[str] = []
 
 
@@ -142,6 +155,29 @@ def time_cuda(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, symbol: str, reps: int = 20, warmup: int = 3) -> float:
+    """The kernel's own device milliseconds per launch: ``torch.profiler``
+    (CUDA activity only) over the same back-to-back calls ``time_cuda``
+    runs, summed over the device events whose name holds ``symbol``, over
+    their count.  Host time between launches is not in it."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and symbol in e.key]
+    count = sum(e.count for e in hits)
+    # the profiler may drop a launch at the start of its window: the mean
+    # is over the launches it saw
+    if not check(0 < count <= reps, f"profiler saw {count} launches of "
+                                    f"{symbol} in {reps} calls"):
+        return float("nan")
+    return sum(e.self_device_time_total for e in hits) / count / 1e3
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -455,8 +491,10 @@ def _compare_summarize(raw: torch.Tensor, n_slice: int) -> dict:
                                             f"{normalize}: PAA bitwise")
         flips_ok = check(n_flips == 0, f"isax_summarize normalize={normalize}:"
                                        f" {n_flips} symbol flips, want 0")
-        ms = time_cuda(lambda: isax_summarize(x, w=isax.W, card=isax.CARD,
-                                              normalize=normalize))
+        run = lambda: isax_summarize(x, w=isax.W, card=isax.CARD,
+                                     normalize=normalize)
+        ms = time_cuda(run)
+        dev_ms = device_ms(run, SYMBOL["isax_summarize"])
         plain_ms = time_cuda(lambda: ref.isax_summarize_ref(
             x, w=isax.W, card=isax.CARD, normalize=normalize), reps=5)
         n, w = x.shape[1], isax.W
@@ -467,8 +505,8 @@ def _compare_summarize(raw: torch.Tensor, n_slice: int) -> dict:
         out[normalize] = {"shape": [n_slice, n], "normalize": normalize,
                           "max_abs_err": float(err.max()),
                           "symbol_flips": n_flips, "match": paa_ok and flips_ok,
-                          "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                          "bound_by": b_by, "library_ms": None,
+                          "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                          "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                           "tolerance": "bitwise: PAA and symbols"}
         emit({"phase": "kernels", "kernel": "isax_summarize", **out[normalize]})
     return out[False]           # the main path's branch
@@ -487,6 +525,8 @@ def _compare_lb_scan(q_paa, index) -> dict:
                        qn * nb * (6 * w + 1))
     line = {"shape": [qn, w, nb], "max_abs_err": float(err.max()),
             "match": ok, "ms": time_cuda(lambda: lb_scan(q_paa, lo, hi, n=n)),
+            "device_ms": device_ms(lambda: lb_scan(q_paa, lo, hi, n=n),
+                                   SYMBOL["lb_scan"]),
             "plain_ms": time_cuda(lambda: ref.lb_scan_ref(q_paa, lo, hi, n=n)),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "tolerance": f"rtol {LB_RTOL}"}
@@ -507,6 +547,8 @@ def _compare_block_topk(d, ids) -> dict:
     line = {"shape": [qn, c], "k": k, "max_abs_err": 0.0 if ok_all else None,
             "match": ok_all,
             "ms": time_cuda(lambda: block_topk(d, ids, k=k)),
+            "device_ms": device_ms(lambda: block_topk(d, ids, k=k),
+                                   SYMBOL["block_topk"]),
             "plain_ms": time_cuda(lambda: ref.block_topk_ref(d, ids, k)),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": time_cuda(lambda: torch.topk(d, k, dim=1,
@@ -549,7 +591,10 @@ def _fused_case(q, q_paa, block, lo, hi, ids, thr, k, n, label) -> tuple[bool, f
     return ok, float(err.max()), ties
 
 
-def _compare_fused(index, qs, front_thr, block_lb, order) -> dict:
+def _compare_fused(index, qs, front_thr, final_thr, block_lb, order) -> dict:
+    """Every case at k in {1, 10, 32}; timed at the walk's first block
+    (stage-A bounds) and at the block 90% along the walk (the main path's
+    final k=10 bounds: few live lanes)."""
     q, q_paa = qs.q, qs.aux[0]
     n, qn = index.n, q.shape[0]
     neg = torch.zeros(qn, dtype=torch.bool, device=q.device)
@@ -559,6 +604,9 @@ def _compare_fused(index, qs, front_thr, block_lb, order) -> dict:
     b_last = index.n_blocks - 1
     first_thr = torch.where(block_lb[:, b0] < front_thr, front_thr, minus_inf)
     live_all = torch.where(neg, minus_inf, torch.full_like(front_thr, ref.INF))
+    b_late = int(order[(9 * index.n_blocks) // 10])
+    late_thr = torch.where(block_lb[:, b_late] < final_thr, final_thr,
+                           minus_inf)
 
     def blk(b, c=None):
         c = index.capacity if c is None else c
@@ -566,6 +614,7 @@ def _compare_fused(index, qs, front_thr, block_lb, order) -> dict:
                 index.shi[b][:, :c].contiguous(), index.ids[b][:c])
 
     cases = {"first_block": (blk(b0), first_thr),
+             "late_block": (blk(b_late), late_thr),
              "all_live_some_inactive": (blk(b0), live_all),
              "all_dead": (blk(b0), torch.zeros_like(front_thr)),
              "pad_lanes": (blk(b_last), live_all),
@@ -581,27 +630,43 @@ def _compare_fused(index, qs, front_thr, block_lb, order) -> dict:
             n_cases += 1
     pads = int((index.ids[b_last] < 0).sum())
 
-    # time the main path's first refine call (k=10) and count its work
+    # time the main path's first refine call (k=10) and a late one, at the
+    # walk's final bounds, and count their work
     k = 10
-    block, lo, hi, ids = blk(b0)
-    w, c = q_paa.shape[1], block.shape[0]
-    args = (q, q_paa, block, lo, hi, ids, first_thr)
-    ms = time_cuda(lambda: fused_panel_topk(*args, k=k, n=n))
-    plain_ms = time_cuda(lambda: ref.fused_panel_topk_ref(*args, k=k, n=n))
-    qe = q_paa[:, :, None]
-    dd = torch.clamp(torch.maximum(lo[None] - qe, qe - hi[None]), min=0.0)
-    live = ((n / w) * (dd * dd).sum(1) < first_thr[:, None]) & (ids >= 0)[None]
-    n_live = int(live.sum())
-    live_rows = int(live.any(0).sum())
-    nbytes = (qn * (n + w + 1) * 4 + 2 * w * c * 4 + c * 4 + live_rows * n * 4
-              + qn * k * 8 + qn * 4)
-    ops = qn * c * 6 * w + n_live * (2 * n + 3) + live_rows * 2 * n
-    b_ms, b_by = bound(nbytes, ops)
-    line = {"shape": [qn, c, n], "k": k, "cases": n_cases,
+    w = q_paa.shape[1]
+    timed = {}
+    for label, b, thr in (("first_block", b0, first_thr),
+                          ("late_block", b_late, late_thr)):
+        block, lo, hi, ids = blk(b)
+        c = block.shape[0]
+        args = (q, q_paa, block, lo, hi, ids, thr)
+        run = lambda: fused_panel_topk(*args, k=k, n=n)
+        qe = q_paa[:, :, None]
+        dd = torch.clamp(torch.maximum(lo[None] - qe, qe - hi[None]), min=0.0)
+        live = ((n / w) * (dd * dd).sum(1) < thr[:, None]) & (ids >= 0)[None]
+        n_live = int(live.sum())
+        live_rows = int(live.any(0).sum())
+        nbytes = (qn * (n + w + 1) * 4 + 2 * w * c * 4 + c * 4
+                  + live_rows * n * 4 + qn * k * 8 + qn * 4)
+        ops = qn * c * 6 * w + n_live * (2 * n + 3) + live_rows * 2 * n
+        b_ms, b_by = bound(nbytes, ops)
+        timed[label] = {
+            "block": b, "walk_position": int((order == b).nonzero()[0, 0]),
+            "n_live": n_live, "live_rows": live_rows,
+            "ms": time_cuda(run), "device_ms": device_ms(
+                run, SYMBOL["fused_panel_topk"]),
+            "plain_ms": time_cuda(lambda: ref.fused_panel_topk_ref(
+                *args, k=k, n=n)),
+            "bound_ms": b_ms, "bound_by": b_by}
+    first = timed["first_block"]
+    line = {"shape": [qn, index.capacity, n], "k": k, "cases": n_cases,
             "pad_lanes_in_last_block": pads, "near_ties": ties,
-            "timed_call": {"n_live": n_live, "live_rows": live_rows},
-            "max_abs_err": max_err, "match": ok_all, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "timed_call": {"n_live": first["n_live"],
+                           "live_rows": first["live_rows"]},
+            "late_block": timed["late_block"],
+            "max_abs_err": max_err, "match": ok_all, "ms": first["ms"],
+            "device_ms": first["device_ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
             "library_ms": None,
             "tolerance": f"n_live equal; squared distances within "
                          f"{DIST_REL}*(|q|^2+max|x|^2); ids equal but at near ties"}
@@ -633,6 +698,7 @@ def _compare_batch_l2(q, flat_raw) -> dict:
     line = {"shape": [qn, m, n], "cases": list(cases),
             "max_abs_err": max_err, "match": ok_all,
             "ms": time_cuda(lambda: batch_l2(q, x)),
+            "device_ms": device_ms(lambda: batch_l2(q, x), SYMBOL["batch_l2"]),
             "plain_ms": time_cuda(lambda: ref.batch_l2_ref(q, x)),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": time_cuda(lambda: torch.cdist(
@@ -676,10 +742,14 @@ def _compare_dtw(index, q) -> dict:
             "band_cells": cells,
             "max_abs_err": 0.0 if ok_all else None, "match": ok_all,
             "ms": time_cuda(lambda: dtw_band_panel(qs.q, gathered, r=DTW_R)),
+            "device_ms": device_ms(lambda: dtw_band_panel(
+                qs.q, gathered, r=DTW_R), SYMBOL["dtw_band_panel"]),
             "plain_ms": time_cuda(lambda: ref.dtw_band_panel_ref(
                 qs.q, gathered, r=DTW_R), reps=3, warmup=1),
             "shared_ms": time_cuda(lambda: dtw_band_panel(qs.q, shared,
                                                           r=DTW_R)),
+            "shared_device_ms": device_ms(lambda: dtw_band_panel(
+                qs.q, shared, r=DTW_R), SYMBOL["dtw_band_panel"]),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "tolerance": f"bitwise, shared {tuple(shared.shape)} and "
                          f"gathered {tuple(gathered.shape)}, r in "
@@ -725,6 +795,8 @@ def _compare_ssm(scan_in: dict) -> dict:
         line[label] = {"shape": [b, s_len, d, n],
                        "max_abs_err_y": errs[0], "max_abs_err_h_last": errs[1],
                        "ms": time_cuda(lambda: ssm_scan(*args)),
+                       "device_ms": device_ms(lambda: ssm_scan(*args),
+                                              SYMBOL["ssm_scan"]),
                        "plain_ms": time_cuda(lambda: ref.ssm_scan_ref(*args),
                                              reps=3, warmup=1),
                        "bound_ms": b_ms, "bound_by": b_by}
@@ -732,7 +804,8 @@ def _compare_ssm(scan_in: dict) -> dict:
     out = {"shape": pre["shape"], "cases": line,
            "max_abs_err": max(max(c["max_abs_err_y"], c["max_abs_err_h_last"])
                               for c in line.values()),
-           "match": ok_all, "ms": pre["ms"], "plain_ms": pre["plain_ms"],
+           "match": ok_all, "ms": pre["ms"], "device_ms": pre["device_ms"],
+           "plain_ms": pre["plain_ms"],
            "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
            "library_ms": None,
            "library": "none: no single PyTorch call computes a selective scan",
@@ -744,7 +817,7 @@ def _compare_ssm(scan_in: dict) -> dict:
 
 
 def phase_kernels(raw, index, queries, n_slice: int, n_dtw: int,
-                  scan_in: dict) -> dict:
+                  scan_in: dict, main_k10) -> dict:
     metric = engine.ED()
     prep = engine.prepare(metric, index, queries, 10)
     qs = prep.qs
@@ -758,8 +831,10 @@ def phase_kernels(raw, index, queries, n_slice: int, n_dtw: int,
         "isax_summarize": _compare_summarize(raw, n_slice),
         "lb_scan": _compare_lb_scan(qs.aux[0], index),
         "block_topk": _compare_block_topk(d0.contiguous(), ids0.contiguous()),
-        "fused_panel_topk": _compare_fused(index, qs, prep.front.threshold(),
-                                           prep.block_lb, order),
+        "fused_panel_topk": _compare_fused(
+            index, qs, prep.front.threshold(),
+            main_k10.dist[:, -1].double().square().float(), prep.block_lb,
+            order),
         "batch_l2": _compare_batch_l2(qs.q, index.raw.reshape(-1, index.n)),
         "dtw_band_panel": _compare_dtw(index, queries[:n_dtw]),
         "ssm_scan": _compare_ssm(scan_in),
@@ -870,7 +945,7 @@ def main(argv=None) -> int:
     launches["lm"], scan_in = phase_lm(args)
     lines = phase_kernels(raw, index, queries,
                           min(SUMMARIZE_SLICE, args.n_series),
-                          args.dtw_queries, scan_in)
+                          args.dtw_queries, scan_in, main_results[10][0])
     phase_exact(raw, queries, {"block_major": main_results, **sched_results,
                                "ucr": ucr_results})
 
@@ -881,8 +956,11 @@ def main(argv=None) -> int:
                         "replaces": replaces,
                         "launches": launches[LAUNCH_PATH[name]][name],
                         "launches_path": LAUNCH_PATH[name],
+                        "launches_by_path": {p: c[name] for p, c in
+                                             launches.items() if c.get(name)},
                         "match": line["match"],
                         "max_abs_err": line["max_abs_err"], "ms": line["ms"],
+                        "device_ms": line["device_ms"],
                         "plain_ms": line["plain_ms"],
                         "bound_ms": line["bound_ms"],
                         "bound_by": line["bound_by"],

@@ -3,20 +3,25 @@
 profiled Hymba prefill and a few decode steps.
 
     python3 chip_trace.py [--seed 0] [--n-series 10000000] [--queries 100] [--k 10]
+    python3 chip_trace.py --path dtw [--seed 0] [--dtw-queries 10] [--k 10]
     python3 chip_trace.py --path lm [--seed 0]
 
 ``--path block_major`` (the default) builds the same index as
 ``chip_smoke.py`` (random-walk series generated on the card from
 ``--seed``, capacity 1024), runs one warm-up search and one timed search,
 then traces one ``search_block_major`` with ``torch.profiler``.
-``--path lm`` builds ``hymba-1.5b`` ``full()`` and the prompts from
+``--path dtw`` does the same for ``chip_smoke.py``'s DTW batch: the
+first ``--dtw-queries`` queries through ``dtw.search_dtw`` with its band
+r.  ``--path lm`` builds ``hymba-1.5b`` ``full()`` and the prompts from
 ``--seed`` as ``chip_smoke.py`` does (4 of 2,048 tokens), serves one
 warm-up batch, then traces the prefill and, separately, 8 greedy decode
 steps.  Each trace prints one JSON line: the
 wall time (host clock, synchronized) without and with the profiler, the
 device's busy time (the sum of the device events' times in the trace)
 and its share of the profiled wall time, the device events a step, and
-the kernels that took the most device time.  Needs one CUDA card.
+the kernels that took the most device time; the search paths also give
+each port kernel's launches and summed device time (``port_kernels``).
+Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -32,9 +37,10 @@ import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from chip_smoke import (CAPACITY, LENGTH, LM_BATCH, LM_PROMPT,  # noqa: E402
-                        lm_setup, random_walk_cuda)
+from chip_smoke import (CAPACITY, DTW_R, LENGTH, LM_BATCH,  # noqa: E402
+                        LM_PROMPT, SYMBOL, lm_setup, random_walk_cuda)
 from repro_torch import core  # noqa: E402
+from repro_torch.core import dtw  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 
@@ -50,6 +56,18 @@ def _device_events(prof):
     return events, busy_us, [{"name": e.key[:80], "count": e.count,
                               "device_ms": e.self_device_time_total / 1e3}
                              for e in top[:12]]
+
+
+def _port_kernels(events) -> dict:
+    """Each port kernel's launches and summed device time in a trace."""
+    out = {}
+    for name, symbol in SYMBOL.items():
+        hits = [e for e in events if symbol in e.key]
+        if hits:
+            out[name] = {"launches": sum(e.count for e in hits),
+                         "device_ms": sum(e.self_device_time_total
+                                          for e in hits) / 1e3}
+    return out
 
 
 def trace_lm(args) -> int:
@@ -110,13 +128,53 @@ def trace_lm(args) -> int:
     return 0 if ok else 1
 
 
+def trace_search(args) -> int:
+    """Profile one search batch of ``args.path`` on chip_smoke's index."""
+    raw = random_walk_cuda(args.n_series, LENGTH, args.seed)
+    queries = random_walk_cuda(args.queries, LENGTH, args.seed + 1)
+    index = core.build(raw, capacity=CAPACITY)
+    del raw
+    if args.path == "dtw":
+        queries = queries[:args.dtw_queries].contiguous()
+        run = lambda: dtw.search_dtw(index, queries, r=DTW_R, k=args.k)
+    else:
+        run = lambda: core.search_block_major(index, queries, k=args.k)
+    run()                                                       # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    # device activity only: CPU-op events would multiply the trace's
+    # post-processing time (minutes at ~10k walk trips)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events, busy_us, top = _device_events(prof)
+    print(json.dumps({
+        "phase": "trace", "path": args.path,
+        "device": torch.cuda.get_device_name(0),
+        "n_series": args.n_series, "queries": queries.shape[0], "k": args.k,
+        **({"r": DTW_R} if args.path == "dtw" else {}),
+        "iters": int(res.stats.iters), "wall_seconds_unprofiled": plain_wall,
+        "wall_seconds": wall,
+        "device_busy_seconds": busy_us / 1e6,
+        "device_busy_share": busy_us / 1e6 / wall,
+        "port_kernels": _port_kernels(events),
+        "kernels": top}), flush=True)
+    return 0 if busy_us > 0 else 1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n-series", type=int, default=10_000_000)
     ap.add_argument("--queries", type=int, default=100)
+    ap.add_argument("--dtw-queries", type=int, default=10)
     ap.add_argument("--k", type=int, default=10)
-    ap.add_argument("--path", choices=("block_major", "lm"),
+    ap.add_argument("--path", choices=("block_major", "dtw", "lm"),
                     default="block_major")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -125,33 +183,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.path == "lm":
         return trace_lm(args)
-    raw = random_walk_cuda(args.n_series, LENGTH, args.seed)
-    queries = random_walk_cuda(args.queries, LENGTH, args.seed + 1)
-    index = core.build(raw, capacity=CAPACITY)
-    del raw
-    core.search_block_major(index, queries, k=args.k)          # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    core.search_block_major(index, queries, k=args.k)
-    torch.cuda.synchronize()
-    plain_wall = time.perf_counter() - t0
-    # device activity only: CPU-op events would multiply the trace's
-    # post-processing time (minutes at ~10k walk trips)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        res = core.search_block_major(index, queries, k=args.k)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    _, busy_us, top = _device_events(prof)
-    print(json.dumps({
-        "phase": "trace", "device": torch.cuda.get_device_name(0),
-        "n_series": args.n_series, "queries": args.queries, "k": args.k,
-        "iters": int(res.stats.iters), "wall_seconds_unprofiled": plain_wall,
-        "wall_seconds": wall,
-        "device_busy_seconds": busy_us / 1e6,
-        "device_busy_share": busy_us / 1e6 / wall,
-        "kernels": top}), flush=True)
-    return 0 if busy_us > 0 else 1
+    return trace_search(args)
 
 
 if __name__ == "__main__":

@@ -40,11 +40,15 @@ SIGNATURES = {
     "lb_scan_launch": (_P, _P, _P, _P, _I, _L, _I, _F, _P),
     "block_topk_launch": (_P, _P, _P, _P, _I, _I, _I, _P),
     "fused_panel_topk_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _F, _P),
+                                _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "fused_panel_topk_scratch_words": (_I, _I, _I),
+    "fused_panel_topk_tiles": (_I,),
     "batch_l2_launch": (_P, _P, _P, _I, _L, _I, _P),
     "dtw_band_panel_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "ssm_scan_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
+# C entries that return something else than an int status
+RESTYPES = {"fused_panel_topk_scratch_words": _L}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,7 +135,7 @@ def library() -> Kernels:
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = RESTYPES.get(name, ctypes.c_int)
     lib.repro_cuda_error_string.argtypes = (ctypes.c_int,)
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return Kernels(lib=lib, path=path, build_seconds=seconds, ptxas_log=logs)

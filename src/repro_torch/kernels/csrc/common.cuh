@@ -2,11 +2,11 @@
 //
 // The (distance, key) order is the one every top-k in the port uses: ascending
 // distance, ties toward the smaller key, where a pad lane (id < 0) carries the
-// key PAD_ID_KEY = INT32_MAX.  Selection is by k rounds of "lex-min among the
-// pairs lex-greater than the last one picked", which needs no retired-lane
-// state: within a row real keys are distinct, and pad lanes (all (INF, PAD))
-// collapse into one pick, after which a round finds nothing and emits
-// (INF, -1) — the same output as the plain two-stable-sort top-k.
+// key PAD_ID_KEY = INT32_MAX.  block_topk selects by k rounds of "lex-min
+// among the pairs lex-greater than the last one picked", which needs no
+// retired-lane state: within a row real keys are distinct, and pad lanes (all
+// (INF, PAD)) collapse into one pick, after which a round finds nothing and
+// emits (INF, -1) — the same output as the plain two-stable-sort top-k.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -19,6 +19,25 @@
 
 __device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+
+// Asynchronous copies from device to shared memory (cp.async): 4 bytes
+// (any aligned float or int) or 16 bytes (both addresses 16-byte aligned),
+// committed as a group and waited for with cp_async_wait<groups left>.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
 // (da, ka) < (db, kb) lexicographically
 __device__ __forceinline__ bool lex_less(float da, int ka, float db, int kb) {
@@ -65,37 +84,4 @@ __device__ __forceinline__ void block_lex_min(float& d, int& k, float* s_d, int*
   __syncthreads();
   d = s_d[NW];
   k = s_k[NW];
-}
-
-// Block-wide sum; every thread gets the result.  s holds NT/32 + 1 entries.
-template <int NT, typename T>
-__device__ __forceinline__ T block_sum(T v, T* s) {
-  constexpr int NW = NT / 32;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = warp_sum(v);
-  if (lane == 0) s[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < NW ? s[lane] : T(0);
-    v = warp_sum(v);
-    if (lane == 0) s[NW] = v;
-  }
-  __syncthreads();
-  return s[NW];
-}
-
-// One selection round over pairs (d[e], key[e]), e in [0, m), strided over
-// the block: the lex-min pair strictly lex-greater than (pd, pk).
-template <int NT>
-__device__ __forceinline__ void select_next(const float* d, const int* key, int m,
-                                            float pd, int pk, float& bd, int& bk,
-                                            float* s_d, int* s_k) {
-  bd = pos_inf();
-  bk = INT_MAX;
-  for (int e = threadIdx.x; e < m; e += NT) {
-    const float de = d[e];
-    const int ke = key[e];
-    if (lex_less(pd, pk, de, ke) && lex_less(de, ke, bd, bk)) { bd = de; bk = ke; }
-  }
-  block_lex_min<NT>(bd, bk, s_d, s_k);
 }

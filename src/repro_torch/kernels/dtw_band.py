@@ -7,12 +7,16 @@ series -> (Q, M).  It runs on every DTW refine: stage A and the
 query-major walk (gathered), the block-major and flat refines and the
 full-scan check (shared).
 
-Bound on the H100: fp32 operations, about 6 per band cell and n(2r+1)
-cells a pair.  Design (``csrc/dtw_band.cu``): one thread per pair, the
-query in shared memory, one band row per thread updated in place row by
-row, so only the band is computed (the TPU kernel sweeps whole
-anti-diagonals and masks).  No FMA contraction: bitwise equal to the
-plain ``ref.dtw_band_panel_ref``.
+Bound on the H100: fp32 operations, about 6 per band cell and
+n(2r+1) - r(r+1) cells a pair.  Design (``csrc/dtw_band.cu``): one
+thread per pair, only the band computed (the TPU kernel sweeps whole
+anti-diagonals and masks), in one of two variants chosen by r alone:
+for r <= 16 the band row and the candidate's window sit in registers
+(one kernel instantiation per r), the candidates' rows are staged
+through shared memory in coalesced tiles with ``cp.async``, and each
+point is read from device memory once; for r > 16 the band row sits in
+shared memory (the first design).  No FMA contraction: both variants
+are bitwise equal to the plain ``ref.dtw_band_panel_ref``.
 """
 from __future__ import annotations
 

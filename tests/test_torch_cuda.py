@@ -99,13 +99,48 @@ def test_block_topk_bitwise(cuda, qn, c, k):
 @pytest.mark.parametrize("c", [37, 300, 1024])
 @pytest.mark.parametrize("k", [1, 5, 32, 1030])
 def test_fused_panel_topk(cuda, qn, c, k):
-    n, w = 128, 16
-    rng = np.random.default_rng(qn * 13 + c + k)
+    _check_fused(cuda, qn, c, k, n=128, seed=qn * 13 + c + k)
+
+
+@pytest.mark.parametrize("qn", [1, 6, 13, 100])
+@pytest.mark.parametrize("c", [37, 300, 1000, 1024])
+@pytest.mark.parametrize("k", [1, 5, 32, 1030])
+def test_fused_panel_topk_query_tiles_and_slices(cuda, qn, c, k):
+    """Across the kernel's tiling: Q = 100 and Q not a multiple of the
+    8-query tile, C not a multiple of the 64-lane slice, at the main
+    path's length; inactive, all-dead and all-live rows and pad lanes."""
+    _check_fused(cuda, qn, c, k, n=256)
+
+
+@pytest.mark.parametrize("n", [1, 130, 300])
+def test_fused_panel_topk_ragged_lengths(cuda, n):
+    """Lengths that are no multiple of a float4, and one longer than a
+    staged chunk of 256 points."""
+    _check_fused(cuda, 13, 300, 10, n=n, w=1 if n == 1 else 10)
+
+
+@pytest.mark.parametrize("c,k", [(2100, 10), (4096, 100)])
+def test_fused_panel_topk_many_slices(cuda, c, k):
+    """More than 32 slices of C (lanes hold several lists in the merge),
+    and merge lists too large for all 8 warps' shared memory at once."""
+    _check_fused(cuda, 13, c, k, n=128)
+
+
+def test_fused_panel_topk_all_dead(cuda):
+    """A block with no live pair: every row (INF, -1), every count 0,
+    and the next launch unaffected."""
+    for thr_val in (0.0, float("-inf")):
+        _check_fused(cuda, 13, 300, 5, n=128, thr_all=thr_val)
+    _check_fused(cuda, 13, 300, 5, n=128)
+
+
+def _check_fused(cuda, qn, c, k, *, n, w=16, thr_all=None, seed=None):
+    rng = np.random.default_rng(qn * 13 + c + k + n if seed is None else seed)
     block = isax.znorm(torch.from_numpy(random_walk(c, n, seed=c)).to(cuda))
     ids = torch.from_numpy(rng.permutation(5 * c)[:c].astype(np.int32)).to(cuda)
     ids[-3:] = -1
     block[-3:] = 1.0e4
-    _, _, bounds = isax.summarize(block, normalize=False)
+    _, _, bounds = isax.summarize(block, w=w, normalize=False)
     lo = bounds[..., 0].T.contiguous()
     hi = bounds[..., 1].T.contiguous()
     pick = torch.from_numpy(rng.integers(0, c - 3, qn)).to(cuda)
@@ -118,11 +153,15 @@ def test_fused_panel_topk(cuda, qn, c, k):
         thr[2] = 0.0
     if qn > 3:
         thr[3] = ref.INF
+    if thr_all is not None:
+        thr[:] = thr_all
     gd, gi, gn = fused_panel_topk(q, q_paa, block, lo, hi, ids, thr, k=k, n=n)
     wd, wi, wn = ref.fused_panel_topk_ref(q, q_paa, block, lo, hi, ids, thr,
                                           k=k, n=n)
     assert torch.equal(gn, wn)
     assert gn[0] == 0 and bool((gi[0] == -1).all())
+    if thr_all is not None:
+        assert bool((gn == 0).all()) and bool((gi == -1).all())
     xx = torch.where(ids >= 0, (block * block).sum(1), 0.0).amax()
     tol = 1e-5 * ((q * q).sum(1) + xx)[:, None]
     assert torch.equal(gi >= 0, wi >= 0)
@@ -161,6 +200,26 @@ def test_dtw_band_panel_bitwise(cuda, gathered, r, qn, m):
     q = isax.znorm(torch.from_numpy(random_walk(qn, n, seed=m)).to(cuda))
     x = torch.from_numpy(random_walk(qn * m if gathered else m, n,
                                      seed=r + 7)).to(cuda)
+    x = isax.znorm(x).reshape((qn, m, n) if gathered else (m, n))
+    x[..., -1, :] = 1.0e4                          # a RAW_PAD row
+    got = dtw_band_panel(q, x.contiguous(), r=r)
+    want = ref.dtw_band_panel_ref(q, x, r=r)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("gathered", [False, True])
+@pytest.mark.parametrize("r", [0, 12, 16, 17, 127])
+@pytest.mark.parametrize("m", [1, 37, 300, 2049])
+@pytest.mark.parametrize("n", [77, 256])
+def test_dtw_band_panel_bitwise_across_the_variants(cuda, gathered, r, m, n):
+    """Both sides of the register/shared-memory switch (r <= 16 in
+    registers, r = 17 and 127 in shared memory), panels that are no
+    multiple of the 128-pair block, and lengths that are (256) and are
+    not (77) a multiple of the 32-point staged tile."""
+    qn = 3
+    q = isax.znorm(torch.from_numpy(random_walk(qn, n, seed=m + r)).to(cuda))
+    x = torch.from_numpy(random_walk(qn * m if gathered else m, n,
+                                     seed=m + 1)).to(cuda)
     x = isax.znorm(x).reshape((qn, m, n) if gathered else (m, n))
     x[..., -1, :] = 1.0e4                          # a RAW_PAD row
     got = dtw_band_panel(q, x.contiguous(), r=r)
