@@ -46,6 +46,13 @@ CUDA toolkit.  Phases, each printing one JSON line:
                  kernel's own device time from the profiler over the same
                  calls; ``fused_panel_topk`` is timed at the walk's first
                  block and at a late block with few live lanes;
+                 ``block_topk`` bitwise and timed on the panels the walks
+                 hand it (stage A (100, 1024), the first flat chunk and
+                 query-major trip (100, 4096), the first DTW trip
+                 (10, 2048)) at k = 1 and 10, and bitwise on +-0 ties and
+                 all-pad rows; ``batch_l2`` at the first flat chunk,
+                 Q = 1 and 13; both beside their library call's own
+                 device time (``library_device_ms``);
   9. exact     — every Euclidean path's answers (block-major, query-major,
                  flat, UCR) against a brute-force scan of every series with
                  the plain ``batch_l2_ref`` + ``topk_by_dist_id``.
@@ -90,6 +97,7 @@ from repro_torch.models import common, mamba, transformer  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 rate outside the tensor cores
+TF32_OPS_PER_S = 495e12        # H100 SXM dense TF32 tensor-core rate
 LB_RTOL = 1e-5                 # 16 non-negative terms summed in another order
 DIST_REL = 1e-5                # squared-L2 tolerance: DIST_REL * (||q||^2 + ||x||^2)
 LENGTH = 256                   # points per series (the paper's Synthetic)
@@ -97,6 +105,8 @@ CAPACITY = 1024                # series per block
 SUMMARIZE_SLICE = 1_000_000    # series the summarize kernel is checked on
 FLAT_CHUNK = 4096              # the flat scan's refinement chunk
 DTW_R = 12                     # Sakoe-Chiba band, ~5% of the length
+QUERY_MAJOR_BLOCKS = 4         # blocks a query a query-major trip (core.search)
+DTW_BLOCKS = 2                 # blocks a query a DTW trip (dtw.search_dtw)
 SCAN_CHUNK = 1 << 20           # series per step of the brute-force scans
 LM_ARCH = "hymba-1.5b"
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32   # requests, tokens each, generated
@@ -157,20 +167,32 @@ def time_cuda(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, symbol: str, reps: int = 20, warmup: int = 3) -> float:
-    """The kernel's own device milliseconds per launch: ``torch.profiler``
-    (CUDA activity only) over the same back-to-back calls ``time_cuda``
-    runs, summed over the device events whose name holds ``symbol``, over
-    their count.  Host time between launches is not in it."""
+def _profiled(fn, reps: int, warmup: int) -> list:
+    """The device events of ``reps`` back-to-back calls of ``fn`` under
+    ``torch.profiler`` (CUDA activity only).  The profiler now and then
+    records no device event at all in a window; such a window is taken
+    again, up to three times."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and symbol in e.key]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        if events:
+            break
+    return events
+
+
+def device_ms(fn, symbol: str, reps: int = 20, warmup: int = 3) -> float:
+    """The kernel's own device milliseconds per launch: ``torch.profiler``
+    over the same back-to-back calls ``time_cuda`` runs, summed over the
+    device events whose name holds ``symbol``, over their count.  Host time
+    between launches is not in it."""
+    hits = [e for e in _profiled(fn, reps, warmup) if symbol in e.key]
     count = sum(e.count for e in hits)
     # the profiler may drop a launch at the start of its window: the mean
     # is over the launches it saw
@@ -180,9 +202,22 @@ def device_ms(fn, symbol: str, reps: int = 20, warmup: int = 3) -> float:
     return sum(e.self_device_time_total for e in hits) / count / 1e3
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def device_ms_all(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Device milliseconds per call of ``fn``, summed over every device
+    event it launches (a library call may launch several kernels), over
+    the same back-to-back calls."""
+    total = sum(e.self_device_time_total
+                for e in _profiled(fn, reps, warmup))
+    check(total > 0, "the profiler saw device time of a library call")
+    return total / reps / 1e3
+
+
+def bound(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S
+          ) -> tuple[float, str]:
+    """The least time for the work: ``nbytes`` at the memory rate against
+    ``ops`` at ``ops_per_s`` (fp32 outside the tensor cores by default)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -534,27 +569,102 @@ def _compare_lb_scan(q_paa, index) -> dict:
     return line
 
 
-def _compare_block_topk(d, ids) -> dict:
-    qn, c = d.shape
-    ok_all = True
-    for k in (1, 10, 32, c + 5):
-        gd, gi = block_topk(d, ids, k=k)
-        wd, wi = ref.block_topk_ref(d, ids, k)
-        ok = torch.equal(gd, wd) and torch.equal(gi, wi)
-        ok_all &= check(ok, f"block_topk k={k} (C={c}) bitwise")
-    k = 10
-    b_ms, b_by = bound(qn * c * 8 + qn * k * 8, qn * c)
-    line = {"shape": [qn, c], "k": k, "max_abs_err": 0.0 if ok_all else None,
+def walk_topk_panels(index, queries, n_dtw: int, prep) -> dict:
+    """The first panel each walk hands to ``block_topk`` at k = 10, built
+    from the index with the engine's own steps: stage A's seed panel, the
+    flat scan's first chunk with a live lane, the first query-major trip
+    (QUERY_MAJOR_BLOCKS blocks a query) and the first DTW trip
+    (DTW_BLOCKS blocks a query).  ``prep`` is ``engine.prepare`` of the
+    queries under ``engine.ED()``."""
+    metric = engine.ED()
+    # stage A exactly as engine.prepare hands it to block_topk
+    b0 = torch.argmin(prep.block_lb, dim=1)
+    ids0 = index.ids[b0]
+    d0 = torch.where(ids0 >= 0,
+                     frontier.query_block_l2(prep.qs.q, index.raw[b0]), ref.INF)
+    panels = {"stage_a": (d0, ids0)}
+    thr = frontier.bound(prep.front)
+    flat = core.flat_view(index)
+    lb = metric.block_lb(prep.qs, flat.lo, flat.hi, n=flat.n)
+    for s in range(0, flat.raw.shape[0], FLAT_CHUNK):
+        e = min(s + FLAT_CHUNK, flat.raw.shape[0])
+        ids_k = flat.ids[s:e]
+        act = (lb[:, s:e] < thr[:, None]) & (ids_k[None, :] >= 0)
+        if bool(act.any()):                   # the scan skips a dead chunk
+            d = torch.where(act, metric.distances(prep.qs, flat.raw[s:e]),
+                            ref.INF)
+            panels["flat"] = (d, torch.where(act, ids_k[None, :], -1))
+            break
+    check("flat" in panels, "the flat scan has a chunk with a live lane")
+    trips = (("query_major", metric, queries, QUERY_MAJOR_BLOCKS),
+             ("dtw", engine.DTW(r=DTW_R), queries[:n_dtw].contiguous(),
+              DTW_BLOCKS))
+    for label, m, qq, kb in trips:
+        p = prep if m is metric else engine.prepare(m, index, qq, 10)
+        t = frontier.bound(p.front)
+        idxs = torch.argsort(p.block_lb, dim=1, stable=True)[:, :kb]
+        active = torch.gather(p.block_lb, 1, idxs) < t[:, None]
+        d, ids, _ = engine.trip_panel(m, index, p.qs, idxs, active, t)
+        panels[label] = (d, ids)
+    return {label: (d.contiguous(), ids.contiguous())
+            for label, (d, ids) in panels.items()}
+
+
+def _compare_block_topk(panels: dict) -> dict:
+    """Bitwise (distance bits and ids) on every walk panel, on panels of
+    +-0 and negative ties (one with ids up to INT32_MAX - 1, one with rows
+    past 4,096 lanes) and on all-pad rows, at k = 1, 2, 10, 16, 17, 32, 33
+    (the k = 1 and k <= 32 kernels' largest k and one past each) and
+    C + 5; timed on every walk panel at k = 1 and 10.  The line's own
+    numbers are the flat scan's panel at k = 10, the shape most launches
+    take."""
+    dev = panels["stage_a"][0].device
+    pad_rows = (torch.full((10, 300), ref.INF, device=dev),
+                torch.full((10, 300), -1, dtype=torch.int32, device=dev))
+    checked = {**panels,
+               "signed_zero_ties": ref.signed_panel(100, 4096, seed=5,
+                                                   device=dev),
+               "ids_past_2e30": ref.signed_panel(
+                   100, 4096, seed=6, device=dev,
+                   id_offset=int(torch.iinfo(torch.int32).max) - 4 * 4096),
+               "rows_past_a_block": ref.signed_panel(10, 9000, seed=7,
+                                                     device=dev),
+               "all_pad_rows": pad_rows}
+    ok_all, n_cases = True, 0
+    for label, (d, ids) in checked.items():
+        for k in (1, 2, 10, 16, 17, 32, 33, d.shape[1] + 5):
+            gd, gi = block_topk(d, ids, k=k)
+            wd, wi = ref.block_topk_ref(d, ids, k)
+            ok = (torch.equal(gd.view(torch.int32), wd.view(torch.int32))
+                  and torch.equal(gi, wi))
+            ok_all &= check(ok, f"block_topk {label} {tuple(d.shape)} k={k}: "
+                                "bitwise")
+            n_cases += 1
+    shapes = {}
+    for label, (d, ids) in panels.items():
+        qn, c = d.shape
+        for k in (1, 10):
+            run = lambda d=d, ids=ids, k=k: block_topk(d, ids, k=k)
+            lib = lambda d=d, k=k: torch.topk(d, k, dim=1, largest=False)
+            b_ms, b_by = bound(qn * c * 8 + qn * k * 8, qn * c)
+            shapes[f"{label}_k{k}"] = {
+                "shape": [qn, c], "k": k,
+                "live_lanes": int((ids >= 0).sum()),
+                "ms": time_cuda(run),
+                "device_ms": device_ms(run, SYMBOL["block_topk"]),
+                "plain_ms": time_cuda(
+                    lambda d=d, ids=ids, k=k: ref.block_topk_ref(d, ids, k)),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": time_cuda(lib),
+                "library_device_ms": device_ms_all(lib)}
+    line = {**shapes["flat_k10"], "panel": "flat", "shapes": shapes,
+            "cases": n_cases, "max_abs_err": 0.0 if ok_all else None,
             "match": ok_all,
-            "ms": time_cuda(lambda: block_topk(d, ids, k=k)),
-            "device_ms": device_ms(lambda: block_topk(d, ids, k=k),
-                                   SYMBOL["block_topk"]),
-            "plain_ms": time_cuda(lambda: ref.block_topk_ref(d, ids, k)),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": time_cuda(lambda: torch.topk(d, k, dim=1,
-                                                       largest=False)),
             "library": "torch.topk(largest=False): not id-tie-exact",
-            "tolerance": "bitwise, k in {1, 10, 32, C + 5}"}
+            "tolerance": "bitwise (distance bits and ids) on every walk "
+                         "panel, +-0 ties, ids up to INT32_MAX - 1, rows "
+                         "of 9,000 lanes, all-pad rows; k in {1, 2, 10, "
+                         "16, 17, 32, 33, C + 5}"}
     emit({"phase": "kernels", "kernel": "block_topk", **line})
     return line
 
@@ -675,34 +785,49 @@ def _compare_fused(index, qs, front_thr, final_thr, block_lb, order) -> dict:
 
 
 def _compare_batch_l2(q, flat_raw) -> dict:
-    """At the flat scan's first chunk, a ragged chunk, and Q = 1 and 13."""
-    cases = {"first_chunk": (q, flat_raw[:FLAT_CHUNK]),
-             "ragged_n1000": (q, flat_raw[:1000]),
-             "q1": (q[:1], flat_raw[:FLAT_CHUNK]),
-             "q13": (q[:13], flat_raw[:FLAT_CHUNK])}
-    ok_all, max_err = True, 0.0
+    """At the flat scan's first chunk, a ragged chunk, Q = 1 and 13 (all
+    timed but the ragged one), and a chunk that holds the queries
+    themselves (distance ~ 0).  ``max_rel_err`` is the largest error over
+    |q|^2 + |x|^2, the scale the tolerance is stated in."""
+    x0 = flat_raw[:FLAT_CHUNK]
+    twin = x0.clone()
+    twin[:q.shape[0]] = q
+    cases = {"first_chunk": (q, x0), "ragged_n1000": (q, flat_raw[:1000]),
+             "q1": (q[:1], x0), "q13": (q[:13], x0), "zero_distance": (q, twin)}
+    ok_all, max_err, max_rel = True, 0.0, 0.0
     for label, (qq, x) in cases.items():
         got = batch_l2(qq, x)
         want = ref.batch_l2_ref(qq, x)
-        tol = DIST_REL * ((qq * qq).sum(1)[:, None] + (x * x).sum(1)[None, :])
+        scale = (qq * qq).sum(1)[:, None] + (x * x).sum(1)[None, :]
         err = (got - want).abs()
         ok_all &= check(bool(torch.isfinite(got).all())
-                        and bool((err <= tol).all()),
+                        and bool((err <= DIST_REL * scale).all()),
                         f"batch_l2 {label} {tuple(qq.shape)} x "
                         f"{tuple(x.shape)}: within {DIST_REL}*(|q|^2+|x|^2)")
         max_err = max(max_err, float(err.max()))
-    qn, n = q.shape
-    x = flat_raw[:FLAT_CHUNK]
-    m = x.shape[0]
-    b_ms, b_by = bound(4 * (qn * n + m * n + qn * m), 2 * qn * m * n)
-    line = {"shape": [qn, m, n], "cases": list(cases),
-            "max_abs_err": max_err, "match": ok_all,
-            "ms": time_cuda(lambda: batch_l2(q, x)),
-            "device_ms": device_ms(lambda: batch_l2(q, x), SYMBOL["batch_l2"]),
-            "plain_ms": time_cuda(lambda: ref.batch_l2_ref(q, x)),
+        max_rel = max(max_rel, float((err / scale).max()))
+    timed = {}
+    for label in ("first_chunk", "q1", "q13"):
+        qq, x = cases[label]
+        qn, n = qq.shape
+        m = x.shape[0]
+        nbytes = 4 * (qn * n + m * n + qn * m)
+        # the design that runs: three TF32 products on the tensor cores
+        b_ms, b_by = bound(nbytes, 3 * 2 * qn * m * n, TF32_OPS_PER_S)
+        run = lambda qq=qq, x=x: batch_l2(qq, x)
+        lib = lambda qq=qq, x=x: torch.cdist(
+            qq, x, compute_mode="use_mm_for_euclid_dist")
+        timed[label] = {
+            "shape": [qn, m, n], "ms": time_cuda(run),
+            "device_ms": device_ms(run, SYMBOL["batch_l2"]),
+            "plain_ms": time_cuda(lambda qq=qq, x=x: ref.batch_l2_ref(qq, x)),
             "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": time_cuda(lambda: torch.cdist(
-                q, x, compute_mode="use_mm_for_euclid_dist")),
+            # a note: the bound of one product at the fp32 rate
+            "fp32_bound_ms": bound(nbytes, 2 * qn * m * n)[0],
+            "library_ms": time_cuda(lib),
+            "library_device_ms": device_ms_all(lib)}
+    line = {**timed["first_chunk"], "cases": list(cases), "timed": timed,
+            "max_abs_err": max_err, "max_rel_err": max_rel, "match": ok_all,
             "library": "torch.cdist(use_mm_for_euclid_dist): the expanded "
                        "form plus a sqrt",
             "tolerance": f"within {DIST_REL}*(|q|^2+|x|^2) per pair"}
@@ -821,16 +946,12 @@ def phase_kernels(raw, index, queries, n_slice: int, n_dtw: int,
     metric = engine.ED()
     prep = engine.prepare(metric, index, queries, 10)
     qs = prep.qs
-    # the stage-A panel exactly as engine.prepare hands it to block_topk
-    b0 = torch.argmin(prep.block_lb, dim=1)
-    ids0 = index.ids[b0]
-    d0 = torch.where(ids0 >= 0, frontier.query_block_l2(qs.q, index.raw[b0]),
-                     ref.INF)
     order, _, _ = engine.block_major_schedule(prep.block_lb)
+    topk_panels = walk_topk_panels(index, queries, n_dtw, prep)
     return {
         "isax_summarize": _compare_summarize(raw, n_slice),
         "lb_scan": _compare_lb_scan(qs.aux[0], index),
-        "block_topk": _compare_block_topk(d0.contiguous(), ids0.contiguous()),
+        "block_topk": _compare_block_topk(topk_panels),
         "fused_panel_topk": _compare_fused(
             index, qs, prep.front.threshold(),
             main_k10.dist[:, -1].double().square().float(), prep.block_lb,

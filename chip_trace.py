@@ -3,6 +3,7 @@
 profiled Hymba prefill and a few decode steps.
 
     python3 chip_trace.py [--seed 0] [--n-series 10000000] [--queries 100] [--k 10]
+    python3 chip_trace.py --path flat [--seed 0] [--queries 100] [--k 10]
     python3 chip_trace.py --path dtw [--seed 0] [--dtw-queries 10] [--k 10]
     python3 chip_trace.py --path lm [--seed 0]
 
@@ -10,6 +11,8 @@ profiled Hymba prefill and a few decode steps.
 ``chip_smoke.py`` (random-walk series generated on the card from
 ``--seed``, capacity 1024), runs one warm-up search and one timed search,
 then traces one ``search_block_major`` with ``torch.profiler``.
+``--path flat`` traces one ``search_paris`` batch (the flat ParIS scan,
+chunks of 4,096 through ``batch_l2`` and ``block_topk``) on that index.
 ``--path dtw`` does the same for ``chip_smoke.py``'s DTW batch: the
 first ``--dtw-queries`` queries through ``dtw.search_dtw`` with its band
 r.  ``--path lm`` builds ``hymba-1.5b`` ``full()`` and the prompts from
@@ -37,8 +40,9 @@ import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from chip_smoke import (CAPACITY, DTW_R, LENGTH, LM_BATCH,  # noqa: E402
-                        LM_PROMPT, SYMBOL, lm_setup, random_walk_cuda)
+from chip_smoke import (CAPACITY, DTW_R, FLAT_CHUNK, LENGTH,  # noqa: E402
+                        LM_BATCH, LM_PROMPT, SYMBOL, lm_setup,
+                        random_walk_cuda)
 from repro_torch import core  # noqa: E402
 from repro_torch.core import dtw  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -137,6 +141,9 @@ def trace_search(args) -> int:
     if args.path == "dtw":
         queries = queries[:args.dtw_queries].contiguous()
         run = lambda: dtw.search_dtw(index, queries, r=DTW_R, k=args.k)
+    elif args.path == "flat":
+        run = lambda: core.search_paris(index, queries, k=args.k,
+                                        chunk=FLAT_CHUNK)
     else:
         run = lambda: core.search_block_major(index, queries, k=args.k)
     run()                                                       # warm-up
@@ -174,7 +181,7 @@ def main(argv=None) -> int:
     ap.add_argument("--queries", type=int, default=100)
     ap.add_argument("--dtw-queries", type=int, default=10)
     ap.add_argument("--k", type=int, default=10)
-    ap.add_argument("--path", choices=("block_major", "dtw", "lm"),
+    ap.add_argument("--path", choices=("block_major", "flat", "dtw", "lm"),
                     default="block_major")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():

@@ -380,6 +380,33 @@ def panel_refine(metric, qs: QueryState, front: Frontier, stats: SearchStats,
 # device backend: the two ordered schedules + the flat scan
 # ---------------------------------------------------------------------------
 
+def trip_panel(metric, index: BlockIndex, qs: QueryState, idxs: torch.Tensor,
+               active: torch.Tensor, thr: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The masked panel of one query-major trip: each query's blocks
+    ``idxs`` (Q, K), ``active`` (Q, K) where the block bound beat ``thr``
+    (Q,), the metric's per-series filter, then its distances ->
+    (d (Q, K*C) with INF off the live lanes, ids (Q, K*C) with -1 there,
+    live (Q, K, C)), the panel ``block_topk`` selects from."""
+    n = index.n
+    qn = qs.q.shape[0]
+    blocks = index.raw[idxs]                                  # (Q,K,C,n)
+    ids = index.ids[idxs]                                     # (Q,K,C)
+    if metric.filters:
+        lo = index.slo[idxs] if metric.needs_bounds else None
+        hi = index.shi[idxs] if metric.needs_bounds else None
+        s_lb = metric.series_lb(qs, blocks, lo, hi, n=n, w=index.w)
+        s_act = (s_lb < thr[:, None, None]) & active[..., None]
+    else:
+        s_act = active[..., None].expand(ids.shape)
+    d = metric.distances(qs, blocks)                          # (Q,K,C)
+    live = s_act & (ids >= 0)
+    # blocks partition the series and idxs rows are distinct, so ids
+    # are unique per row: block_topk's subset-exactness holds
+    return (torch.where(live, d, INF).reshape(qn, -1),
+            torch.where(live, ids, -1).reshape(qn, -1), live)
+
+
 def _query_major(metric, index: BlockIndex, qs: QueryState, front: Frontier,
                  block_lb: torch.Tensor, stats: SearchStats, *,
                  blocks_per_iter: int, deadline_blocks: int | None,
@@ -395,8 +422,7 @@ def _query_major(metric, index: BlockIndex, qs: QueryState, front: Frontier,
     is the masked refine here: nothing is live, so the frontier and every
     counter but ``iters`` stay as they are.
     """
-    b, c, n = index.raw.shape
-    qn = qs.q.shape[0]
+    b, c, _ = index.raw.shape
     kb = min(blocks_per_iter, b)
     # stable: block bounds often tie (at 0.0), and the visit order and
     # every counter follow jnp.argsort's stable order
@@ -413,22 +439,8 @@ def _query_major(metric, index: BlockIndex, qs: QueryState, front: Frontier,
         start = min(ptr, b - kb)
         idxs = order[:, start:start + kb]                         # (Q, K)
         active = torch.gather(block_lb, 1, idxs) < thr[:, None]   # (Q, K)
-        blocks = index.raw[idxs]                                  # (Q,K,C,n)
-        ids = index.ids[idxs]                                     # (Q,K,C)
-        if metric.filters:
-            lo = index.slo[idxs] if metric.needs_bounds else None
-            hi = index.shi[idxs] if metric.needs_bounds else None
-            s_lb = metric.series_lb(qs, blocks, lo, hi, n=n, w=index.w)
-            s_act = (s_lb < thr[:, None, None]) & active[..., None]
-        else:
-            s_act = active[..., None].expand(ids.shape)
-        d = metric.distances(qs, blocks)                          # (Q,K,C)
-        live = s_act & (ids >= 0)
-        # blocks partition the series and idxs rows are distinct, so ids
-        # are unique per row: block_topk's subset-exactness holds
-        sd, si = ops.block_topk(
-            torch.where(live, d, INF).reshape(qn, -1),
-            torch.where(live, ids, -1).reshape(qn, -1), front.k)
+        d, ids, live = trip_panel(metric, index, qs, idxs, active, thr)
+        sd, si = ops.block_topk(d, ids, front.k)
         front = front.insert_topk(sd, si)
         n_act = torch.sum(active, dim=1, dtype=torch.int32)
         stats = SearchStats(

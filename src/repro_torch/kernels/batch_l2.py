@@ -6,13 +6,18 @@ panel against (N, n) series.  It refines every chunk of the flat ParIS
 scan, the shared panels of ``ED(lb_filter=False)`` and each chunk of the
 UCR brute-force scan.
 
-Bound on the H100: fp32 operations (2QNn, outside the tensor cores) at
-the query batches the engine runs; bytes at Q = 1.  Design
-(``csrc/batch_l2.cu``): 64 x 64 output tiles, a 4 x 4 FFMA register
-tile per thread over 16-wide slices staged in shared memory, the row
-norms summed from the same slices; never TF32, never cuBLAS.  Sums run in
-another order than the plain ``ref.batch_l2_ref``, so the two agree
-within a tolerance, not bitwise.
+Bound on the H100: bytes (5.94 MB at the flat scan's (100, 4096, 256),
+1.77 us), once the cross term runs on the tensor cores; fp32 operations
+(2QNn) outside them.  Design (``csrc/batch_l2.cu``): the cross term as
+a split-TF32 product on the tensor cores (each operand split into a TF32
+high part and a TF32 remainder, three Hopper ``wgmma`` products, the
+remainder-by-remainder term dropped), which keeps fp32 accuracy; a block
+holds 32 series and up to 128 query rows (two warpgroups), so each series
+row is read once; the series are staged and split once in shared memory,
+the query fragments are read and split in registers; the row norms are
+fp32 FMAs from the same values.  Never single-pass TF32, never cuBLAS.
+Sums run in another order than the plain ``ref.batch_l2_ref``, so the
+two agree within a tolerance, not bitwise.
 """
 from __future__ import annotations
 

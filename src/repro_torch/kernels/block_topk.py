@@ -1,18 +1,25 @@
 """CUDA kernel wrapper: block-local (dist, id)-lexicographic top-k select.
 
 Replaces the TPU kernel ``src/repro/kernels/block_topk.py``
-(``block_topk`` with its ``select_topk``).  On the main path it reduces
-the stage-A seed panel to (Q, k) before ``Frontier.insert_topk``.
+(``block_topk`` with its ``select_topk``).  It reduces the stage-A seed
+panel, every query-major trip's gathered panel, every flat chunk and
+every DTW trip to (Q, k) before the frontier insert.
 
 Bound on the H100: bytes — the (Q, C) panel is read once and (Q, k)
-pairs written.  Design (``csrc/block_topk.cu``): one thread block per
-row, k rounds of lex-min extraction (a strided scan, then a block
-reduction with warp shuffles on the (d, key) pair); rounds past the
-row's lanes emit (INF, -1), so ``k > C`` needs no fallback.  Selection
-is integer-exact: bitwise equal to the plain ``ref.block_topk_ref``.
+pairs written.  Design (``csrc/block_topk.cu``), for k <= 32 and
+C <= 4,096: one block per row, one pass over the row into 64-bit order
+keys held in registers (the distance's order bits with -0.0 taken as
++0.0, then the id); each warp's k-th smallest thread minimum bounds the
+row's k-th key, the keys at or below the least such bound are ranked in
+shared memory, and each output keeps its lane's own distance bits.
+k > 32 or C > 4,096 takes the round kernel (k rounds of a block-wide
+lex-min scan).  The kernel is chosen by k and C.  Selection is
+integer-exact: bitwise equal to the plain ``ref.block_topk_ref``, ties
+by id, with (INF, -1) past the row's lanes.
 
 Contract (the engine's masking discipline): within a row ids >= 0 are
-distinct and every lane with id < 0 carries d == INF.
+distinct, every lane with id < 0 carries d == INF, and no distance is
++inf or NaN (the engine masks with INF, float32's largest finite value).
 """
 from __future__ import annotations
 

@@ -2,11 +2,12 @@
 //
 // The (distance, key) order is the one every top-k in the port uses: ascending
 // distance, ties toward the smaller key, where a pad lane (id < 0) carries the
-// key PAD_ID_KEY = INT32_MAX.  block_topk selects by k rounds of "lex-min
-// among the pairs lex-greater than the last one picked", which needs no
-// retired-lane state: within a row real keys are distinct, and pad lanes (all
-// (INF, PAD)) collapse into one pick, after which a round finds nothing and
-// emits (INF, -1) — the same output as the plain two-stable-sort top-k.
+// key PAD_ID_KEY = INT32_MAX.  block_topk's round kernel (k > 32) selects by k
+// rounds of "lex-min among the pairs lex-greater than the last one picked",
+// which needs no retired-lane state: within a row real keys are distinct, and
+// pad lanes (all (INF, PAD)) collapse into one pick, after which a round
+// finds nothing and emits (INF, -1) — the same output as the plain
+// two-stable-sort top-k.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -71,8 +71,9 @@ def block_topk(d: torch.Tensor, ids: torch.Tensor, k: int
     """(dist, id)-lexicographic top-k of a masked panel.
 
     d (Q, C) f32, ids (Q, C) int32 -> (sel_d (Q, k), sel_id (Q, k)).
-    Contract: within a row ids >= 0 are distinct and every lane with
-    id < 0 carries d == INF.  k may exceed C: the tail is (INF, -1).
+    Contract: within a row ids >= 0 are distinct, every lane with id < 0
+    carries d == INF, and no distance is +inf or NaN.  k may exceed C:
+    the tail is (INF, -1).
     """
     if _on_cuda(d):
         return _block_topk.block_topk(d, ids, k=k)

@@ -7,6 +7,7 @@ each CUDA kernel against its plain version on the card.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core import isax
@@ -129,6 +130,27 @@ def block_topk_ref(d: torch.Tensor, ids: torch.Tensor, k: int
     return topk_by_dist_id(d, ids, k)
 
 
+def signed_panel(qn: int, c: int, *, seed: int, device="cpu",
+                 id_offset: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """A masked (Q, C) panel that holds to the ``block_topk`` contract and
+    tests its order: ties of -0.0 and +0.0 and of negative distances, real
+    lanes at INF, pad lanes (INF, -1) on a fifth of the lanes and, for
+    Q > 1, an all-pad row.  Ids are distinct in a row, drawn from
+    [id_offset, id_offset + 4C)."""
+    rng = np.random.default_rng(seed)
+    d = rng.choice(np.array([-2.0, -1.0, -0.0, 0.0, 0.5, 1.0, 3.0],
+                            np.float32), (qn, c))
+    d[rng.random((qn, c)) < 0.05] = INF
+    ids = np.stack([rng.permutation(4 * c)[:c] for _ in range(qn)]
+                   ).astype(np.int64) + id_offset
+    pad = rng.random((qn, c)) < 0.2
+    if qn > 1:
+        pad[qn // 2] = True
+    ids[pad], d[pad] = -1, INF
+    return (torch.from_numpy(d).to(device),
+            torch.from_numpy(ids.astype(np.int32)).to(device))
+
+
 def fused_panel_topk_ref(q: torch.Tensor, q_paa: torch.Tensor,
                          block: torch.Tensor, lo: torch.Tensor,
                          hi: torch.Tensor, ids: torch.Tensor,
@@ -144,7 +166,13 @@ def fused_panel_topk_ref(q: torch.Tensor, q_paa: torch.Tensor,
     w = q_paa.shape[-1]
     qe = q_paa[:, :, None]                                    # (Q, w, 1)
     dd = torch.clamp(torch.maximum(lo[None] - qe, qe - hi[None]), min=0.0)
-    lb = (n / w) * torch.sum(dd * dd, dim=1)                  # (Q, C)
+    # the w terms added in order, as the kernel does: torch.sum's order
+    # differs between devices, and a bound that lands within a rounding
+    # of thr would flip a lane's liveness
+    acc = torch.zeros_like(dd[:, 0])
+    for e in range(w):
+        acc = acc + dd[:, e] * dd[:, e]
+    lb = (n / w) * acc                                        # (Q, C)
     live = (lb < thr[:, None]) & (ids >= 0)[None, :]
     d = torch.where(live, batch_l2_ref(q, block), INF)
     idm = torch.where(live, ids[None, :], -1)

@@ -95,6 +95,68 @@ def test_block_topk_bitwise(cuda, qn, c, k):
     assert torch.equal(gd, wd) and torch.equal(gi, wi)
 
 
+def _same_bits(got, want):
+    (gd, gi), (wd, wi) = got, want
+    return (torch.equal(gd.view(torch.int32), wd.view(torch.int32))
+            and torch.equal(gi, wi))
+
+
+@pytest.mark.parametrize("qn,c", [(100, 1024), (100, 4096), (10, 2048)])
+@pytest.mark.parametrize("k", [1, 10])
+def test_block_topk_at_the_walk_shapes(cuda, qn, c, k):
+    """The stage-A seed (100, 1024), the flat and query-major panels
+    (100, 4096) and DTW's (10, 2048), with real-looking distances (sums
+    of squares, so few exact ties) and the walks' masked lanes."""
+    g = torch.Generator(device=cuda).manual_seed(qn + c + k)
+    d = torch.randn((qn, c), generator=g, device=cuda).square() * 40.0
+    ids = torch.argsort(torch.rand((qn, c), generator=g, device=cuda),
+                        dim=1).to(torch.int32)
+    dead = torch.rand((qn, c), generator=g, device=cuda) < 0.3
+    d = torch.where(dead, ref.INF, d)
+    ids = torch.where(dead, -1, ids)
+    assert _same_bits(block_topk(d, ids, k=k), ref.block_topk_ref(d, ids, k))
+
+
+@pytest.mark.parametrize("qn", [1, 10, 100])
+@pytest.mark.parametrize("c", [37, 4096])
+@pytest.mark.parametrize("k", [1, 2, 10, 16, 17, 32, 33, 1030])
+def test_block_topk_signed_zero_and_negative_ties(cuda, qn, c, k):
+    """-0.0 and +0.0 tie and go by id with their own sign bits; negative
+    distances; k at the k = 1 and k <= 32 kernels' largest k and one above
+    each, and past C."""
+    d, ids = ref.signed_panel(qn, c, seed=qn * 7 + c + k, device=cuda)
+    assert _same_bits(block_topk(d, ids, k=k), ref.block_topk_ref(d, ids, k))
+
+
+@pytest.mark.parametrize("c", [4097, 9000])
+@pytest.mark.parametrize("k", [1, 10, 32])
+def test_block_topk_rows_longer_than_a_block(cuda, c, k):
+    """Rows past 4,096 lanes take the round kernel at every k."""
+    d, ids = ref.signed_panel(10, c, seed=c + k, device=cuda)
+    assert _same_bits(block_topk(d, ids, k=k), ref.block_topk_ref(d, ids, k))
+
+
+@pytest.mark.parametrize("c", [300, 1024, 4096])
+@pytest.mark.parametrize("k", [1, 10, 32, 33])
+def test_block_topk_ids_up_to_int32_max(cuda, c, k):
+    """Ids at and above 2^30, up to INT32_MAX - 1: the order keys hold
+    the whole id."""
+    top = int(torch.iinfo(torch.int32).max)
+    d, ids = ref.signed_panel(10, c, seed=c * 3 + k, device=cuda,
+                              id_offset=top - 4 * c)
+    assert int(ids.max()) >= 2 ** 30
+    assert _same_bits(block_topk(d, ids, k=k), ref.block_topk_ref(d, ids, k))
+
+
+def test_block_topk_all_pad_rows_and_k_past_c(cuda):
+    d = torch.full((10, 300), ref.INF, device=cuda)
+    ids = torch.full((10, 300), -1, dtype=torch.int32, device=cuda)
+    for k in (1, 10, 32, 305):
+        got = block_topk(d, ids, k=k)
+        assert _same_bits(got, ref.block_topk_ref(d, ids, k))
+        assert bool((got[1] == -1).all())
+
+
 @pytest.mark.parametrize("qn", [1, 6, 13])
 @pytest.mark.parametrize("c", [37, 300, 1024])
 @pytest.mark.parametrize("k", [1, 5, 32, 1030])
@@ -134,7 +196,18 @@ def test_fused_panel_topk_all_dead(cuda):
     _check_fused(cuda, 13, 300, 5, n=128)
 
 
-def _check_fused(cuda, qn, c, k, *, n, w=16, thr_all=None, seed=None):
+@pytest.mark.parametrize("c,k", [(1000, 5), (1024, 32)])
+def test_fused_panel_topk_live_counts_over_query_noise(cuda, c, k):
+    """Live counts exact over 300 draws of the query noise at Q = 100,
+    where now and then a bound lands within a rounding of the threshold:
+    the kernel and the plain version add the w MINDIST terms in one
+    order."""
+    for noise_seed in range(300):
+        _check_fused(cuda, 100, c, k, n=256, noise_seed=noise_seed)
+
+
+def _check_fused(cuda, qn, c, k, *, n, w=16, thr_all=None, seed=None,
+                 noise_seed=None):
     rng = np.random.default_rng(qn * 13 + c + k + n if seed is None else seed)
     block = isax.znorm(torch.from_numpy(random_walk(c, n, seed=c)).to(cuda))
     ids = torch.from_numpy(rng.permutation(5 * c)[:c].astype(np.int32)).to(cuda)
@@ -144,7 +217,9 @@ def _check_fused(cuda, qn, c, k, *, n, w=16, thr_all=None, seed=None):
     lo = bounds[..., 0].T.contiguous()
     hi = bounds[..., 1].T.contiguous()
     pick = torch.from_numpy(rng.integers(0, c - 3, qn)).to(cuda)
-    q = block[pick] + 0.3 * torch.randn((qn, n), device=cuda)
+    g = (None if noise_seed is None
+         else torch.Generator(device=cuda).manual_seed(noise_seed))
+    q = block[pick] + 0.3 * torch.randn((qn, n), device=cuda, generator=g)
     q_paa = isax.paa(q, w)
     full = ref.batch_l2_ref(q, block)
     thr = torch.quantile(full[:, :-3], 0.3, dim=1)
@@ -185,6 +260,24 @@ def test_batch_l2(cuda, qn, n_items):
     x = isax.znorm(torch.from_numpy(random_walk(n_items, 256,
                                                 seed=n_items)).to(cuda))
     x[-1] = 1.0e4                                  # a RAW_PAD row
+    got = batch_l2(q, x)
+    want = ref.batch_l2_ref(q, x)
+    tol = 1e-5 * ((q * q).sum(1)[:, None] + (x * x).sum(1)[None, :])
+    assert bool(torch.isfinite(got).all())
+    assert bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("qn", [1, 13, 100, 129])
+@pytest.mark.parametrize("n", [100, 129, 256])
+def test_batch_l2_split_tf32_across_the_tiles(cuda, qn, n):
+    """Q past one 128-row tile, lengths that leave a ragged 32-coordinate
+    slice (and n % 4 != 0: 4-byte staging), N not a multiple of the
+    32-series slice; a RAW_PAD row and queries equal to indexed rows
+    (distance ~ 0, where the tolerance rests on |q|^2 + |x|^2 alone)."""
+    q = isax.znorm(torch.from_numpy(random_walk(qn, n, seed=qn + n)).to(cuda))
+    x = isax.znorm(torch.from_numpy(random_walk(1000, n, seed=n)).to(cuda))
+    x[-1] = 1.0e4                                  # a RAW_PAD row
+    x[: min(qn, 5)] = q[:5]                        # zero distances
     got = batch_l2(q, x)
     want = ref.batch_l2_ref(q, x)
     tol = 1e-5 * ((q * q).sum(1)[:, None] + (x * x).sum(1)[None, :])

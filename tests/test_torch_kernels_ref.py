@@ -92,6 +92,27 @@ def test_block_topk_ref(qn, c, k):
     assert gi.dtype == torch.int32 and gd.shape == (qn, k)
 
 
+@pytest.mark.parametrize("k", [1, 3, 6, 9, 12])
+def test_block_topk_ref_signed_zero_negative_and_pad_lanes(k):
+    """The order the CUDA kernel's 64-bit keys must reproduce: -0.0 and
+    +0.0 tie and go by id (each keeps its own sign bit), negative
+    distances come first, pad lanes (INF, id < 0) come after real lanes
+    at INF and leave as (INF, -1), and k > C pads with (INF, -1)."""
+    d = np.array([[0.0, -0.0, 0.0, -0.0, 1.0, -1.0, -0.0, 0.0, 0.0],
+                  [-0.0, 0.0, -2.5, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0]],
+                 np.float32)
+    ids = np.array([[7, 3, 5, 1, 0, 9, 11, -1, -1],
+                    [4, 2, 8, 6, -1, -1, -1, -1, -1]], np.int32)
+    d[0, 7:] = tref.INF
+    d[0, 4] = tref.INF                    # a real lane at INF, before pads
+    d[1, 4:] = tref.INF
+    gd, gi = tref.block_topk_ref(_t(d), _t(ids), k)
+    wd, wi = jref.block_topk_ref(jnp.asarray(d), jnp.asarray(ids), k)
+    assert np.array_equal(_np(gi), _np(wi))
+    assert np.array_equal(_np(gd).view(np.uint32), _np(wd).view(np.uint32))
+    assert gi[0, :min(k, 6)].tolist() == [9, 1, 3, 5, 7, 11][:k]
+
+
 def test_topk_by_dist_id_orders_ties_by_id():
     d = np.array([[3.0, 1.0, 1.0, 1.0, 2.0]], np.float32)
     ids = np.array([[0, 9, 4, -1, 7]], np.int32)
