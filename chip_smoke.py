@@ -40,7 +40,11 @@ CUDA toolkit.  Phases, each printing one JSON line:
   8. kernels   — each kernel against its plain PyTorch version on the
                  card, at its paths' shapes and on their data, with the
                  stated tolerance, and timed beside its plain version, a
-                 library call where one exists, and its bound: ``ms`` is
+                 library call where one exists, and its bound (the larger
+                 of bytes at the memory rate and operations at the rate of
+                 the unit that does them, named in ``bound_unit``: fp32,
+                 fp64, TF32 tensor cores, or the exps' special-function
+                 units at an assumed 1.98 GHz): ``ms`` is
                  CUDA events around back-to-back calls (the wrapper's host
                  time included where it is the longer), ``device_ms`` the
                  kernel's own device time from the profiler over the same
@@ -52,7 +56,11 @@ CUDA toolkit.  Phases, each printing one JSON line:
                  (10, 2048)) at k = 1 and 10, and bitwise on +-0 ties and
                  all-pad rows; ``batch_l2`` at the first flat chunk,
                  Q = 1 and 13; both beside their library call's own
-                 device time (``library_device_ms``);
+                 device time (``library_device_ms``); ``isax_summarize``
+                 bitwise in both normalize modes on 1M series;
+                 ``ssm_scan`` at layer 0's prefill, one decode step from
+                 its state, and a state size that is no power of two
+                 (N = 12 over 512 steps);
   9. exact     — every Euclidean path's answers (block-major, query-major,
                  flat, UCR) against a brute-force scan of every series with
                  the plain ``batch_l2_ref`` + ``topk_by_dist_id``.
@@ -96,8 +104,13 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import common, mamba, transformer  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
-FP32_OPS_PER_S = 67e12         # H100 SXM fp32 rate outside the tensor cores
-TF32_OPS_PER_S = 495e12        # H100 SXM dense TF32 tensor-core rate
+# (operations a second, the unit a bound names) of the H100 SXM's units
+FP32 = (67e12, "fp32 operations at 67 TFLOP/s")   # outside the tensor cores
+TF32 = (495e12, "dense TF32 tensor-core operations at 495 TFLOP/s")
+FP64 = (34e12, "fp64 operations at 34 TFLOP/s")   # outside the tensor cores
+SM_CLOCK_HZ = 1.98e9           # assumed for the SFU rate: the maximum SM clock
+SFU = (16 * 132 * SM_CLOCK_HZ,  # 16 exps a clock on each of 132 SMs
+       "exps on the special-function units, 16 a clock an SM at 1.98 GHz")
 LB_RTOL = 1e-5                 # 16 non-negative terms summed in another order
 DIST_REL = 1e-5                # squared-L2 tolerance: DIST_REL * (||q||^2 + ||x||^2)
 LENGTH = 256                   # points per series (the paper's Synthetic)
@@ -113,6 +126,7 @@ LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32   # requests, tokens each, generated
 LOGIT_REL = 1e-3               # serving vs forward: |dlogit| <= LOGIT_REL * max |logit|
 MIX_TOL = 1e-3                 # mixer vs mamba_naive, rtol and atol
 SSM_REL = 1e-4                 # ssm_scan vs ssm_scan_ref: SSM_REL * (|ref| + max |ref|)
+SSM_ODD_N, SSM_ODD_STEPS = 12, 512   # the scan's case at a state size no power of two
 
 # the kernels each search path must launch (the build's isax_summarize
 # is checked on its own)
@@ -212,13 +226,18 @@ def device_ms_all(fn, reps: int = 20, warmup: int = 3) -> float:
     return total / reps / 1e3
 
 
-def bound(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S
-          ) -> tuple[float, str]:
+def bound(nbytes: float, ops: float, rate: tuple = FP32, *more
+          ) -> tuple[float, str, str]:
     """The least time for the work: ``nbytes`` at the memory rate against
-    ``ops`` at ``ops_per_s`` (fp32 outside the tensor cores by default)."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ops_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    ``ops`` at ``rate`` (fp32 outside the tensor cores by default) and any
+    further (ops, rate) pairs, each on its own unit.  -> (ms, "bytes" or
+    "operations", the unit that bounds it)."""
+    best = (nbytes / HBM_BYTES_PER_S * 1e3, "bytes", "bytes at 3.35 TB/s")
+    for n_ops, (per_s, unit) in ((ops, rate), *more):
+        t = n_ops / per_s * 1e3
+        if t > best[0]:
+            best = (t, "operations", unit)
+    return best
 
 
 def random_walk_cuda(n_series: int, length: int, seed: int,
@@ -534,14 +553,18 @@ def _compare_summarize(raw: torch.Tensor, n_slice: int) -> dict:
             x, w=isax.W, card=isax.CARD, normalize=normalize), reps=5)
         n, w = x.shape[1], isax.W
         nbytes = n_slice * n * 4 + n_slice * w * 8 + bps.numel() * 4
-        ops = n_slice * (n * (6 if normalize else 1)
-                         + w * (1 + int(np.ceil(np.log2(bps.numel() + 1)))))
-        b_ms, b_by = bound(nbytes, ops)
+        # float64: per point one add, and with z-norm the variance's
+        # subtract, multiply and add and the z-norm's subtract and divide;
+        # per window its divide; the symbol search in fp32
+        f64 = n_slice * (n * (6 if normalize else 1) + w)
+        search = n_slice * w * int(np.ceil(np.log2(bps.numel() + 1)))
+        b_ms, b_by, b_unit = bound(nbytes, f64, FP64, (search, FP32))
         out[normalize] = {"shape": [n_slice, n], "normalize": normalize,
                           "max_abs_err": float(err.max()),
                           "symbol_flips": n_flips, "match": paa_ok and flips_ok,
                           "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-                          "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                          "bound_ms": b_ms, "bound_by": b_by,
+                          "bound_unit": b_unit, "library_ms": None,
                           "tolerance": "bitwise: PAA and symbols"}
         emit({"phase": "kernels", "kernel": "isax_summarize", **out[normalize]})
     return out[False]           # the main path's branch
@@ -556,14 +579,15 @@ def _compare_lb_scan(q_paa, index) -> dict:
                f"lb_scan within rtol {LB_RTOL}")
     qn, w = q_paa.shape
     nb = lo.shape[1]
-    b_ms, b_by = bound(qn * w * 4 + 2 * w * nb * 4 + qn * nb * 4,
-                       qn * nb * (6 * w + 1))
+    b_ms, b_by, b_unit = bound(qn * w * 4 + 2 * w * nb * 4 + qn * nb * 4,
+                               qn * nb * (6 * w + 1))
     line = {"shape": [qn, w, nb], "max_abs_err": float(err.max()),
             "match": ok, "ms": time_cuda(lambda: lb_scan(q_paa, lo, hi, n=n)),
             "device_ms": device_ms(lambda: lb_scan(q_paa, lo, hi, n=n),
                                    SYMBOL["lb_scan"]),
             "plain_ms": time_cuda(lambda: ref.lb_scan_ref(q_paa, lo, hi, n=n)),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_unit": b_unit,
+            "library_ms": None,
             "tolerance": f"rtol {LB_RTOL}"}
     emit({"phase": "kernels", "kernel": "lb_scan", **line})
     return line
@@ -646,7 +670,7 @@ def _compare_block_topk(panels: dict) -> dict:
         for k in (1, 10):
             run = lambda d=d, ids=ids, k=k: block_topk(d, ids, k=k)
             lib = lambda d=d, k=k: torch.topk(d, k, dim=1, largest=False)
-            b_ms, b_by = bound(qn * c * 8 + qn * k * 8, qn * c)
+            b_ms, b_by, b_unit = bound(qn * c * 8 + qn * k * 8, qn * c)
             shapes[f"{label}_k{k}"] = {
                 "shape": [qn, c], "k": k,
                 "live_lanes": int((ids >= 0).sum()),
@@ -654,7 +678,7 @@ def _compare_block_topk(panels: dict) -> dict:
                 "device_ms": device_ms(run, SYMBOL["block_topk"]),
                 "plain_ms": time_cuda(
                     lambda d=d, ids=ids, k=k: ref.block_topk_ref(d, ids, k)),
-                "bound_ms": b_ms, "bound_by": b_by,
+                "bound_ms": b_ms, "bound_by": b_by, "bound_unit": b_unit,
                 "library_ms": time_cuda(lib),
                 "library_device_ms": device_ms_all(lib)}
     line = {**shapes["flat_k10"], "panel": "flat", "shapes": shapes,
@@ -759,7 +783,7 @@ def _compare_fused(index, qs, front_thr, final_thr, block_lb, order) -> dict:
         nbytes = (qn * (n + w + 1) * 4 + 2 * w * c * 4 + c * 4
                   + live_rows * n * 4 + qn * k * 8 + qn * 4)
         ops = qn * c * 6 * w + n_live * (2 * n + 3) + live_rows * 2 * n
-        b_ms, b_by = bound(nbytes, ops)
+        b_ms, b_by, b_unit = bound(nbytes, ops)
         timed[label] = {
             "block": b, "walk_position": int((order == b).nonzero()[0, 0]),
             "n_live": n_live, "live_rows": live_rows,
@@ -767,7 +791,7 @@ def _compare_fused(index, qs, front_thr, final_thr, block_lb, order) -> dict:
                 run, SYMBOL["fused_panel_topk"]),
             "plain_ms": time_cuda(lambda: ref.fused_panel_topk_ref(
                 *args, k=k, n=n)),
-            "bound_ms": b_ms, "bound_by": b_by}
+            "bound_ms": b_ms, "bound_by": b_by, "bound_unit": b_unit}
     first = timed["first_block"]
     line = {"shape": [qn, index.capacity, n], "k": k, "cases": n_cases,
             "pad_lanes_in_last_block": pads, "near_ties": ties,
@@ -777,6 +801,7 @@ def _compare_fused(index, qs, front_thr, final_thr, block_lb, order) -> dict:
             "max_abs_err": max_err, "match": ok_all, "ms": first["ms"],
             "device_ms": first["device_ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "bound_unit": first["bound_unit"],
             "library_ms": None,
             "tolerance": f"n_live equal; squared distances within "
                          f"{DIST_REL}*(|q|^2+max|x|^2); ids equal but at near ties"}
@@ -813,7 +838,7 @@ def _compare_batch_l2(q, flat_raw) -> dict:
         m = x.shape[0]
         nbytes = 4 * (qn * n + m * n + qn * m)
         # the design that runs: three TF32 products on the tensor cores
-        b_ms, b_by = bound(nbytes, 3 * 2 * qn * m * n, TF32_OPS_PER_S)
+        b_ms, b_by, b_unit = bound(nbytes, 3 * 2 * qn * m * n, TF32)
         run = lambda qq=qq, x=x: batch_l2(qq, x)
         lib = lambda qq=qq, x=x: torch.cdist(
             qq, x, compute_mode="use_mm_for_euclid_dist")
@@ -821,7 +846,7 @@ def _compare_batch_l2(q, flat_raw) -> dict:
             "shape": [qn, m, n], "ms": time_cuda(run),
             "device_ms": device_ms(run, SYMBOL["batch_l2"]),
             "plain_ms": time_cuda(lambda qq=qq, x=x: ref.batch_l2_ref(qq, x)),
-            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_unit": b_unit,
             # a note: the bound of one product at the fp32 rate
             "fp32_bound_ms": bound(nbytes, 2 * qn * m * n)[0],
             "library_ms": time_cuda(lib),
@@ -862,7 +887,7 @@ def _compare_dtw(index, q) -> dict:
                             f"r={r}: bitwise")
     m = gathered.shape[1]
     cells = qn * m * band_cells(n, DTW_R)
-    b_ms, b_by = bound(4 * (qn * n + qn * m * n + qn * m), 6 * cells)
+    b_ms, b_by, b_unit = bound(4 * (qn * n + qn * m * n + qn * m), 6 * cells)
     line = {"shape": [qn, m, n], "r": DTW_R, "form": "gathered",
             "band_cells": cells,
             "max_abs_err": 0.0 if ok_all else None, "match": ok_all,
@@ -875,7 +900,8 @@ def _compare_dtw(index, q) -> dict:
                                                           r=DTW_R)),
             "shared_device_ms": device_ms(lambda: dtw_band_panel(
                 qs.q, shared, r=DTW_R), SYMBOL["dtw_band_panel"]),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_unit": b_unit,
+            "library_ms": None,
             "tolerance": f"bitwise, shared {tuple(shared.shape)} and "
                          f"gathered {tuple(gathered.shape)}, r in "
                          f"{{0, {DTW_R}, {n - 1}}}"}
@@ -883,24 +909,33 @@ def _compare_dtw(index, q) -> dict:
     return line
 
 
-def _ssm_bound(b, s, d, n, with_h0: bool) -> tuple[float, str]:
+def _ssm_bound(b, s, d, n, with_h0: bool) -> tuple[float, str, str]:
     """Bytes: xc, dt, y (B, S, D), B, C (B, S, N), A (D, N), h_last and h0
-    (B, D, N).  Operations (fp32): per (b, t, d, n) dt*A, its exp (counted
-    as one), (dt*x)*B, a*h + b (two), h*C and one reduction add; per
-    (b, t, d) dt*x."""
+    (B, D, N).  fp32 operations: per (b, t, d, n) dt*A, (dt*x)*B, a*h + b
+    (two), h*C and one reduction add; per (b, t, d) dt*x.  Exps: one per
+    (b, t, d, n), on the special-function units."""
     nbytes = 4 * (3 * b * s * d + 2 * b * s * n + d * n
                   + (2 if with_h0 else 1) * b * d * n)
-    return bound(nbytes, 7 * b * s * d * n + b * s * d)
+    return bound(nbytes, 6 * b * s * d * n + b * s * d, FP32,
+                 (b * s * d * n, SFU))
 
 
 def _compare_ssm(scan_in: dict) -> dict:
-    """At the prefill shape on layer 0's real coefficients, and at the
-    decode shape (S = 1) from that scan's last state."""
+    """At the prefill shape on layer 0's real coefficients, at the decode
+    shape (S = 1) from that scan's last state, and at a state size that is
+    no power of two (the first SSM_ODD_N states of the same coefficients
+    over SSM_ODD_STEPS steps; one state fewer than the config's where that
+    is smaller), which the kernel pads in registers."""
     xc, dt, bm, cm, a = (scan_in[k] for k in ("xc", "dt", "bm", "cm", "a"))
     one = lambda t: t[:, -1:].contiguous()
+    odd = min(SSM_ODD_N, max(bm.shape[-1] - 1, 1))
+    part = lambda t: t[:, :SSM_ODD_STEPS, :odd].contiguous()
     cases = {"prefill": (xc, dt, bm, cm, a, None),
              "decode": (one(xc), one(dt), one(bm), one(cm), a,
-                        scan_in["h_last"])}
+                        scan_in["h_last"]),
+             f"n{odd}": (xc[:, :SSM_ODD_STEPS].contiguous(),
+                         dt[:, :SSM_ODD_STEPS].contiguous(), part(bm),
+                         part(cm), a[:, :odd].contiguous(), None)}
     ok_all, line = True, {}
     for label, args in cases.items():
         y, h_last = ssm_scan(*args)
@@ -916,7 +951,7 @@ def _compare_ssm(scan_in: dict) -> dict:
             errs.append(float(err.max()))
         b, s_len, d = args[0].shape
         n = args[2].shape[-1]
-        b_ms, b_by = _ssm_bound(b, s_len, d, n, args[5] is not None)
+        b_ms, b_by, b_unit = _ssm_bound(b, s_len, d, n, args[5] is not None)
         line[label] = {"shape": [b, s_len, d, n],
                        "max_abs_err_y": errs[0], "max_abs_err_h_last": errs[1],
                        "ms": time_cuda(lambda: ssm_scan(*args)),
@@ -924,7 +959,8 @@ def _compare_ssm(scan_in: dict) -> dict:
                                               SYMBOL["ssm_scan"]),
                        "plain_ms": time_cuda(lambda: ref.ssm_scan_ref(*args),
                                              reps=3, warmup=1),
-                       "bound_ms": b_ms, "bound_by": b_by}
+                       "bound_ms": b_ms, "bound_by": b_by,
+                       "bound_unit": b_unit}
     pre = line["prefill"]
     out = {"shape": pre["shape"], "cases": line,
            "max_abs_err": max(max(c["max_abs_err_y"], c["max_abs_err_h_last"])
@@ -932,10 +968,10 @@ def _compare_ssm(scan_in: dict) -> dict:
            "match": ok_all, "ms": pre["ms"], "device_ms": pre["device_ms"],
            "plain_ms": pre["plain_ms"],
            "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
-           "library_ms": None,
+           "bound_unit": pre["bound_unit"], "library_ms": None,
            "library": "none: no single PyTorch call computes a selective scan",
            "tolerance": f"y and h_last within {SSM_REL} x (|ref| + max|ref|): "
-                        "fp32 with FMA contraction and expf an ulp or two "
+                        "fp32 with FMA contraction and ex2.approx a few ulps "
                         "from torch.exp, over a recurrence that decays"}
     emit({"phase": "kernels", "kernel": "ssm_scan", **out})
     return out
@@ -1085,6 +1121,7 @@ def main(argv=None) -> int:
                         "plain_ms": line["plain_ms"],
                         "bound_ms": line["bound_ms"],
                         "bound_by": line["bound_by"],
+                        "bound_unit": line["bound_unit"],
                         "library_ms": line["library_ms"]})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(nvidia_smi_line(), flush=True)

@@ -22,8 +22,8 @@ steps.  Each trace prints one JSON line: the
 wall time (host clock, synchronized) without and with the profiler, the
 device's busy time (the sum of the device events' times in the trace)
 and its share of the profiled wall time, the device events a step, and
-the kernels that took the most device time; the search paths also give
-each port kernel's launches and summed device time (``port_kernels``).
+the kernels that took the most device time, and each port kernel's
+launches and summed device time (``port_kernels``).
 Needs one CUDA card.
 """
 from __future__ import annotations
@@ -127,7 +127,8 @@ def trace_lm(args) -> int:
             "device_busy_seconds": busy_us / 1e6,
             "device_busy_share": busy_us / 1e6 / wall,
             "device_events_per_step": sum(e.count for e in events) / n_steps,
-            "kernels": top}), flush=True)
+            "kernels": top, "port_kernels": _port_kernels(events)}),
+            flush=True)
         ok &= busy_us > 0
     return 0 if ok else 1
 

@@ -5,12 +5,16 @@ Replaces the TPU kernel ``src/repro/kernels/isax_summarize.py``
 build summarizes every series once.
 
 Bound on the H100: bytes — the (N, n) series are read once and the
-work is a few operations a point.  Design (``csrc/isax_summarize.cu``):
-one warp per series with lanes on consecutive points, so loads
-coalesce; warp reductions for the mean and the variance about it; the
-symbol by binary search over the breakpoint table, passed in from
-``core.isax.breakpoints`` so the bits match the plain version's.  The
-plain version is ``ref.isax_summarize_ref``.
+work is a few operations a point (float64 where z-norm is on).  Design
+(``csrc/isax_summarize.cu``): every lane on one (series, segment) pair,
+two series a warp at w = 16; without z-norm each lane reads its segment
+straight from device memory as 16-byte vectors (4-byte loads where n / w
+is not a multiple of 4); with
+z-norm a warp stages its series in shared memory and sums the mean and
+variance in ``ref._lane_sum``'s order.  The symbol by binary search over
+the breakpoint table, passed in from ``core.isax.breakpoints`` so the
+bits match the plain version's.  The plain version is
+``ref.isax_summarize_ref``.
 """
 from __future__ import annotations
 

@@ -10,12 +10,16 @@ Beside ``y`` it returns the last state ``h_last``, and starts from
 ``h0`` when one is given: the state that the TPU kernel keeps in VMEM,
 which serving carries from the prefill into every decode step.
 
-Bound on the H100: bytes at the prefill shape (xc, dt and y), with an
-expf per (b, t, d, n) close behind.  Design (``csrc/ssm_scan.cu``): one
-channel per group of N lanes, one state element per lane in a register,
-B_t / C_t and the channels' xc / dt staged a tile of time steps at a
-time, y_t by a shuffle reduction; nothing of size (B, S, D, N) is ever
-written.  The plain version is ``ref.ssm_scan_ref``.
+Bound on the H100: at the prefill shape, one exp per (b, t, d, n) on the
+special-function units, just above the bytes (xc, dt and y).  Design
+(``csrc/ssm_scan.cu``): a channel's states spread over G lanes, R = 4 a
+lane, in registers; tiles of 32 time steps staged by ``cp.async``,
+double-buffered; exp as ``ex2.approx`` of dt * (A * log2 e); each tile's y
+reduce-scattered over the channel's lanes.  Any N >= 1: N is padded in
+registers to a power of two (pad states add exactly 0), N > 32 runs in
+passes of 32 states, and S = 1 (a decode step) takes a one-step tile.
+Nothing of size (B, S, D, N) is ever written.  The plain version is
+``ref.ssm_scan_ref``.
 """
 from __future__ import annotations
 
@@ -24,7 +28,6 @@ import torch
 from repro_torch.kernels import _build
 
 launches = 0   # launches of the kernel since the last ops.reset_launch_counts()
-STATE_SIZES = (4, 8, 16, 32)   # N the kernel is compiled for
 
 
 def ssm_scan(xc: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
@@ -35,8 +38,6 @@ def ssm_scan(xc: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
     global launches
     b, s, d = xc.shape
     n = bm.shape[-1]
-    if n not in STATE_SIZES:
-        raise ValueError(f"state size {n} not in {STATE_SIZES}")
     _build.check_tensor(xc, "xc", torch.float32, (b, s, d))
     dev = xc.device
     _build.check_tensor(dt, "dt", torch.float32, (b, s, d), dev)

@@ -65,6 +65,28 @@ def test_isax_summarize(cuda, normalize, shape):
     assert torch.equal(pc, pr.cpu()) and torch.equal(sc, sr.cpu())
 
 
+@pytest.mark.parametrize("normalize", [False, True])
+@pytest.mark.parametrize("shape,w", [((77, 48), 16), ((33, 40), 8),
+                                     ((31, 256), 16), ((13, 60), 4),
+                                     ((7, 50), 10), ((5, 128), 64),
+                                     ((3, 64), 1)])
+def test_isax_summarize_ragged_windows(cuda, normalize, shape, w):
+    """Windows of 1-64 points (4-byte loads where n / w is not a multiple
+    of 4), w not a power of two, w > 32 and odd series counts, bitwise in
+    both modes."""
+    x = torch.from_numpy(random_walk(*shape, seed=w)).to(cuda)
+    if not normalize:
+        x = isax.znorm(x)
+    pk, sk = isax_summarize(x, w=w, card=256, normalize=normalize)
+    pr, sr = ref.isax_summarize_ref(x, w=w, card=256, normalize=normalize)
+    assert torch.equal(pk, pr) and torch.equal(sk, sr)
+    # a start 4 bytes past 16-byte alignment takes the 4-byte loads
+    xu = torch.empty(x.numel() + 1, device=cuda)[1:].view(x.shape)
+    xu.copy_(x)
+    pk, sk = isax_summarize(xu, w=w, card=256, normalize=normalize)
+    assert torch.equal(pk, pr) and torch.equal(sk, sr)
+
+
 @pytest.mark.parametrize("qn", [1, 6, 13, 100])
 @pytest.mark.parametrize("n_items", [1, 77, 1000])
 def test_lb_scan(cuda, qn, n_items):
@@ -399,11 +421,32 @@ def test_ssm_scan(cuda, b, s, d, n, with_h0):
     torch.testing.assert_close(h_last, hr, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("n", [1, 2, 3, 12, 33, 64])
+@pytest.mark.parametrize("b,s,d", [(2, 45, 77), (1, 70, 128), (3, 1, 100),
+                                   (4, 1, 1600)])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_ssm_scan_any_state_size(cuda, n, b, s, d, with_h0):
+    """N padded to a power of two (1, 2, 3, 12), N > 32 in passes (33, 64),
+    a ragged D (77) and S = 1 (decode)."""
+    args = _ssm_inputs(cuda, b, s, d, n, seed=b * s + d + n,
+                       with_h0=with_h0)
+    ops.reset_launch_counts()
+    y, h_last = ssm_scan(*args)
+    assert ops.launch_counts()["ssm_scan"] == 1
+    yr, hr = ref.ssm_scan_ref(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, yr, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h_last, hr, rtol=1e-4, atol=1e-4)
+
+
 def test_ssm_scan_refuses_what_it_does_not_take(cuda):
     xc, dt, bm, cm, a, _ = _ssm_inputs(cuda, 1, 4, 8, 4, 0, False)
-    with pytest.raises(ValueError, match="state size"):
-        ssm_scan(xc, dt, bm[..., :3].contiguous(), cm[..., :3].contiguous(),
-                 a[:, :3].contiguous())
+    # a state size outside {4, 8, 16, 32} runs (it was refused before)
+    three = [t[..., :3].contiguous() for t in (bm, cm, a)]
+    y, h_last = ssm_scan(xc, dt, *three)
+    yr, hr = ref.ssm_scan_ref(xc, dt, *three)
+    torch.testing.assert_close(y, yr, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h_last, hr, rtol=1e-4, atol=1e-4)
     with pytest.raises(ValueError, match="contiguous"):
         ssm_scan(xc.transpose(1, 2).contiguous().transpose(1, 2), dt, bm, cm,
                  a)
@@ -417,6 +460,30 @@ def test_mamba_mix_on_the_card_matches_the_naive_oracle(cuda):
     p = common.tree_map(lambda t: t[0].contiguous(), common.build_params(
         mamba.param_specs(cfg, cfg.q_dim), gen, cuda))
     p["a_log"] = torch.rand(p["a_log"].shape, generator=gen, device=cuda) - .5
+    x = torch.randn((2, 37, cfg.d_model), generator=gen, device=cuda)
+    ops.reset_launch_counts()
+    got, gst = mamba.mamba_mix(x, p, d_inner=cfg.q_dim)
+    step, sst = mamba.mamba_mix(x[:, :1], p, d_inner=cfg.q_dim, state=gst)
+    assert ops.launch_counts()["ssm_scan"] == 2
+    want, wst = mamba.mamba_naive(x, p, d_inner=cfg.q_dim)
+    wstep, wsst = mamba.mamba_naive(x[:, :1], p, d_inner=cfg.q_dim, state=wst)
+    for g, w in ((got, want), (gst.h, wst.h), (step, wstep),
+                 (sst.h, wsst.h)):
+        torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-3)
+
+
+def test_mamba_mix_with_state_size_12_matches_the_naive_oracle(cuda):
+    """A mixer whose ssm_state is no power of two, on the card."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import common, mamba
+    cfg = dataclasses.replace(get_config("hymba-1.5b", smoke=True),
+                              ssm_state=12)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    p = common.tree_map(lambda t: t[0].contiguous(), common.build_params(
+        mamba.param_specs(cfg, cfg.q_dim), gen, cuda))
+    p["a_log"] = torch.rand(p["a_log"].shape, generator=gen, device=cuda) - .5
+    assert p["a_log"].shape[-1] == 12
     x = torch.randn((2, 37, cfg.d_model), generator=gen, device=cuda)
     ops.reset_launch_counts()
     got, gst = mamba.mamba_mix(x, p, d_inner=cfg.q_dim)

@@ -50,6 +50,23 @@ def test_isax_summarize_ref(normalize):
     assert st.dtype == torch.int32
 
 
+@pytest.mark.parametrize("normalize", [False, True])
+@pytest.mark.parametrize("shape,w", [((77, 48), 16), ((33, 40), 8),
+                                     ((13, 60), 4), ((5, 128), 64)])
+def test_isax_summarize_ref_ragged_windows(normalize, shape, w):
+    """Windows whose length is no multiple of 4, and w outside 16."""
+    x = random_walk(*shape, seed=w)
+    if not normalize:
+        x = np.array(jisax.znorm(jnp.asarray(x)))
+    pt, st = tref.isax_summarize_ref(_t(x), w=w, card=256, normalize=normalize)
+    pj, sj = jref.isax_summarize_ref(jnp.asarray(x), w=w, card=256,
+                                     normalize=normalize)
+    np.testing.assert_allclose(_np(pt), _np(pj), rtol=1e-6, atol=1e-6)
+    flips = _np(st) != _np(sj)
+    bp = jisax.breakpoints(256)[np.minimum(_np(st), _np(sj))[flips]]
+    assert np.all(np.abs(_np(pj)[flips] - bp) < 1e-5)
+
+
 @pytest.mark.parametrize("qn", QS)
 @pytest.mark.parametrize("n_items", [1, 77, 300])
 def test_lb_scan_ref(qn, n_items):
@@ -202,7 +219,9 @@ def test_fused_panel_topk_ref(qn, c, k):
 
 
 @pytest.mark.parametrize("b,s,d,n", [(1, 16, 8, 4), (2, 32, 100, 16),
-                                     (1, 64, 128, 8)])
+                                     (1, 64, 128, 8), (2, 24, 10, 1),
+                                     (1, 33, 77, 3), (2, 16, 20, 12),
+                                     (1, 12, 6, 64)])
 def test_ssm_scan_ref(b, s, d, n):
     rng = np.random.default_rng(b * 1000 + s + d + n)
     mk = lambda *sh: rng.standard_normal(sh).astype(np.float32) * 0.5
