@@ -58,6 +58,13 @@ CUDA toolkit.  Phases, each printing one JSON line:
                  Q = 1 and 13; both beside their library call's own
                  device time (``library_device_ms``); ``isax_summarize``
                  bitwise in both normalize modes on 1M series;
+                 ``lb_scan`` at every shape the paths give it (``cases``:
+                 the flat scan over every series, the block envelopes,
+                 DTW's two passes against +-SENTINEL planes), each checked
+                 over every column (the plain version in column chunks);
+                 its phase line gives each case an issue floor
+                 (``issue_floor_ms``, worked out, not measured) beside its
+                 byte bound;
                  ``ssm_scan`` at layer 0's prefill, one decode step from
                  its state, and a state size that is no power of two
                  (N = 12 over 512 steps);
@@ -112,6 +119,13 @@ SM_CLOCK_HZ = 1.98e9           # assumed for the SFU rate: the maximum SM clock
 SFU = (16 * 132 * SM_CLOCK_HZ,  # 16 exps a clock on each of 132 SMs
        "exps on the special-function units, 16 a clock an SM at 1.98 GHz")
 LB_RTOL = 1e-5                 # 16 non-negative terms summed in another order
+LB_PLAIN_CHUNK = 131_072       # columns of a chunk of the plain lb_scan
+# lb_scan's issue floor: the fp32 arithmetic a (q, j, s) term of the
+# kernel (two FMNMX, one FADD, one FFMA; loads and the loop not counted),
+# at one warp instruction a clock on each of the 528 schedulers (132 SMs x
+# 4) at the assumed clock
+LB_INSTR_PER_TERM = 4
+INSTR_RATE = 132 * 4 * 32 * SM_CLOCK_HZ   # thread instructions a second
 DIST_REL = 1e-5                # squared-L2 tolerance: DIST_REL * (||q||^2 + ||x||^2)
 LENGTH = 256                   # points per series (the paper's Synthetic)
 CAPACITY = 1024                # series per block
@@ -570,27 +584,83 @@ def _compare_summarize(raw: torch.Tensor, n_slice: int) -> dict:
     return out[False]           # the main path's branch
 
 
-def _compare_lb_scan(q_paa, index) -> dict:
-    lo, hi, n = index.elo, index.ehi, index.n
+def lb_scan_chunked_ref(q_paa, lo, hi, n: int):
+    """The plain ``ref.lb_scan_ref`` over LB_PLAIN_CHUNK columns at a time
+    (whole, its (Q, w, N) intermediate would not fit at the flat shape):
+    yields (first column, last column + 1, the chunk's (Q, cols) bounds)."""
+    for s in range(0, lo.shape[1], LB_PLAIN_CHUNK):
+        e = min(s + LB_PLAIN_CHUNK, lo.shape[1])
+        yield s, e, ref.lb_scan_ref(q_paa, lo[:, s:e], hi[:, s:e], n=n)
+
+
+def _lb_case(q_paa, lo, hi, n: int) -> dict:
+    """One shape: the kernel against the plain version over every column,
+    timed beside it, and its byte bound."""
     got = lb_scan(q_paa, lo, hi, n=n)
-    want = ref.lb_scan_ref(q_paa, lo, hi, n=n)
-    err = (got - want).abs()
-    ok = check(bool((err <= LB_RTOL * want.abs()).all()),
-               f"lb_scan within rtol {LB_RTOL}")
+    ok, max_err, max_rel = True, 0.0, 0.0
+    for s, e, want in lb_scan_chunked_ref(q_paa, lo, hi, n):
+        err = (got[:, s:e] - want).abs()
+        ok &= bool((err <= LB_RTOL * want.abs()).all())
+        max_err = max(max_err, float(err.max()))
+        max_rel = max(max_rel, float((err / want.abs().clamp(min=1e-30)).max()))
+    del got
     qn, w = q_paa.shape
     nb = lo.shape[1]
     b_ms, b_by, b_unit = bound(qn * w * 4 + 2 * w * nb * 4 + qn * nb * 4,
                                qn * nb * (6 * w + 1))
-    line = {"shape": [qn, w, nb], "max_abs_err": float(err.max()),
-            "match": ok, "ms": time_cuda(lambda: lb_scan(q_paa, lo, hi, n=n)),
-            "device_ms": device_ms(lambda: lb_scan(q_paa, lo, hi, n=n),
-                                   SYMBOL["lb_scan"]),
-            "plain_ms": time_cuda(lambda: ref.lb_scan_ref(q_paa, lo, hi, n=n)),
+    run = lambda: lb_scan(q_paa, lo, hi, n=n)
+    chunked = nb > LB_PLAIN_CHUNK
+
+    def plain():
+        for _ in lb_scan_chunked_ref(q_paa, lo, hi, n):
+            pass
+    return {"shape": [qn, w, nb], "max_abs_err": max_err,
+            "max_rel_err": max_rel, "match": ok, "ms": time_cuda(run),
+            "device_ms": device_ms(run, SYMBOL["lb_scan"]),
+            "plain_ms": time_cuda(plain, reps=3 if chunked else 20),
+            "plain": (f"ref.lb_scan_ref over {LB_PLAIN_CHUNK:,}-column chunks"
+                      if chunked else "ref.lb_scan_ref, whole"),
             "bound_ms": b_ms, "bound_by": b_by, "bound_unit": b_unit,
-            "library_ms": None,
-            "tolerance": f"rtol {LB_RTOL}"}
-    emit({"phase": "kernels", "kernel": "lb_scan", **line})
-    return line
+            "library_ms": None}
+
+
+def _compare_lb_scan(q_paa, index, u_paa, l_paa) -> dict:
+    """At every shape the search paths give the kernel: the flat scan over
+    every series (``flat_view``'s (w, Np) bounds), the block envelopes
+    (block ranking in ``engine.prepare``), and DTW's two passes against
+    planes of +-SENTINEL built as ``engine.interval_planar_lb`` builds
+    them.  Each is checked over every column within rtol LB_RTOL.  The
+    line's own numbers are the flat case's, where the work is; the phase
+    line adds each case's issue floor, worked out from the kernel's
+    arithmetic a term (LB_INSTR_PER_TERM), not measured."""
+    n = index.n
+    flat = core.flat_view(index)
+    plane = torch.full(index.elo.shape, isax.SENTINEL, dtype=torch.float32,
+                       device=index.elo.device)
+    cases = {"flat": (q_paa, flat.lo, flat.hi),
+             "envelope": (q_paa, index.elo, index.ehi),
+             "dtw_above": (u_paa, index.elo, plane),
+             "dtw_below": (l_paa, -plane, index.ehi)}
+    line = {}
+    for label, (qq, lo, hi) in cases.items():
+        line[label] = _lb_case(qq, lo, hi, n)
+        check(line[label]["match"], f"lb_scan {label} "
+                                    f"{tuple(line[label]['shape'])}: within "
+                                    f"rtol {LB_RTOL} over every column")
+    del flat
+    out = {**line["flat"], "cases": line,
+           "cases_match": all(c["match"] for c in line.values()),
+           "tolerance": f"rtol {LB_RTOL} over every column of every case"}
+    floors = {label: c["shape"][0] * c["shape"][1] * c["shape"][2]
+              * LB_INSTR_PER_TERM / INSTR_RATE * 1e3
+              for label, c in line.items()}
+    emit({"phase": "kernels", "kernel": "lb_scan", **out,
+          "issue_floor_ms": floors,
+          "issue_floor_unit": f"{LB_INSTR_PER_TERM} fp32 instructions a "
+                              "(q, j, s) term (the kernel's arithmetic, no "
+                              "loads) at one warp instruction a clock on "
+                              "each of 528 schedulers at an assumed 1.98 GHz"})
+    return out
 
 
 def walk_topk_panels(index, queries, n_dtw: int, prep) -> dict:
@@ -982,11 +1052,14 @@ def phase_kernels(raw, index, queries, n_slice: int, n_dtw: int,
     metric = engine.ED()
     prep = engine.prepare(metric, index, queries, 10)
     qs = prep.qs
+    dqs = engine.DTW(r=DTW_R).prep_queries(queries[:n_dtw].contiguous(),
+                                           w=index.w)
     order, _, _ = engine.block_major_schedule(prep.block_lb)
     topk_panels = walk_topk_panels(index, queries, n_dtw, prep)
     return {
         "isax_summarize": _compare_summarize(raw, n_slice),
-        "lb_scan": _compare_lb_scan(qs.aux[0], index),
+        "lb_scan": _compare_lb_scan(qs.aux[0], index, dqs.aux[2],
+                                    dqs.aux[3]),
         "block_topk": _compare_block_topk(topk_panels),
         "fused_panel_topk": _compare_fused(
             index, qs, prep.front.threshold(),
@@ -1063,7 +1136,7 @@ REPLACES = {
 }
 
 # the path whose launch count the kernels line reports for each kernel
-LAUNCH_PATH = {"isax_summarize": "block_major", "lb_scan": "block_major",
+LAUNCH_PATH = {"isax_summarize": "block_major", "lb_scan": "flat",
                "block_topk": "block_major", "fused_panel_topk": "block_major",
                "batch_l2": "flat", "dtw_band_panel": "dtw", "ssm_scan": "lm"}
 
@@ -1122,7 +1195,9 @@ def main(argv=None) -> int:
                         "bound_ms": line["bound_ms"],
                         "bound_by": line["bound_by"],
                         "bound_unit": line["bound_unit"],
-                        "library_ms": line["library_ms"]})
+                        "library_ms": line["library_ms"],
+                        **({"cases": line["cases"]}
+                           if name == "lb_scan" else {})})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(nvidia_smi_line(), flush=True)
     emit({"kernels": kernels})

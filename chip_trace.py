@@ -11,8 +11,9 @@ profiled Hymba prefill and a few decode steps.
 ``chip_smoke.py`` (random-walk series generated on the card from
 ``--seed``, capacity 1024), runs one warm-up search and one timed search,
 then traces one ``search_block_major`` with ``torch.profiler``.
-``--path flat`` traces one ``search_paris`` batch (the flat ParIS scan,
-chunks of 4,096 through ``batch_l2`` and ``block_topk``) on that index.
+``--path flat`` traces one ``search_paris`` batch (``lb_scan`` over the
+block envelopes and then over every series, chunks of 4,096 through
+``batch_l2`` and ``block_topk``) on that index.
 ``--path dtw`` does the same for ``chip_smoke.py``'s DTW batch: the
 first ``--dtw-queries`` queries through ``dtw.search_dtw`` with its band
 r.  ``--path lm`` builds ``hymba-1.5b`` ``full()`` and the prompts from

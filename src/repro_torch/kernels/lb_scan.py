@@ -3,14 +3,25 @@
 Replaces the TPU kernel ``src/repro/kernels/lb_scan.py`` (``lb_scan``):
 squared MINDIST bounds of Q query PAAs against N planar region bounds,
 out[q, i] = (n/w) * sum_seg max(0, lo - q, q - hi)^2.  On the main path
-it ranks the block envelopes (``engine.ED.block_lb``).
+the flat ParIS schedule runs it over every series once a batch
+(``engine.run_flat`` on ``flat_view``'s (w, Np) bounds, (100, 16, 10M)
+at 10M series), and block ranking runs it over the block envelopes
+(``engine.prepare``, ``engine.interval_planar_lb`` for DTW).
 
-Bound on the H100: bytes — planar lo/hi are read once and (Q, N) bounds
-written once.  Design (``csrc/lb_scan.cu``): threads over the N axis so
-the (w, N) loads and (Q, N) stores coalesce, the query tile's PAAs in
-shared memory, the w terms summed in registers and then scaled, the
-ragged edge masked in the kernel (no SENTINEL padding copy).  The plain
-version is ``ref.lb_scan_ref``.
+Bound on the H100: bytes, 1.576 ms at the flat shape (lo/hi read once,
+(Q, N) written once).  Above it sits an issue floor of 1.91 ms (four
+fp32 instructions a (q, i, seg) term at one warp instruction a clock on
+each of the 528 schedulers; ~2.06 ms at the ~4.3 a term its SASS holds
+with the loads), so instruction issue limits it.  Design
+(``csrc/lb_scan.cu``): a block stages a column slice of lo/hi in shared
+memory once and sweeps every query of its range against it (a wide N
+reads lo/hi once whatever Q is); each thread holds a 4-query x 4-column
+register tile fed by 16-byte shared loads; where every bound of a slice
+has lo <= hi the term is taken as q - min(max(q, lo), hi), bitwise the
+same square in one instruction fewer; 16-byte streaming stores where rows
+are 16-byte aligned; a narrow N (the envelopes) splits the queries over
+more blocks; the ragged edges are masked in the kernel (no SENTINEL
+padding copy).  The plain version is ``ref.lb_scan_ref``.
 """
 from __future__ import annotations
 

@@ -87,16 +87,108 @@ def test_isax_summarize_ragged_windows(cuda, normalize, shape, w):
     assert torch.equal(pk, pr) and torch.equal(sk, sr)
 
 
-@pytest.mark.parametrize("qn", [1, 6, 13, 100])
-@pytest.mark.parametrize("n_items", [1, 77, 1000])
-def test_lb_scan(cuda, qn, n_items):
+def _lb_planes(w, n_items, seed, device):
+    """Random (w, N) region bounds lo <= hi with +-SENTINEL edges in them
+    (the extreme symbols' regions), float32 on ``device``."""
+    rng = np.random.default_rng(seed)
+    lo = rng.standard_normal((w, n_items)).astype(np.float32)
+    hi = lo + rng.random((w, n_items)).astype(np.float32)
+    lo[rng.random((w, n_items)) < 0.1] = -isax.SENTINEL
+    hi[rng.random((w, n_items)) < 0.1] = isax.SENTINEL
+    return (torch.from_numpy(lo).to(device), torch.from_numpy(hi).to(device))
+
+
+def _lb_close(q, lo, hi, n=256, chunk=8192):
+    """The kernel against ref.lb_scan_ref within relative 1e-5, over every
+    column, the plain version taken a column chunk at a time."""
+    got = lb_scan(q, lo, hi, n=n)
+    assert got.shape == (q.shape[0], lo.shape[1])
+    for s in range(0, lo.shape[1], chunk):
+        want = ref.lb_scan_ref(q, lo[:, s:s + chunk], hi[:, s:s + chunk], n=n)
+        assert bool(((got[:, s:s + chunk] - want).abs()
+                     <= 1e-5 * want.abs()).all()), (tuple(q.shape), s)
+
+
+def _unaligned(t):
+    """A contiguous copy of ``t`` whose data starts 4 bytes past a 16-byte
+    boundary."""
+    u = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    u = u.view(t.shape)
+    u.copy_(t)
+    assert u.data_ptr() % 16 == 4
+    return u
+
+
+@pytest.mark.parametrize("w", [1, 3, 8, 16, 32])
+@pytest.mark.parametrize("qn", [1, 6, 13, 100, 1000])
+@pytest.mark.parametrize("n_items", [1, 77, 1000, 4096, 4097])
+def test_lb_scan(cuda, w, qn, n_items):
+    """Every segment count the kernel takes, Q up to 1,000, ragged and
+    16-byte-aligned N, region bounds holding +-SENTINEL, and the same
+    inputs from a start 4 bytes past 16-byte alignment (4-byte loads)."""
+    g = torch.Generator(device=cuda).manual_seed(w * 7919 + qn * 31 + n_items)
+    q = torch.randn((qn, w), generator=g, device=cuda) * 2
+    lo, hi = _lb_planes(w, n_items, seed=w + qn + n_items, device=cuda)
+    _lb_close(q, lo, hi)
+    _lb_close(_unaligned(q), _unaligned(lo), _unaligned(hi))
+
+
+@pytest.mark.parametrize("qn", [10, 100])
+@pytest.mark.parametrize("n_items", [1, 77, 9766])
+def test_lb_scan_on_dtw_sentinel_planes(cuda, qn, n_items):
+    """DTW's two passes as engine.interval_planar_lb builds them: u against
+    (lo, +SENTINEL plane) and l against (-SENTINEL plane, hi)."""
+    lo, hi = _lb_planes(16, n_items, seed=qn + n_items, device=cuda)
+    plane = torch.full(lo.shape, isax.SENTINEL, dtype=torch.float32,
+                       device=cuda)
     g = torch.Generator(device=cuda).manual_seed(qn + n_items)
-    q = torch.randn((qn, 16), generator=g, device=cuda)
-    lo = torch.randn((16, n_items), generator=g, device=cuda)
-    hi = lo + torch.rand((16, n_items), generator=g, device=cuda)
-    got = lb_scan(q, lo, hi, n=256)
-    want = ref.lb_scan_ref(q, lo, hi, n=256)
-    assert bool(((got - want).abs() <= 1e-5 * want.abs()).all())
+    l_paa = torch.randn((qn, 16), generator=g, device=cuda)
+    u_paa = l_paa + torch.rand((qn, 16), generator=g, device=cuda)
+    _lb_close(u_paa, lo, plane)
+    _lb_close(l_paa, -plane, hi)
+
+
+@pytest.mark.parametrize("w", [16, 32])
+@pytest.mark.parametrize("qn", [13, 100])
+@pytest.mark.parametrize("side", [0, 1])
+def test_lb_scan_either_side_of_the_layout_threshold(cuda, w, qn, side):
+    """The launcher takes 256-column slices once N spans more than 8 of
+    them an SM, and 128-column slices with the queries split over blocks
+    below: N at and just above that threshold."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    n_items = 2048 * sms + side
+    g = torch.Generator(device=cuda).manual_seed(n_items + qn)
+    q = torch.randn((qn, w), generator=g, device=cuda)
+    lo, hi = _lb_planes(w, n_items, seed=qn + side, device=cuda)
+    _lb_close(q, lo, hi, chunk=1 << 15)
+
+
+@pytest.mark.parametrize("w", [3, 16])
+@pytest.mark.parametrize("qn", [13, 100])
+@pytest.mark.parametrize("n_items", [77, 4097])
+@pytest.mark.parametrize("where", ["everywhere", "one_column"])
+def test_lb_scan_inverted_intervals(cuda, w, qn, n_items, where):
+    """Bounds with lo > hi (no region of the index has them, but the
+    function is defined there): independent lo and hi everywhere, or one
+    inverted column among ordered ones, so one slice of the kernel takes
+    the literal form of the term and the others the clamp form."""
+    g = torch.Generator(device=cuda).manual_seed(w + qn + n_items)
+    q = torch.randn((qn, w), generator=g, device=cuda)
+    lo, hi = _lb_planes(w, n_items, seed=w * qn + n_items, device=cuda)
+    if where == "everywhere":
+        hi = torch.randn((w, n_items), generator=g, device=cuda)
+    else:
+        j = n_items // 2
+        lo[:, j], hi[:, j] = hi[:, j] + 0.5, lo[:, j] - 0.5
+    assert bool((lo > hi).any())
+    _lb_close(q, lo, hi)
+
+
+def test_lb_scan_refuses_more_than_32_segments(cuda):
+    q = torch.zeros((2, 33), device=cuda)
+    lo = torch.zeros((33, 8), device=cuda)
+    with pytest.raises(RuntimeError, match="lb_scan: CUDA error"):
+        lb_scan(q, lo, lo, n=66)
 
 
 @pytest.mark.parametrize("qn", [1, 6, 13])

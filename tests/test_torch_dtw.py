@@ -62,6 +62,43 @@ def test_envelope_and_bounds_match_reference(indexes, data):
                                rtol=1e-6, atol=1e-6)
 
 
+def _envelopes_with_sentinel_edges(w, m, seed):
+    """(w, m) block envelopes over random symbols with the extreme symbols
+    forced in (their regions carry the +-SENTINEL edges), the last block a
+    pure-padding one (SENTINEL, SENTINEL), as index.block_envelopes makes."""
+    rng = np.random.default_rng(seed)
+    sax = rng.integers(0, 256, (m, 5, w))
+    sax[:, 0, 0] = 0
+    sax[:, 1, w - 1] = 255
+    b = isax.bounds_from_sax(torch.from_numpy(sax)).numpy()      # (m, 5, w, 2)
+    lo, hi = b[..., 0].min(axis=1).T, b[..., 1].max(axis=1).T     # (w, m)
+    lo[:, -1] = hi[:, -1] = isax.SENTINEL
+    return lo.astype(np.float32).copy(), hi.astype(np.float32).copy()
+
+
+@pytest.mark.parametrize("w", (8, 16))
+@pytest.mark.parametrize("m", (1, 77, 300))
+def test_interval_planar_lb_matches_reference(w, m):
+    """The interval-to-region bound (two planar passes against planes of
+    +-SENTINEL) on envelopes holding the SENTINEL edges, against repro's
+    in ref mode."""
+    from repro.kernels import ops as jops
+    lo, hi = _envelopes_with_sentinel_edges(w, m, seed=w * 1000 + m)
+    rng = np.random.default_rng(m)
+    l_paa = rng.standard_normal((5, w)).astype(np.float32) * 2
+    u_paa = l_paa + rng.random((5, w)).astype(np.float32)
+    got = tengine.interval_planar_lb(
+        torch.from_numpy(u_paa), torch.from_numpy(l_paa), torch.from_numpy(lo),
+        torch.from_numpy(hi), n=64)
+    with jops.kernel_mode("ref"):
+        want = jengine.interval_planar_lb(
+            jnp.asarray(u_paa), jnp.asarray(l_paa), jnp.asarray(lo),
+            jnp.asarray(hi), n=64)
+    np.testing.assert_allclose(got.numpy(), np.array(want), rtol=1e-6,
+                               atol=1e-6)
+    assert float(got[:, -1].min()) > 1e17       # the padding block: never picked
+
+
 @pytest.mark.parametrize("k", (1, 5))
 def test_search_dtw_matches_reference(indexes, data, k):
     ji, ti = indexes

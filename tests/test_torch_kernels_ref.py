@@ -67,13 +67,14 @@ def test_isax_summarize_ref_ragged_windows(normalize, shape, w):
     assert np.all(np.abs(_np(pj)[flips] - bp) < 1e-5)
 
 
+@pytest.mark.parametrize("w", [4, 8, 16, 32])
 @pytest.mark.parametrize("qn", QS)
 @pytest.mark.parametrize("n_items", [1, 77, 300])
-def test_lb_scan_ref(qn, n_items):
+def test_lb_scan_ref(qn, n_items, w):
     rng = np.random.default_rng(qn * 1000 + n_items)
-    q = rng.standard_normal((qn, 16)).astype(np.float32)
-    lo = rng.standard_normal((16, n_items)).astype(np.float32)
-    hi = lo + rng.random((16, n_items)).astype(np.float32)
+    q = rng.standard_normal((qn, w)).astype(np.float32)
+    lo = rng.standard_normal((w, n_items)).astype(np.float32)
+    hi = lo + rng.random((w, n_items)).astype(np.float32)
     lo[0, 0] = -jisax.SENTINEL
     hi[1, 0] = jisax.SENTINEL
     got = tref.lb_scan_ref(_t(q), _t(lo), _t(hi), n=128)
