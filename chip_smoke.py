@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--seed 0] [--n-series 10000000] [--queries 100]
                           [--dtw-queries 10] [--lm-batch 4]
                           [--lm-prompt 2048] [--lm-gen 32] [--lm-smoke]
+                          [--ooc-series N]
 
 Run from the root of a checkout on a machine with an NVIDIA H100 and the
 CUDA toolkit.  Phases, each printing one JSON line:
@@ -70,7 +71,26 @@ CUDA toolkit.  Phases, each printing one JSON line:
                  (N = 12 over 512 steps);
   9. exact     — every Euclidean path's answers (block-major, query-major,
                  flat, UCR) against a brute-force scan of every series with
-                 the plain ``batch_l2_ref`` + ``topk_by_dist_id``.
+                 the plain ``batch_l2_ref`` + ``topk_by_dist_id``;
+ 10. ooc       — the on-disk index over the same series (``--ooc-series``,
+                 all by default, cut in whole millions until the files fit
+                 in half the free disk, under the git-ignored
+                 ``build/ooc/``, removed at the end): the series written as
+                 a headerless f32 ``storage.SeriesStore``; the staged build
+                 (``storage.run_pipeline``, capacity 1024, 4 shards, 2
+                 workers: seconds and units by stage, file bytes, digest
+                 seconds); the file's ids/slo/shi/elo/ehi and raw bitwise
+                 equal to ``core.build``'s index; ``storage.ooc_search``
+                 with k=1 and 10 from the disk (the index file's page
+                 cache dropped before each batch) at (pipeline_depth,
+                 group_blocks) = (1, 1) and (4, 8): ids against
+                 block-major's and UCR's under ``exact``'s rule, squared
+                 distances within 1e-5 of block-major's, the two settings
+                 bitwise equal, with ``IOStats`` and the walk's telemetry;
+                 a warm repeat through a ``storage.SearchSession`` holding
+                 every block (bitwise equal, 0 bytes read); DTW (r=12,
+                 k=10) on the ``--dtw-queries`` through that session, ids
+                 against ``dtw``'s.
 
 Each path runs with the kernels' launch counts set to 0 just before it
 and read just after, and fails if a kernel of that path was not
@@ -83,6 +103,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -96,7 +118,7 @@ import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from repro_torch import core  # noqa: E402
+from repro_torch import core, storage  # noqa: E402
 from repro_torch.core import dtw, engine, frontier, isax  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.batch_l2 import batch_l2  # noqa: E402
@@ -141,6 +163,15 @@ LOGIT_REL = 1e-3               # serving vs forward: |dlogit| <= LOGIT_REL * max
 MIX_TOL = 1e-3                 # mixer vs mamba_naive, rtol and atol
 SSM_REL = 1e-4                 # ssm_scan vs ssm_scan_ref: SSM_REL * (|ref| + max |ref|)
 SSM_ODD_N, SSM_ODD_STEPS = 12, 512   # the scan's case at a state size no power of two
+
+OOC_DIR = ROOT / "build" / "ooc"   # git-ignored; removed at the phase's end
+# bytes on disk a series of 256 points: the series file (1,024), the index
+# file (1,024 raw + 128 bounds + 4 id), the runs (56) and the merge (40)
+OOC_BYTES_PER_SERIES = 1024 + 1156 + 56 + 40
+OOC_SHARDS, OOC_WORKERS = 4, 2     # the build's pass-1 shards, its threads
+OOC_CACHE_BLOCKS = 64              # the one-shot walk's block cache
+OOC_SETTINGS = ((1, 1), (4, 8))    # (pipeline_depth, group_blocks)
+OOC_COMPARE_BLOCKS = 256           # blocks a step of the raw comparison
 
 # the kernels each search path must launch (the build's isax_summarize
 # is checked on its own)
@@ -1118,6 +1149,253 @@ def phase_exact(raw, queries, paths: dict) -> None:
     emit(line)
 
 
+def _drop_page_cache(path: Path) -> bool:
+    """Ask the kernel to drop ``path``'s clean pages, so the next read of
+    it goes to the disk.  -> whether the advice was accepted."""
+    try:
+        fd = os.open(path, os.O_RDONLY)
+        try:
+            os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+        finally:
+            os.close(fd)
+        return True
+    except (OSError, AttributeError):
+        return False
+
+
+def _ooc_series(args, n_series: int) -> tuple[int, dict]:
+    """How many series the on-disk phase writes: ``--ooc-series`` (all of
+    them by default), cut in whole millions until the series file, the
+    index file and the build's run and merge files take at most half the
+    free disk.  -> (n, the disk line)."""
+    OOC_DIR.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(OOC_DIR).free
+    want = min(args.ooc_series or n_series, n_series)
+    n = want
+    while n > 0 and 2 * n * OOC_BYTES_PER_SERIES > free:
+        n = (n - 1) // 1_000_000 * 1_000_000
+    line = {"dir": str(OOC_DIR), "free_bytes": free,
+            "bytes_per_series": OOC_BYTES_PER_SERIES,
+            "needed_bytes": n * OOC_BYTES_PER_SERIES, "series": n}
+    if n < want:
+        line["cut"] = (f"series cut from {want} to {n}: the files must fit "
+                       "in half the free disk")
+    return n, line
+
+
+def _ids_agree(name: str, got, want, q, raw) -> dict:
+    """phase_exact's rule: ids equal, but where the two differ the id
+    returned lies at a near tie (its true squared distance within
+    DIST_REL * (|q|^2 + |x|^2) of the wanted one)."""
+    tol = DIST_REL * 2 * (q * q).sum(1)
+    want_d = want.dist.double() ** 2
+    diff = got.idx != want.idx
+    ties_ok = True
+    if bool(diff.any()):
+        qi, ri = torch.nonzero(diff, as_tuple=True)
+        x = isax.znorm(raw[got.idx[qi, ri].long()])
+        dk = ((q[qi] - x) ** 2).sum(1).double()
+        ties_ok = bool(((dk - want_d[qi, ri]).abs() <= tol[qi]).all())
+    check(ties_ok, f"{name}: ids equal (but near ties)")
+    return {"ids_equal": int((~diff).sum()), "near_ties": int(diff.sum())}
+
+
+def _bitwise(a, b) -> bool:
+    return (torch.equal(a.idx, b.idx) and torch.equal(a.dist, b.dist)
+            and all(torch.equal(x, y) for x, y in zip(a.stats, b.stats)))
+
+
+def _io_line(res, secs: float, tel: dict | None = None) -> dict:
+    io = res.io
+    line = {"seconds": secs, "bytes_read": io.bytes_read,
+            "read_fraction": io.read_fraction,
+            "blocks_fetched": io.blocks_fetched, "cache_hits": io.cache_hits,
+            "blocks_refined": io.blocks_refined}
+    if tel is not None:
+        line.update({key: tel[key] for key in
+                     ("syncs", "dispatches", "walk_blocks",
+                      "demand_misses") if key in tel})
+    return line
+
+
+def phase_ooc(args, raw, index, queries, refs: dict, dtw_res) -> dict:
+    """The on-disk index: the series written to a headerless file, the
+    staged pipeline build, the file against the in-memory index bit for
+    bit, the cached walk (ED at two pipeline settings, a warm repeat,
+    DTW) against the in-memory answers.  -> the phase's launches."""
+    n_all = raw.shape[0]
+    n, disk = _ooc_series(args, n_all)
+    line = {"phase": "ooc", "disk": disk, "capacity": CAPACITY,
+            "shards": OOC_SHARDS, "workers": OOC_WORKERS,
+            "cache_blocks": OOC_CACHE_BLOCKS}
+    launches: dict[str, int] = {}
+
+    def count(kernels: tuple, what: str) -> None:
+        got = ops.launch_counts()
+        for name, c in got.items():
+            launches[name] = launches.get(name, 0) + c
+        for name in kernels:
+            check(got[name] > 0, f"kernel {name} launched on the ooc path "
+                                 f"({what})")
+
+    if not check(n > 0, "the disk holds the on-disk phase's files"):
+        emit(line)
+        return launches
+    try:
+        sub = raw[:n]
+        if n < n_all:       # the cut: its own in-memory index and answers
+            index = core.build(sub, capacity=CAPACITY)
+            refs = {"block_major": {k: (core.search_block_major(
+                        index, queries, k=k), 0.0) for k in (1, 10)},
+                    "ucr": {10: (core.search_scan(sub, queries, k=10), 0.0)}}
+            dtw_res = dtw.search_dtw(index, queries[:args.dtw_queries]
+                                     .contiguous(), r=DTW_R, k=10)
+        # 1. the series, as the headerless f32 file users hand a build
+        series = OOC_DIR / "series.f32"
+        t0 = time.perf_counter()
+        for i in range(0, n, SCAN_CHUNK):
+            storage.SeriesStore.append(series,
+                                       sub[i:i + SCAN_CHUNK].cpu().numpy())
+        store = storage.SeriesStore(series, length=LENGTH)
+        line["series_write_seconds"] = time.perf_counter() - t0
+        line["series_bytes"] = store.nbytes
+
+        # 2. the staged build (pipeline_build is run_pipeline + open_index;
+        # the two are called apart to read the BuildReport)
+        path = OOC_DIR / "index.dsix"
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, report = storage.run_pipeline(store, path, capacity=CAPACITY,
+                                         shards=OOC_SHARDS,
+                                         workers=OOC_WORKERS)
+        torch.cuda.synchronize()
+        count(("isax_summarize",), "build")
+        line["build"] = {"seconds": time.perf_counter() - t0,
+                         "file_bytes": os.path.getsize(path),
+                         "report": report.as_dict()}
+        opened = storage.open_index(path)
+
+        # 3. the file against the in-memory index, bit for bit
+        same = all(torch.equal(getattr(opened, f), getattr(index, f))
+                   for f in ("ids", "slo", "shi", "elo", "ehi"))
+        check(same, "ooc: ids/slo/shi/elo/ehi of the pipeline's file "
+                    "bitwise equal core.build's")
+        raw_same = True
+        mm = opened.host_raw.blocks
+        # read from the disk: the rate bounds a cold walk that reads it all
+        dropped = _drop_page_cache(path)
+        t0 = time.perf_counter()
+        for b0 in range(0, opened.n_blocks, OOC_COMPARE_BLOCKS):
+            b1 = min(b0 + OOC_COMPARE_BLOCKS, opened.n_blocks)
+            part = torch.from_numpy(np.array(mm[b0:b1])).to(index.raw.device)
+            raw_same &= torch.equal(part, index.raw[b0:b1])
+        secs = time.perf_counter() - t0
+        check(raw_same, "ooc: the pipeline's raw section torch.equal "
+                        "core.build's index.raw")
+        line["byte_identity"] = {"summaries": same, "raw": raw_same}
+        line["raw_sequential_read"] = {
+            "page_cache_dropped": dropped, "seconds": secs,
+            "bytes_per_s": mm.nbytes / secs,
+            "what": "the raw section read in 256-block steps from the disk "
+                    "into the card and compared, one thread"}
+
+        # 4. the ED walk from the disk, at two pipeline settings
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        walks = {}
+        q = isax.znorm(queries)
+        for d, g in OOC_SETTINGS:
+            for k in (1, 10):
+                dropped = _drop_page_cache(path)
+                tel: dict = {}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = storage.ooc_search(opened, queries, k=k,
+                                         cache_blocks=OOC_CACHE_BLOCKS,
+                                         pipeline_depth=d, group_blocks=g,
+                                         telemetry=tel)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                walks[(d, g, k)] = res
+                bm = refs["block_major"][k][0]
+                entry = {"page_cache_dropped": dropped,
+                         **_io_line(res, secs, tel),
+                         "vs_block_major": _ids_agree(
+                             f"ooc ({d}, {g}) k={k} vs block-major", res, bm,
+                             q, raw)}
+                if k in refs["ucr"]:
+                    entry["vs_ucr"] = _ids_agree(
+                        f"ooc ({d}, {g}) k={k} vs UCR", res,
+                        refs["ucr"][k][0], q, raw)
+                gd, wd = res.dist.double() ** 2, bm.dist.double() ** 2
+                check(bool(((gd - wd).abs() <= 1e-5 * wd + 1e-6).all()),
+                      f"ooc ({d}, {g}) k={k}: squared distances within "
+                      "rtol 1e-5 of block-major's")
+                line[f"ed_d{d}_g{g}_k{k}"] = entry
+        count(("lb_scan", "fused_panel_topk"), "ED walk")
+        (d0, g0), (d1, g1) = OOC_SETTINGS
+        for k in (1, 10):
+            check(_bitwise(walks[(d0, g0, k)], walks[(d1, g1, k)]),
+                  f"ooc k={k}: ({d0}, {g0}) and ({d1}, {g1}) bitwise equal "
+                  "in dist, idx and every SearchStats counter")
+        line["ed_max_memory_allocated"] = torch.cuda.max_memory_allocated()
+
+        # 5. a warm repeat through a session that holds every block
+        _drop_page_cache(path)
+        with storage.SearchSession(opened,
+                                   cache_blocks=max(opened.n_blocks, d1 + g1),
+                                   pipeline_depth=d1,
+                                   group_blocks=g1) as sess:
+            runs = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = sess.search(queries, k=10)
+                torch.cuda.synchronize()
+                runs.append((res, time.perf_counter() - t0,
+                             dict(sess.last_telemetry)))
+            check(_bitwise(runs[0][0], runs[1][0]),
+                  "ooc warm repeat bitwise equal the cold batch")
+            check(runs[1][0].io.bytes_read == 0,
+                  "ooc warm repeat read 0 bytes")
+            line["warm"] = {"cold": _io_line(*runs[0]),
+                            "warm": _io_line(*runs[1]),
+                            "max_memory_allocated":
+                                torch.cuda.max_memory_allocated()}
+
+            # 6. DTW through the same session
+            ops.reset_launch_counts()
+            dq = queries[:args.dtw_queries].contiguous()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = sess.search(dq, k=10, metric=engine.DTW(r=DTW_R))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            count(("lb_scan", "block_topk", "dtw_band_panel"), "DTW walk")
+            diff = res.idx != dtw_res.idx
+            ties_ok = True
+            if bool(diff.any()):
+                qz = isax.znorm(dq)
+                x = isax.znorm(raw[res.idx.long().flatten()]).reshape(
+                    res.idx.shape + (LENGTH,))
+                dk = ref.dtw_band_panel_ref(qz, x, r=DTW_R).double()
+                wd = dtw_res.dist.double() ** 2
+                ties_ok = bool(((dk - wd).abs()
+                                <= DIST_REL * wd + 1e-6)[diff].all())
+            check(ties_ok, "ooc DTW k=10: ids equal phase dtw's (but near "
+                           "ties)")
+            line["dtw"] = {"r": DTW_R, "queries": dq.shape[0],
+                           **_io_line(res, secs, sess.last_telemetry),
+                           "ids_equal": int((~diff).sum()),
+                           "near_ties": int(diff.sum())}
+        line["launches"] = launches
+    finally:
+        shutil.rmtree(OOC_DIR, ignore_errors=True)
+    emit(line)
+    return launches
+
+
 REPLACES = {
     "isax_summarize": ("src/repro_torch/kernels/csrc/isax_summarize.cu",
                        "src/repro/kernels/isax_summarize.py:41"),
@@ -1153,6 +1431,9 @@ def main(argv=None) -> int:
     ap.add_argument("--lm-gen", type=int, default=LM_GEN)
     ap.add_argument("--lm-smoke", action="store_true",
                     help="serve Hymba's smoke() config instead of full()")
+    ap.add_argument("--ooc-series", type=int, default=None,
+                    help="series the on-disk phase writes (default all; "
+                         "cut in whole millions to fit half the free disk)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1169,15 +1450,17 @@ def main(argv=None) -> int:
     sched_results, launches = phase_schedules(index, queries)
     launches["block_major"] = main_launches
     ucr_results, launches["ucr"] = phase_ucr(raw, queries)
-    _, launches["dtw"] = phase_dtw(index, raw,
-                                   queries[:args.dtw_queries].contiguous(),
-                                   args.queries)
+    dtw_results, launches["dtw"] = phase_dtw(
+        index, raw, queries[:args.dtw_queries].contiguous(), args.queries)
     launches["lm"], scan_in = phase_lm(args)
     lines = phase_kernels(raw, index, queries,
                           min(SUMMARIZE_SLICE, args.n_series),
                           args.dtw_queries, scan_in, main_results[10][0])
     phase_exact(raw, queries, {"block_major": main_results, **sched_results,
                                "ucr": ucr_results})
+    launches["ooc"] = phase_ooc(args, raw, index, queries,
+                                {"block_major": main_results,
+                                 "ucr": ucr_results}, dtw_results[10][0])
 
     kernels = []
     for name, line in lines.items():

@@ -15,7 +15,11 @@ bound.  Each axis is pluggable:
 
 The JAX walks are jitted ``lax.while_loop``/``lax.scan`` loops; here they
 are host loops with one host sync per trip or chunk (the stopping test).
-The out-of-core backend (``run_cached``) comes with the on-disk slice.
+The third backend, ``run_cached``, walks an index opened out-of-core
+(raw series on disk): the same block-major schedule, every raw block
+fetched through a callback into a ``storage.BlockCache``, with a depth-D
+lookahead of speculative reads and one threshold sync per group of G
+blocks (``storage.SearchSession``).
 
 Exactness: a schedule only skips work whose metric lower bound is >= the
 frontier's k-th-best distance, and every metric's bounds satisfy
@@ -26,14 +30,16 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import frontier as frontier_lib
 from repro_torch.core import isax
 from repro_torch.core.frontier import INF, Frontier, SearchStats, query_block_l2
-from repro_torch.core.index import BlockIndex, FlatIndex
+from repro_torch.core.index import (BlockIndex, FlatIndex,
+                                    require_device_resident)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops, ref
 
@@ -272,15 +278,19 @@ class DTW:
 @dataclasses.dataclass(frozen=True)
 class PreparedSearch:
     """Round-1 state as a resumable object: metric-prepared queries, the
-    block lower-bound matrix, the stage-A-seeded frontier and the work
-    stats so far.  Produced by ``prepare``; ``run(prepared=...)``
-    resumes from it instead of recomputing round 1.  Nothing here is
-    updated in place, so the object stays valid after a resume.
+    block lower-bound matrix, the stage-A-seeded frontier, the work
+    stats so far and, on the cached backend, the ids of the blocks
+    already fetched and refined.  Produced by ``prepare`` (device) or
+    ``run_cached_stage_a`` / a deadline-cut ``run_cached`` (cached);
+    ``run(prepared=...)`` and ``run_cached(prepared=...)`` resume from
+    it instead of recomputing round 1.  Nothing here is updated in
+    place, so the object stays valid after a resume.
     """
     qs: QueryState
     front: Frontier
     block_lb: torch.Tensor         # (Q, B) metric block lower bounds
     stats: SearchStats             # work already accrued (stage A)
+    refined: frozenset = frozenset()   # block ids already refined (cached)
 
     @property
     def k(self) -> int:
@@ -338,6 +348,7 @@ def prepare(metric, index: BlockIndex, queries: torch.Tensor, k: int
     One block-LB kernel pass ranks every envelope; each query's best
     block (the first minimum) is refined exactly and seeds the frontier.
     """
+    require_device_resident(index)
     qs = metric.prep_queries(queries, w=index.w)
     qn = qs.q.shape[0]
     block_lb = metric.block_lb(qs, index.elo, index.ehi, n=index.n)
@@ -617,7 +628,252 @@ def run_flat(index: FlatIndex, queries, plan: QueryPlan,
                         idx=front.ids, stats=stats)
 
 
-def run_cached(*args, **kwargs):
-    """The out-of-core host walk (``repro.core.engine.run_cached``)."""
-    raise NotImplementedError(
-        "run_cached and the on-disk index come in slice 3 of the port")
+# ---------------------------------------------------------------------------
+# cached backend: the same block-major walk, host-driven through callbacks
+# ---------------------------------------------------------------------------
+
+def _cached_refine_step(metric, qs: QueryState, front: Frontier,
+                        stats: SearchStats, block: torch.Tensor,
+                        ids_b: torch.Tensor, lo, hi, lbs: torch.Tensor,
+                        initial_threshold, *, n: int, w: int
+                        ) -> tuple[Frontier, SearchStats]:
+    """One fetched block against all queries: the device side of the walk.
+    The threshold is the device-side frontier's, so a block the host
+    admitted under a stale bound refines exactly what the serial walk
+    would (often nothing: all-False ``active``)."""
+    thr = frontier_lib.bound(front, initial_threshold)
+    active = lbs < thr
+    return panel_refine(metric, qs, front, stats, block, ids_b, lo, hi,
+                        active, thr, n=n, w=w)
+
+
+def cached_setup(index: BlockIndex, queries: torch.Tensor, plan: QueryPlan
+                 ) -> PreparedSearch:
+    """Query prep + block ranking for an index whose raw lives off-device.
+
+    Only summaries and envelopes are touched (they are device-resident on
+    an opened index); the frontier starts EMPTY: stage A needs raw
+    blocks, which the walk fetches through its callback.
+    """
+    metric = plan.metric
+    qs = metric.prep_queries(queries, w=index.w)
+    qn = qs.q.shape[0]
+    block_lb = metric.block_lb(qs, index.elo, index.ehi, n=index.n)
+    return PreparedSearch(qs=qs, front=frontier_lib.init(qn, plan.k,
+                                                         index.device),
+                          block_lb=block_lb,
+                          stats=frontier_lib.stats_init(qn, index.device))
+
+
+def _check_pipeline_knobs(pipeline_depth: int, group_blocks: int) -> None:
+    if pipeline_depth < 1 or group_blocks < 1:
+        raise ValueError(
+            f"pipeline_depth and group_blocks must be >= 1 (1, 1 is the "
+            f"serial walk), got ({pipeline_depth}, {group_blocks})")
+
+
+class _GroupDispatcher:
+    """Host side of the pipelined refine: one group of blocks per call.
+
+    Shared by stage A and the walk.  A group is a loop of
+    ``_cached_refine_step`` calls with no host sync between them (the
+    reference stacks the group into one ``lax.scan``): the frontier
+    carries from block to block on the device, so every block meets the
+    threshold left by the blocks before it, exactly as in the serial
+    walk, and the host syncs once per group.
+    """
+
+    def __init__(self, index: BlockIndex, plan: QueryPlan,
+                 block_lb: torch.Tensor, fetch, initial_threshold):
+        self.index = index
+        self.metric = plan.metric
+        self.block_lb = block_lb                 # (Q, B) device
+        self.fetch = fetch
+        self.thr0 = initial_threshold
+        self.needs = plan.metric.filters and plan.metric.needs_bounds
+        self.dispatches = 0
+
+    def __call__(self, qs: QueryState, front: Frontier, stats: SearchStats,
+                 gids: list[int]) -> tuple[Frontier, SearchStats]:
+        index, needs = self.index, self.needs
+        self.dispatches += 1
+        for b in gids:
+            front, stats = _cached_refine_step(
+                self.metric, qs, front, stats, self.fetch(b), index.ids[b],
+                index.slo[b] if needs else None,
+                index.shi[b] if needs else None, self.block_lb[:, b],
+                self.thr0, n=index.n, w=index.w)
+        return front, stats
+
+
+def _cached_stage_a(index: BlockIndex, plan: QueryPlan, prep: PreparedSearch,
+                    block_lb_h: np.ndarray, fetch, speculate,
+                    initial_threshold, *, pipeline_depth: int = 1,
+                    group_blocks: int = 1, telemetry: dict | None = None
+                    ) -> PreparedSearch:
+    """Stage A on the cached backend: each query's best-envelope block
+    seeds the frontier.  A pure fetch/refine chain: the next
+    ``pipeline_depth`` blocks are always in flight behind the reader
+    pool, and up to ``group_blocks`` blocks ride one dispatch.  Returns
+    the state with the refined block ids recorded, so a resumed walk
+    never fetches or refines them again."""
+    qs, front, stats = prep.qs, prep.front, prep.stats
+    dispatch = _GroupDispatcher(index, plan, prep.block_lb, fetch,
+                                initial_threshold)
+    stage_a = [int(b) for b in np.unique(np.argmin(block_lb_h, axis=1))]
+    i = 0
+    while i < len(stage_a):
+        gids = stage_a[i:i + group_blocks]
+        for b in gids:                     # group reads first, in order
+            speculate(b)
+        nxt = i + len(gids)
+        for b in stage_a[nxt:nxt + pipeline_depth]:    # depth-D lookahead
+            speculate(b)
+        front, stats = dispatch(qs, front, stats, gids)
+        i = nxt
+    if telemetry is not None:
+        telemetry["stage_a_blocks"] = len(stage_a)
+        telemetry["stage_a_dispatches"] = dispatch.dispatches
+    return dataclasses.replace(prep, front=front, stats=stats,
+                               refined=prep.refined | frozenset(stage_a))
+
+
+def run_cached(index: BlockIndex, queries: torch.Tensor, plan: QueryPlan, *,
+               fetch: Callable[[int], torch.Tensor],
+               speculate: Callable[[int], None] = lambda b: None,
+               initial_threshold: torch.Tensor | None = None,
+               prepared: PreparedSearch | None = None,
+               pipeline_depth: int = 1, group_blocks: int = 1,
+               telemetry: dict | None = None
+               ) -> tuple[Frontier, SearchStats, PreparedSearch]:
+    """The block-major walk over an index whose raw series live off the
+    device, driven through a fetch callback (``storage.BlockCache``), as
+    a depth-D, group-G pipeline that is the serial walk at (D=1, G=1).
+
+    Same schedule, stopping rule and ``panel_refine`` as the device
+    block-major backend; only the block transport differs: ``fetch(b)``
+    returns the (C, n) block on the index's device (blocking only if a
+    disk read is needed), ``speculate(b)`` starts a background read.
+
+    ``pipeline_depth`` (D) surviving schedule slots beyond the current
+    group are speculated each iteration; ``group_blocks`` (G) batches up
+    to G consecutive surviving blocks (under the current host threshold)
+    into one dispatch, and the walk syncs the threshold once per GROUP.
+    The host threshold only decides which blocks are dispatched and is
+    stale by at most one group; a block admitted stale meets the
+    up-to-date device-side threshold, so dist, idx and every counter are
+    bit-identical for any (D, G); only the I/O can differ.
+
+    ``telemetry`` (optional dict) receives ``syncs`` (threshold round
+    trips), ``dispatches``, ``walk_blocks``, and stage A's block and
+    dispatch counts.
+
+    ``plan.deadline_blocks`` caps the blocks refined AFTER stage A; when
+    it fires the frontier is the anytime answer and the returned state
+    its exact-resume continuation.  ``prepared`` resumes from a
+    ``PreparedSearch`` of ``run_cached_stage_a`` or a deadline-cut
+    ``run_cached`` (same metric, index, queries and k): query prep,
+    ranking and stage A are skipped, and no block in
+    ``prepared.refined`` is fetched or refined again.
+
+    Returns ``(frontier, finalized stats, end state)``; the end state's
+    ``refined`` holds every block this run and the run it resumed
+    refined.  I/O accounting belongs to the callback owner.
+    """
+    if plan.schedule != "block_major":
+        raise ValueError("the cached backend walks the block-major "
+                         f"schedule; got {plan.schedule!r}")
+    _check_pipeline_knobs(pipeline_depth, group_blocks)
+    n_blocks = index.n_blocks
+    queries, initial_threshold = _as_device(queries, initial_threshold,
+                                            index.device)
+    if prepared is None:
+        prep = cached_setup(index, queries, plan)
+        prep = _cached_stage_a(index, plan, prep,
+                               prep.block_lb.cpu().numpy(),  # sync: 1/batch
+                               fetch, speculate, initial_threshold,
+                               pipeline_depth=pipeline_depth,
+                               group_blocks=group_blocks,
+                               telemetry=telemetry)
+    else:
+        _check_prepared(prepared, plan, n_blocks, queries.shape[0])
+        prep = prepared
+    qs, front, block_lb, stats = (prep.qs, prep.front, prep.block_lb,
+                                  prep.stats)
+    done = prep.refined
+    # one sync a batch: the host copy drives block ordering and the
+    # survivor scan; the walk then syncs once a GROUP
+    block_lb_h = block_lb.cpu().numpy()                     # sync: 1/batch
+    dispatch = _GroupDispatcher(index, plan, block_lb, fetch,
+                                initial_threshold)
+    budget = plan.deadline_blocks        # refines left; None = unbounded
+
+    order_t, sched_t, _ = block_major_schedule(torch.from_numpy(block_lb_h))
+    order, sched_lb = order_t.numpy(), sched_t.numpy()
+    # slot_done[s]: schedule slot s already refined (stage A / a resumed
+    # run) or consumed by this walk; the survivor scan masks it out
+    slot_done = (np.isin(order, np.fromiter(done, np.int64, len(done)))
+                 if done else np.zeros(n_blocks, dtype=bool))
+
+    walked: list[int] = []               # blocks THIS walk refined
+    n_syncs = 1
+    thr_h = frontier_lib.bound(front, initial_threshold).cpu().numpy()  # sync
+    ptr = 0
+    while ptr < n_blocks:
+        if budget is not None and len(walked) >= budget:
+            break                       # deadline: the answer is anytime
+        # a slot survives if unconsumed and any query's scheduled LB beats
+        # the bound; no survivor <=> the suffix-min stopping rule fires
+        live = np.flatnonzero(~slot_done[ptr:] & np.any(
+            sched_lb[:, ptr:] < thr_h[:, None], axis=0)) + ptr
+        if live.size == 0:
+            break                       # nothing later helps any query
+        g = (group_blocks if budget is None
+             else min(group_blocks, budget - len(walked)))
+        take = live[:g]                 # this group's schedule slots
+        gids = [int(order[s]) for s in take]
+        for b in gids[1:]:
+            # group members behind the head start reading now, so the
+            # reader pool overlaps them with the head's blocking fetch
+            speculate(b)
+        front, stats = dispatch(qs, front, stats, gids)           # async
+        walked += gids
+        slot_done[take] = True
+        # depth-D lookahead: the next D surviving slots under the (now
+        # one group stale) bound start reading while the device refines;
+        # a speculated slot pruned later just stays cached under its id
+        for s in live[g:g + pipeline_depth]:
+            speculate(int(order[s]))
+        thr_h = frontier_lib.bound(
+            front, initial_threshold).cpu().numpy()      # sync: 1/group
+        n_syncs += 1
+        # slots in [ptr, take[-1]] not taken were pruned under a bound
+        # that only tightened since: jump straight past the group
+        ptr = int(take[-1]) + 1
+    if telemetry is not None:
+        telemetry.update(syncs=n_syncs, dispatches=dispatch.dispatches,
+                         walk_blocks=len(walked),
+                         pipeline_depth=pipeline_depth,
+                         group_blocks=group_blocks)
+    state = dataclasses.replace(prep, front=front, stats=stats,
+                                refined=done | frozenset(walked))
+    return front, plan.metric.finalize_stats(stats, index.capacity), state
+
+
+def run_cached_stage_a(index: BlockIndex, queries: torch.Tensor,
+                       plan: QueryPlan, *,
+                       fetch: Callable[[int], torch.Tensor],
+                       speculate: Callable[[int], None] = lambda b: None,
+                       pipeline_depth: int = 1, group_blocks: int = 1
+                       ) -> PreparedSearch:
+    """Stage A only, on the cached backend: the approximate top-k after
+    refining each query's best-envelope block.  ``run_cached`` resumes
+    the returned ``PreparedSearch`` instead of repeating stage A."""
+    _check_pipeline_knobs(pipeline_depth, group_blocks)
+    queries = torch.as_tensor(queries, device=index.device)
+    prep = cached_setup(index, queries, plan)
+    return _cached_stage_a(index, plan, prep,
+                           prep.block_lb.cpu().numpy(),  # sync: 1/round
+                           fetch, speculate, None,
+                           pipeline_depth=pipeline_depth,
+                           group_blocks=group_blocks)

@@ -20,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import isax
+from repro_torch.core.index import require_device_resident
 from repro_torch.kernels import ops, ref
 
 # float32 max, not inf: f32 arithmetic on empty slots stays finite.  The
@@ -181,6 +182,7 @@ def prepare(queries: torch.Tensor, k: int, *, index=None, w: int | None = None,
     qn = q.shape[0]
     q_paa = block_lb = None
     if index is not None:
+        require_device_resident(index)
         q_paa = isax.paa(q, index.w)
         front, block_lb = approximate(index, q, q_paa, k)
     else:

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.core import isax
@@ -29,6 +30,40 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 
 RAW_PAD = 1.0e4   # pad-series point value: squared distance >> any real one
+
+
+class HostRawBlocks:
+    """Host-side raw blocks of an index opened out-of-core.
+
+    Wraps the (B, C, n) raw section of a persisted index, normally an
+    ``np.memmap`` over the index file, so the cached walk
+    (``storage.cache``) can fetch one block at a time while only the
+    summaries and envelopes live on the device.
+    """
+
+    def __init__(self, blocks, path: str | None = None):
+        self.blocks = blocks
+        self.path = path
+
+    @property
+    def dtype(self) -> np.dtype:
+        """On-disk dtype of the raw series (I/O accounting derives the
+        itemsize from this, not from an assumed float32)."""
+        return np.dtype(self.blocks.dtype)
+
+    @property
+    def block_nbytes(self) -> int:
+        """Bytes of one (C, n) raw block as stored on disk."""
+        _, c, n = self.blocks.shape
+        return c * n * self.dtype.itemsize
+
+    def fetch(self, block_id: int) -> np.ndarray:
+        """Read one (C, n) block into a fresh host array (the disk I/O).
+
+        Called from the block cache's reader threads: read-only memmap
+        slicing plus a fresh-array copy, so concurrent calls are safe.
+        """
+        return np.array(self.blocks[block_id])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +80,11 @@ class BlockIndex:
     card: int
     capacity: int
     n_real: int         # number of non-padding series
+    # Out-of-core hook: set by storage.open_index, which leaves ``raw`` as
+    # a zero-width (B, 0, n) placeholder and keeps the real blocks on
+    # disk.  The in-memory search paths refuse such an index; the cached
+    # walk (storage.ooc_search) streams blocks through HostRawBlocks.fetch.
+    host_raw: HostRawBlocks | None = None
 
     @property
     def n_blocks(self) -> int:
@@ -53,6 +93,21 @@ class BlockIndex:
     @property
     def device(self) -> torch.device:
         return self.raw.device
+
+    @property
+    def device_resident(self) -> bool:
+        """True when the raw series are on the device (the in-memory paths)."""
+        return self.raw.shape[1] == self.capacity
+
+
+def require_device_resident(index: BlockIndex) -> None:
+    """Refuse an index opened out-of-core on an in-memory path."""
+    if not index.device_resident:
+        raise ValueError(
+            "index raw series are not device-resident (opened out-of-core "
+            "via storage.open_index); use storage.ooc_search or a "
+            "storage.SearchSession, or storage.load_index for the "
+            "in-memory paths")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,6 +212,7 @@ def flat_view(index: BlockIndex) -> FlatIndex:
     """Reinterpret the block index as a ParIS-style flat SAX array.  The
     raw series and ids are views; the planar bounds are one (w, B*C) copy
     each."""
+    require_device_resident(index)
     b, c, n = index.raw.shape
     w = index.w
     lo = index.slo.permute(1, 0, 2).reshape(w, b * c).contiguous()

@@ -56,11 +56,46 @@ def _region_tables_on(card: int, device: torch.device):
     return torch.from_numpy(lo).to(device), torch.from_numpy(hi).to(device)
 
 
+ZNORM_ROWS = 1 << 20   # rows a step of znorm: bounds its temporaries
+
+
+def _row_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in one fixed order, keepdim: the two halves
+    added elementwise, log2(n) times (zero-padded to a power of two)."""
+    n = x.shape[-1]
+    width = 1 << max(0, (n - 1).bit_length())
+    if width != n:
+        x = torch.nn.functional.pad(x, (0, width - n))
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x
+
+
+def _znorm_rows(x: torch.Tensor, eps: float) -> torch.Tensor:
+    n = x.shape[-1]
+    d = x - _row_sum(x) / n
+    sd = torch.sqrt(_row_sum(d * d) / n)
+    return d / torch.clamp(sd, min=eps)
+
+
 def znorm(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
-    """Z-normalize each series along the last axis (population std)."""
-    mu = torch.mean(x, dim=-1, keepdim=True)
-    sd = torch.std(x, dim=-1, keepdim=True, correction=0)
-    return (x - mu) / torch.clamp(sd, min=eps)
+    """Z-normalize each series along the last axis (population std).
+
+    The mean and the variance are sums in one fixed pairwise order of
+    elementwise adds (``_row_sum``), not a library reduction: on the card
+    a reduction's order changes with the number of rows a call holds (a
+    call of a few rows rounds differently from one of millions).  So a
+    row's bits depend on its own values only, and the build pipeline,
+    which z-normalizes row ranges, writes the bits ``core.build`` writes
+    from one call over every row.  Rows go ``ZNORM_ROWS`` at a time.
+    """
+    if x.ndim != 2 or x.shape[0] <= ZNORM_ROWS:
+        return _znorm_rows(x, eps)
+    out = torch.empty_like(x)
+    for i in range(0, x.shape[0], ZNORM_ROWS):
+        out[i:i + ZNORM_ROWS] = _znorm_rows(x[i:i + ZNORM_ROWS], eps)
+    return out
 
 
 def paa(x: torch.Tensor, w: int = W) -> torch.Tensor:

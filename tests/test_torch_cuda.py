@@ -18,7 +18,12 @@ kernel may contract a * h + b into an FMA, and its expf and the plain
 exp differ by an ulp or two); the Mamba mixer and Hymba serving on the
 card against the plain oracle and the CPU 1e-3 and 2e-3, the bars of
 tests/test_kernels.py's mixer test and tests/test_models.py's
-prefill/decode test.
+prefill/decode test.  The on-disk index on the card: the block cache
+with a reader slowed on purpose and a block evicted under a queued read
+(bitwise), the loader's pinned staging (bitwise), the pipeline's file
+against save_index(core.build(...)) (sha256), z-norm's independence of
+the call (bitwise) and the cached walk against the CPU's (ids equal,
+squared distances rtol 1e-5 / atol 1e-4).
 """
 import numpy as np
 import pytest
@@ -611,3 +616,165 @@ def test_hymba_serving_on_the_card_matches_the_cpu(cuda):
     clear = (top2[..., 0] - top2[..., 1]) > 4e-3
     assert torch.equal(got.tokens.cpu()[clear],
                        torch.argmax(want, dim=-1)[clear])
+
+
+# ---------------------------------------------------------------------------
+# the on-disk index on the card: block transport, staging, the pipeline
+# ---------------------------------------------------------------------------
+
+SLEEP_CYCLES = 20_000_000      # ~10 ms of a spinning kernel at ~2 GHz
+
+
+@pytest.fixture(scope="module")
+def disk_index(cuda, tmp_path_factory):
+    """4,000 x 128 random walks, built and saved on the card, reopened
+    out-of-core there, with queries near the series."""
+    from repro_torch import storage
+    raw = random_walk(4000, 128, seed=23)
+    rng = np.random.default_rng(11)
+    qs = torch.from_numpy(raw[rng.choice(4000, 6, replace=False)]
+                          + 0.05 * rng.standard_normal((6, 128))
+                          .astype(np.float32)).to(cuda)
+    path = tmp_path_factory.mktemp("disk") / "rw.dsix"
+    storage.save_index(build(raw, capacity=64, device=cuda), path)
+    return path, qs
+
+
+class _SlowCopyCache:
+    """Made on first use: a BlockCache whose reader's side stream spins
+    before each copy, so the copy lands long after ``get`` returns."""
+
+    @staticmethod
+    def make(*args, **kw):
+        from repro_torch import storage
+
+        class SlowCopy(storage.BlockCache):
+            def _to_device(self, block):
+                with torch.cuda.stream(self._side().stream):
+                    torch.cuda._sleep(SLEEP_CYCLES)
+                return super()._to_device(block)
+        return SlowCopy(*args, **kw)
+
+
+@pytest.mark.parametrize("how", ["fetch", "copy"])
+def test_block_cache_with_slowed_reader_is_exact(cuda, disk_index, how):
+    """A reader slowed on purpose (a sleeping ``HostRawBlocks.fetch``, or a
+    side stream that spins before each copy) changes no bit of the
+    answer: a missing stream wait would read unwritten memory."""
+    import time
+    from repro_torch import storage
+    path, qs = disk_index
+    opened = storage.open_index(path, device=cuda)
+    want = search_block_major(storage.load_index(path, device=cuda), qs, k=5)
+    base = storage.ooc_search(opened, qs, k=5, pipeline_depth=2,
+                              group_blocks=4)
+    orig = opened.host_raw.fetch
+    with storage.SearchSession(opened, cache_blocks=16, pipeline_depth=2,
+                               group_blocks=4) as sess:
+        if how == "fetch":
+            opened.host_raw.fetch = lambda b: (time.sleep(0.002), orig(b))[1]
+        else:
+            sess.cache.close()
+            sess.cache = _SlowCopyCache.make(opened.host_raw, 16, readers=2,
+                                             max_inflight=6, device=cuda)
+        try:
+            got = sess.search(qs, k=5)
+        finally:
+            if how == "fetch":
+                del opened.host_raw.fetch
+    assert torch.equal(got.idx, base.idx) and torch.equal(got.dist, base.dist)
+    for a, b in zip(got.stats, base.stats):
+        assert torch.equal(a, b)
+    assert torch.equal(got.idx, want.idx)
+
+
+def test_evicted_block_is_not_overwritten_under_a_queued_read(cuda,
+                                                              disk_index):
+    """A block evicted while a queued kernel still reads it keeps its
+    bytes: ``get`` records it on the consumer's stream, so the allocator
+    does not hand its memory to the next read on the reader's stream."""
+    from repro_torch import storage
+    path, _ = disk_index
+    host = storage.open_index(path, device=cuda).host_raw
+    cache = storage.BlockCache(host, 2, readers=1, device=cuda)
+    try:
+        a = cache.get(0)
+        torch.cuda._sleep(20 * SLEEP_CYCLES)     # hold the consumer stream
+        out = a * 1.0                            # queued behind the sleep
+        del a
+        for b in range(1, 8):                    # evicts block 0 at once
+            cache.prefetch(b)
+        cache.drain()
+        torch.cuda.synchronize()
+        assert torch.equal(out.cpu(), torch.from_numpy(host.fetch(0)))
+    finally:
+        cache.close()
+
+
+def test_chunked_loader_staging_gives_the_same_chunks(cuda):
+    """Overlapped staging through two pinned buffers: each chunk arrives
+    intact although the consumer's stream lags behind the staging."""
+    from repro_torch.data import ChunkedLoader
+    raw = random_walk(1000, 64, seed=4)
+    chunks = []
+    for c in ChunkedLoader(raw, chunk=96, device=cuda):
+        torch.cuda._sleep(SLEEP_CYCLES)          # the consumer is slow
+        chunks.append(c * 1.0)
+    torch.cuda.synchronize()
+    assert all(c.is_cuda for c in chunks)
+    assert torch.equal(torch.cat(chunks).cpu(), torch.from_numpy(raw))
+
+
+@pytest.mark.parametrize("shards,workers", [(1, 1), (3, 2)])
+def test_pipeline_on_the_card_equals_save_index_of_build(cuda, tmp_path,
+                                                         shards, workers):
+    """The pipeline's file is byte-identical to save_index(core.build(...))
+    on the card: z-norm and summarize are per row on the card too."""
+    import hashlib
+    from repro_torch import storage
+    raw = random_walk(3000, 128, seed=8)
+    store = storage.SeriesStore.write(tmp_path / "s.f32", raw)
+    storage.save_index(build(raw, capacity=64, device=cuda),
+                       tmp_path / "golden.dsix")
+    ops.reset_launch_counts()
+    opened = storage.pipeline_build(store, tmp_path / "p.dsix", capacity=64,
+                                    chunk=500, shards=shards,
+                                    workers=workers, device=cuda)
+    assert ops.launch_counts()["isax_summarize"] > 0
+    assert opened.host_raw is not None and opened.elo.is_cuda
+    sha = [hashlib.sha256((tmp_path / f).read_bytes()).hexdigest()
+           for f in ("golden.dsix", "p.dsix")]
+    assert sha[0] == sha[1]
+
+
+def test_ooc_search_on_the_card_matches_the_cpu(cuda, disk_index):
+    """The cached walk on the card (the fused kernel, lb_scan) against the
+    same walk on the CPU (the plain versions) over the same file."""
+    from repro_torch import storage
+    path, qs = disk_index
+    ops.reset_launch_counts()
+    got = storage.ooc_search(storage.open_index(path, device=cuda), qs, k=5,
+                             pipeline_depth=4, group_blocks=8)
+    counts = ops.launch_counts()
+    assert counts["lb_scan"] > 0 and counts["fused_panel_topk"] > 0
+    want = storage.ooc_search(storage.open_index(path, device="cpu"),
+                              qs.cpu(), k=5, device="cpu")
+    assert torch.equal(got.idx.cpu(), want.idx)
+    torch.testing.assert_close(got.dist.cpu() ** 2, want.dist ** 2,
+                               rtol=1e-5, atol=1e-4)
+    assert tuple(got.io)[1:2] == tuple(want.io)[1:2]
+
+
+def test_znorm_on_the_card_is_independent_of_the_call(cuda):
+    """The fixed-order z-norm: a call of a few gathered rows gives the bits
+    of one call over every row (a library reduction on the card does not:
+    calls of 1 to 7 rows rounded differently at 10M series), and the
+    result is within an ulp or two of the CPU's."""
+    x = torch.from_numpy(random_walk(20_000, 256, seed=2))
+    whole = isax.znorm(x.to(cuda))
+    torch.testing.assert_close(whole.cpu(), isax.znorm(x), rtol=1e-6,
+                               atol=1e-6)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for m in (1, 2, 7, 100, 16384):
+        rows = torch.randint(0, 20_000, (m,), generator=g, device=cuda)
+        assert torch.equal(isax.znorm(x.to(cuda)[rows]), whole[rows]), m

@@ -36,6 +36,22 @@ def test_znorm_and_paa(n):
                                _np(jisax.paa(zj)), rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("n", [64, 100, 256])
+def test_znorm_of_a_row_is_independent_of_the_call(n, monkeypatch):
+    """A row's z-norm bits depend on its own values only: a call of 1, 2,
+    7 or 300 gathered rows, or the whole array in steps of 64 rows,
+    gives the bits of one call over every row (the build pipeline's
+    pass 2 against ``core.build``)."""
+    x = torch.from_numpy(random_walk(1000, n, seed=n))
+    whole = tisax.znorm(x)
+    rng = np.random.default_rng(n)
+    for m in (1, 2, 7, 300):
+        rows = torch.from_numpy(rng.choice(1000, m, replace=False))
+        assert torch.equal(tisax.znorm(x[rows]), whole[rows]), m
+    monkeypatch.setattr(tisax, "ZNORM_ROWS", 64)
+    assert torch.equal(tisax.znorm(x), whole)
+
+
 def test_symbols_and_bounds_on_shared_paa():
     rng = np.random.default_rng(0)
     p = rng.standard_normal((500, 16)).astype(np.float32)

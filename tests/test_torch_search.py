@@ -158,5 +158,13 @@ def test_plan_validation_and_later_slices(indexes, data):
     with pytest.raises(ValueError, match="run_flat"):
         tengine.run(ti, data[1], tengine.QueryPlan(schedule="flat"),
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tengine.run_cached(ti, data[1], tengine.QueryPlan())
+    # the cached backend (the on-disk slice) walks block-major only, and
+    # fed the resident blocks it answers as the in-memory walk does
+    with pytest.raises(ValueError, match="block-major"):
+        tengine.run_cached(ti, data[1], tengine.QueryPlan(schedule="flat"),
+                           fetch=lambda b: ti.raw[b])
+    front, _, _ = tengine.run_cached(ti, torch.from_numpy(data[1]),
+                                     tengine.QueryPlan(k=5),
+                                     fetch=lambda b: ti.raw[b])
+    assert torch.equal(front.ids,
+                       t_search(ti, data[1], k=5, device="cpu").idx)
