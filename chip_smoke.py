@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive and check the port's search paths and Hymba serving on one card.
+"""Drive and check the port's search paths, its distributed protocol,
+search serving and Hymba serving on one card.
 
     python3 chip_smoke.py [--seed 0] [--n-series 10000000] [--queries 100]
                           [--dtw-queries 10] [--lm-batch 4]
@@ -90,7 +91,34 @@ CUDA toolkit.  Phases, each printing one JSON line:
                  a warm repeat through a ``storage.SearchSession`` holding
                  every block (bitwise equal, 0 bytes read); DTW (r=12,
                  k=10) on the ``--dtw-queries`` through that session, ids
-                 against ``dtw``'s.
+                 against ``dtw``'s;
+ 11. dist1     — ``distributed.search_sharded`` (k=10) over the main index
+                 on a world-size-1 NCCL group: bitwise ``main``'s
+                 block-major answer and counters;
+ 12. serve     — on the ooc phase's index file: 4 tenant threads x 25
+                 queries (members of one random block plus 0.05 noise,
+                 from ``--seed``), k=10, through one coalesced
+                 ``SearchSession`` drain, each tenant bitwise its isolated
+                 ``search``, the drain's disk blocks beside the isolated
+                 runs'; ``search(deadline_blocks=8)``, its certificate
+                 bracketing the exact k-th distance, ``refine_to_exact``
+                 bitwise the exact answer; and ``python -m
+                 repro_torch.launch.serve --search-index`` once, as a
+                 subprocess (4 queries a tenant, k=1);
+ 13. dist4     — the main process frees its tensors, then 4 ranks spawned
+                 on the card over gloo (a ``file://`` store under
+                 ``build/``): each reads its quarter of the series file,
+                 ``distributed.build_sharded`` with global ids,
+                 ``search_sharded`` block-major k=1 and 10, query-major
+                 k=10, ``search_sharded_scan`` k=10 (each between
+                 barriers), saves its shard; ids against the brute-force
+                 scan, every rank the same answer, per-rank build seconds
+                 and peak device memory, launches summed over ranks; a
+                 rank that fails or a collective past its timeout fails
+                 the run;
+ 14. dist_ooc  — ``distributed.search_sharded_ooc`` over 4 sessions on
+                 dist4's shard files from a cold disk, k=10: ids against
+                 the brute-force scan, the summed ``IOStats``.
 
 Each path runs with the kernels' launch counts set to 0 just before it
 and read just after, and fails if a kernel of that path was not
@@ -107,6 +135,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -119,7 +148,8 @@ from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro_torch import core, storage  # noqa: E402
-from repro_torch.core import dtw, engine, frontier, isax  # noqa: E402
+from repro_torch.core import (distributed, dtw, engine, frontier,  # noqa: E402
+                              isax)
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.batch_l2 import batch_l2  # noqa: E402
 from repro_torch.kernels.block_topk import block_topk  # noqa: E402
@@ -166,12 +196,21 @@ SSM_ODD_N, SSM_ODD_STEPS = 12, 512   # the scan's case at a state size no power 
 
 OOC_DIR = ROOT / "build" / "ooc"   # git-ignored; removed at the phase's end
 # bytes on disk a series of 256 points: the series file (1,024), the index
-# file (1,024 raw + 128 bounds + 4 id), the runs (56) and the merge (40)
-OOC_BYTES_PER_SERIES = 1024 + 1156 + 56 + 40
+# file (1,024 raw + 128 bounds + 4 id), the runs (56), the merge (40) and
+# dist4's shard files (1,156, as the index file)
+OOC_BYTES_PER_SERIES = 1024 + 1156 + 56 + 40 + 1156
 OOC_SHARDS, OOC_WORKERS = 4, 2     # the build's pass-1 shards, its threads
 OOC_CACHE_BLOCKS = 64              # the one-shot walk's block cache
 OOC_SETTINGS = ((1, 1), (4, 8))    # (pipeline_depth, group_blocks)
 OOC_COMPARE_BLOCKS = 256           # blocks a step of the raw comparison
+DIST_WORLD = 4                     # dist4's ranks, all on the one card
+DIST1_BACKEND = "nccl"             # dist1's world-size-1 group
+DIST_TIMEOUT_S = 300               # a collective's (or a tenant's) limit
+DIST_RANKS_TIMEOUT_S = 600         # dist4's ranks, spawn to exit
+SERVE_TENANTS, SERVE_BATCH, SERVE_K = 4, 25, 10   # launch.serve's traffic
+SERVE_DEADLINE = 8                 # the anytime answer's refine budget
+SERVE_CLI_K = 1                    # the CLI's k: its near-data queries prune
+WALK_PIPELINE = OOC_SETTINGS[1]    # serve's and dist_ooc's (depth, group)
 
 # the kernels each search path must launch (the build's isax_summarize
 # is checked on its own)
@@ -1218,11 +1257,15 @@ def _io_line(res, secs: float, tel: dict | None = None) -> dict:
     return line
 
 
-def phase_ooc(args, raw, index, queries, refs: dict, dtw_res) -> dict:
+def phase_ooc(args, raw, index, queries, refs: dict, dtw_res
+              ) -> tuple[dict, dict | None]:
     """The on-disk index: the series written to a headerless file, the
     staged pipeline build, the file against the in-memory index bit for
     bit, the cached walk (ED at two pipeline settings, a warm repeat,
-    DTW) against the in-memory answers.  -> the phase's launches."""
+    DTW) against the in-memory answers.  The files stay under
+    ``OOC_DIR`` for the later phases (the caller removes them).  -> (the
+    phase's launches, {"n", "series", "index", "ucr10"} for the later
+    phases, or None when the disk could not hold the files)."""
     n_all = raw.shape[0]
     n, disk = _ooc_series(args, n_all)
     line = {"phase": "ooc", "disk": disk, "capacity": CAPACITY,
@@ -1240,158 +1283,602 @@ def phase_ooc(args, raw, index, queries, refs: dict, dtw_res) -> dict:
 
     if not check(n > 0, "the disk holds the on-disk phase's files"):
         emit(line)
-        return launches
-    try:
-        sub = raw[:n]
-        if n < n_all:       # the cut: its own in-memory index and answers
-            index = core.build(sub, capacity=CAPACITY)
-            refs = {"block_major": {k: (core.search_block_major(
-                        index, queries, k=k), 0.0) for k in (1, 10)},
-                    "ucr": {10: (core.search_scan(sub, queries, k=10), 0.0)}}
-            dtw_res = dtw.search_dtw(index, queries[:args.dtw_queries]
-                                     .contiguous(), r=DTW_R, k=10)
-        # 1. the series, as the headerless f32 file users hand a build
-        series = OOC_DIR / "series.f32"
-        t0 = time.perf_counter()
-        for i in range(0, n, SCAN_CHUNK):
-            storage.SeriesStore.append(series,
-                                       sub[i:i + SCAN_CHUNK].cpu().numpy())
-        store = storage.SeriesStore(series, length=LENGTH)
-        line["series_write_seconds"] = time.perf_counter() - t0
-        line["series_bytes"] = store.nbytes
+        return launches, None
+    sub = raw[:n]
+    if n < n_all:       # the cut: its own in-memory index and answers
+        index = core.build(sub, capacity=CAPACITY)
+        refs = {"block_major": {k: (core.search_block_major(
+                    index, queries, k=k), 0.0) for k in (1, 10)},
+                "ucr": {10: (core.search_scan(sub, queries, k=10), 0.0)}}
+        dtw_res = dtw.search_dtw(index, queries[:args.dtw_queries]
+                                 .contiguous(), r=DTW_R, k=10)
+    # 1. the series, as the headerless f32 file users hand a build
+    series = OOC_DIR / "series.f32"
+    t0 = time.perf_counter()
+    for i in range(0, n, SCAN_CHUNK):
+        storage.SeriesStore.append(series,
+                                   sub[i:i + SCAN_CHUNK].cpu().numpy())
+    store = storage.SeriesStore(series, length=LENGTH)
+    line["series_write_seconds"] = time.perf_counter() - t0
+    line["series_bytes"] = store.nbytes
 
-        # 2. the staged build (pipeline_build is run_pipeline + open_index;
-        # the two are called apart to read the BuildReport)
-        path = OOC_DIR / "index.dsix"
-        torch.cuda.synchronize()
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        _, report = storage.run_pipeline(store, path, capacity=CAPACITY,
-                                         shards=OOC_SHARDS,
-                                         workers=OOC_WORKERS)
-        torch.cuda.synchronize()
-        count(("isax_summarize",), "build")
-        line["build"] = {"seconds": time.perf_counter() - t0,
-                         "file_bytes": os.path.getsize(path),
-                         "report": report.as_dict()}
-        opened = storage.open_index(path)
+    # 2. the staged build (pipeline_build is run_pipeline + open_index;
+    # the two are called apart to read the BuildReport)
+    path = OOC_DIR / "index.dsix"
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, report = storage.run_pipeline(store, path, capacity=CAPACITY,
+                                     shards=OOC_SHARDS,
+                                     workers=OOC_WORKERS)
+    torch.cuda.synchronize()
+    count(("isax_summarize",), "build")
+    line["build"] = {"seconds": time.perf_counter() - t0,
+                     "file_bytes": os.path.getsize(path),
+                     "report": report.as_dict()}
+    opened = storage.open_index(path)
 
-        # 3. the file against the in-memory index, bit for bit
-        same = all(torch.equal(getattr(opened, f), getattr(index, f))
-                   for f in ("ids", "slo", "shi", "elo", "ehi"))
-        check(same, "ooc: ids/slo/shi/elo/ehi of the pipeline's file "
-                    "bitwise equal core.build's")
-        raw_same = True
-        mm = opened.host_raw.blocks
-        # read from the disk: the rate bounds a cold walk that reads it all
-        dropped = _drop_page_cache(path)
-        t0 = time.perf_counter()
-        for b0 in range(0, opened.n_blocks, OOC_COMPARE_BLOCKS):
-            b1 = min(b0 + OOC_COMPARE_BLOCKS, opened.n_blocks)
-            part = torch.from_numpy(np.array(mm[b0:b1])).to(index.raw.device)
-            raw_same &= torch.equal(part, index.raw[b0:b1])
-        secs = time.perf_counter() - t0
-        check(raw_same, "ooc: the pipeline's raw section torch.equal "
-                        "core.build's index.raw")
-        line["byte_identity"] = {"summaries": same, "raw": raw_same}
-        line["raw_sequential_read"] = {
-            "page_cache_dropped": dropped, "seconds": secs,
-            "bytes_per_s": mm.nbytes / secs,
-            "what": "the raw section read in 256-block steps from the disk "
-                    "into the card and compared, one thread"}
+    # 3. the file against the in-memory index, bit for bit
+    same = all(torch.equal(getattr(opened, f), getattr(index, f))
+               for f in ("ids", "slo", "shi", "elo", "ehi"))
+    check(same, "ooc: ids/slo/shi/elo/ehi of the pipeline's file "
+                "bitwise equal core.build's")
+    raw_same = True
+    mm = opened.host_raw.blocks
+    # read from the disk: the rate bounds a cold walk that reads it all
+    dropped = _drop_page_cache(path)
+    t0 = time.perf_counter()
+    for b0 in range(0, opened.n_blocks, OOC_COMPARE_BLOCKS):
+        b1 = min(b0 + OOC_COMPARE_BLOCKS, opened.n_blocks)
+        part = torch.from_numpy(np.array(mm[b0:b1])).to(index.raw.device)
+        raw_same &= torch.equal(part, index.raw[b0:b1])
+    secs = time.perf_counter() - t0
+    check(raw_same, "ooc: the pipeline's raw section torch.equal "
+                    "core.build's index.raw")
+    line["byte_identity"] = {"summaries": same, "raw": raw_same}
+    line["raw_sequential_read"] = {
+        "page_cache_dropped": dropped, "seconds": secs,
+        "bytes_per_s": mm.nbytes / secs,
+        "what": "the raw section read in 256-block steps from the disk "
+                "into the card and compared, one thread"}
 
-        # 4. the ED walk from the disk, at two pipeline settings
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launch_counts()
-        walks = {}
-        q = isax.znorm(queries)
-        for d, g in OOC_SETTINGS:
-            for k in (1, 10):
-                dropped = _drop_page_cache(path)
-                tel: dict = {}
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                res = storage.ooc_search(opened, queries, k=k,
-                                         cache_blocks=OOC_CACHE_BLOCKS,
-                                         pipeline_depth=d, group_blocks=g,
-                                         telemetry=tel)
-                torch.cuda.synchronize()
-                secs = time.perf_counter() - t0
-                walks[(d, g, k)] = res
-                bm = refs["block_major"][k][0]
-                entry = {"page_cache_dropped": dropped,
-                         **_io_line(res, secs, tel),
-                         "vs_block_major": _ids_agree(
-                             f"ooc ({d}, {g}) k={k} vs block-major", res, bm,
-                             q, raw)}
-                if k in refs["ucr"]:
-                    entry["vs_ucr"] = _ids_agree(
-                        f"ooc ({d}, {g}) k={k} vs UCR", res,
-                        refs["ucr"][k][0], q, raw)
-                gd, wd = res.dist.double() ** 2, bm.dist.double() ** 2
-                check(bool(((gd - wd).abs() <= 1e-5 * wd + 1e-6).all()),
-                      f"ooc ({d}, {g}) k={k}: squared distances within "
-                      "rtol 1e-5 of block-major's")
-                line[f"ed_d{d}_g{g}_k{k}"] = entry
-        count(("lb_scan", "fused_panel_topk"), "ED walk")
-        (d0, g0), (d1, g1) = OOC_SETTINGS
+    # 4. the ED walk from the disk, at two pipeline settings
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    walks = {}
+    q = isax.znorm(queries)
+    for d, g in OOC_SETTINGS:
         for k in (1, 10):
-            check(_bitwise(walks[(d0, g0, k)], walks[(d1, g1, k)]),
-                  f"ooc k={k}: ({d0}, {g0}) and ({d1}, {g1}) bitwise equal "
-                  "in dist, idx and every SearchStats counter")
-        line["ed_max_memory_allocated"] = torch.cuda.max_memory_allocated()
-
-        # 5. a warm repeat through a session that holds every block
-        _drop_page_cache(path)
-        with storage.SearchSession(opened,
-                                   cache_blocks=max(opened.n_blocks, d1 + g1),
-                                   pipeline_depth=d1,
-                                   group_blocks=g1) as sess:
-            runs = []
-            for _ in range(2):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                res = sess.search(queries, k=10)
-                torch.cuda.synchronize()
-                runs.append((res, time.perf_counter() - t0,
-                             dict(sess.last_telemetry)))
-            check(_bitwise(runs[0][0], runs[1][0]),
-                  "ooc warm repeat bitwise equal the cold batch")
-            check(runs[1][0].io.bytes_read == 0,
-                  "ooc warm repeat read 0 bytes")
-            line["warm"] = {"cold": _io_line(*runs[0]),
-                            "warm": _io_line(*runs[1]),
-                            "max_memory_allocated":
-                                torch.cuda.max_memory_allocated()}
-
-            # 6. DTW through the same session
-            ops.reset_launch_counts()
-            dq = queries[:args.dtw_queries].contiguous()
+            dropped = _drop_page_cache(path)
+            tel: dict = {}
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            res = sess.search(dq, k=10, metric=engine.DTW(r=DTW_R))
+            res = storage.ooc_search(opened, queries, k=k,
+                                     cache_blocks=OOC_CACHE_BLOCKS,
+                                     pipeline_depth=d, group_blocks=g,
+                                     telemetry=tel)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
-            count(("lb_scan", "block_topk", "dtw_band_panel"), "DTW walk")
-            diff = res.idx != dtw_res.idx
-            ties_ok = True
-            if bool(diff.any()):
-                qz = isax.znorm(dq)
-                x = isax.znorm(raw[res.idx.long().flatten()]).reshape(
-                    res.idx.shape + (LENGTH,))
-                dk = ref.dtw_band_panel_ref(qz, x, r=DTW_R).double()
-                wd = dtw_res.dist.double() ** 2
-                ties_ok = bool(((dk - wd).abs()
-                                <= DIST_REL * wd + 1e-6)[diff].all())
-            check(ties_ok, "ooc DTW k=10: ids equal phase dtw's (but near "
-                           "ties)")
-            line["dtw"] = {"r": DTW_R, "queries": dq.shape[0],
-                           **_io_line(res, secs, sess.last_telemetry),
-                           "ids_equal": int((~diff).sum()),
-                           "near_ties": int(diff.sum())}
-        line["launches"] = launches
+            walks[(d, g, k)] = res
+            bm = refs["block_major"][k][0]
+            entry = {"page_cache_dropped": dropped,
+                     **_io_line(res, secs, tel),
+                     "vs_block_major": _ids_agree(
+                         f"ooc ({d}, {g}) k={k} vs block-major", res, bm,
+                         q, raw)}
+            if k in refs["ucr"]:
+                entry["vs_ucr"] = _ids_agree(
+                    f"ooc ({d}, {g}) k={k} vs UCR", res,
+                    refs["ucr"][k][0], q, raw)
+            gd, wd = res.dist.double() ** 2, bm.dist.double() ** 2
+            check(bool(((gd - wd).abs() <= 1e-5 * wd + 1e-6).all()),
+                  f"ooc ({d}, {g}) k={k}: squared distances within "
+                  "rtol 1e-5 of block-major's")
+            line[f"ed_d{d}_g{g}_k{k}"] = entry
+    count(("lb_scan", "fused_panel_topk"), "ED walk")
+    (d0, g0), (d1, g1) = OOC_SETTINGS
+    for k in (1, 10):
+        check(_bitwise(walks[(d0, g0, k)], walks[(d1, g1, k)]),
+              f"ooc k={k}: ({d0}, {g0}) and ({d1}, {g1}) bitwise equal "
+              "in dist, idx and every SearchStats counter")
+    line["ed_max_memory_allocated"] = torch.cuda.max_memory_allocated()
+
+    # 5. a warm repeat through a session that holds every block
+    _drop_page_cache(path)
+    with storage.SearchSession(opened,
+                               cache_blocks=max(opened.n_blocks, d1 + g1),
+                               pipeline_depth=d1,
+                               group_blocks=g1) as sess:
+        runs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = sess.search(queries, k=10)
+            torch.cuda.synchronize()
+            runs.append((res, time.perf_counter() - t0,
+                         dict(sess.last_telemetry)))
+        check(_bitwise(runs[0][0], runs[1][0]),
+              "ooc warm repeat bitwise equal the cold batch")
+        check(runs[1][0].io.bytes_read == 0,
+              "ooc warm repeat read 0 bytes")
+        line["warm"] = {"cold": _io_line(*runs[0]),
+                        "warm": _io_line(*runs[1]),
+                        "max_memory_allocated":
+                            torch.cuda.max_memory_allocated()}
+
+        # 6. DTW through the same session
+        ops.reset_launch_counts()
+        dq = queries[:args.dtw_queries].contiguous()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sess.search(dq, k=10, metric=engine.DTW(r=DTW_R))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        count(("lb_scan", "block_topk", "dtw_band_panel"), "DTW walk")
+        diff = res.idx != dtw_res.idx
+        ties_ok = True
+        if bool(diff.any()):
+            qz = isax.znorm(dq)
+            x = isax.znorm(raw[res.idx.long().flatten()]).reshape(
+                res.idx.shape + (LENGTH,))
+            dk = ref.dtw_band_panel_ref(qz, x, r=DTW_R).double()
+            wd = dtw_res.dist.double() ** 2
+            ties_ok = bool(((dk - wd).abs()
+                            <= DIST_REL * wd + 1e-6)[diff].all())
+        check(ties_ok, "ooc DTW k=10: ids equal phase dtw's (but near "
+                       "ties)")
+        line["dtw"] = {"r": DTW_R, "queries": dq.shape[0],
+                       **_io_line(res, secs, sess.last_telemetry),
+                       "ids_equal": int((~diff).sum()),
+                       "near_ties": int(diff.sum())}
+    line["launches"] = launches
+    emit(line)
+    return launches, {"n": n, "series": series, "index": path,
+                      "ucr10": refs["ucr"][10][0]}
+
+
+# ---------------------------------------------------------------------------
+# the distributed protocol and search serving
+# ---------------------------------------------------------------------------
+
+class _SeriesRows:
+    """Rows of the series file by id, on the card: ``_ids_agree``'s raw
+    once the in-memory series are gone from the card."""
+
+    def __init__(self, store, device):
+        self.mm = store.memmap()
+        self.device = device
+
+    def __getitem__(self, ids: torch.Tensor) -> torch.Tensor:
+        rows = np.asarray(self.mm[ids.cpu().numpy()], dtype=np.float32)
+        return torch.from_numpy(rows).to(self.device)
+
+
+def _dist_ok(name: str, res, want, q, raw) -> dict:
+    """The ids against a brute-force answer under ``exact``'s rule, the
+    squared distances within DIST_REL * (|q|^2 + |x|^2) of it."""
+    tol = DIST_REL * 2 * (q * q).sum(1)
+    k = res.idx.shape[1]
+    want = want._replace(dist=want.dist[:, :k], idx=want.idx[:, :k])
+    gd, wd = res.dist.double() ** 2, want.dist.double() ** 2
+    check(bool(((gd - wd).abs() <= tol[:, None].double()).all()),
+          f"{name}: squared distances within {DIST_REL} x (|q|^2 + |x|^2) "
+          "of the brute-force scan's")
+    return {**_ids_agree(name, res, want, q, raw),
+            "max_sq_dist_err": float((gd - wd).abs().max())}
+
+
+def _group_init(name: str) -> str:
+    """A fresh ``file://`` store for a process group, under build/."""
+    path = ROOT / "build" / f"{name}.store"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.unlink(missing_ok=True)
+    return f"file://{path}"
+
+
+def phase_dist1(index, queries, bm: dict) -> dict:
+    """``distributed.search_sharded`` on a world-size-1 NCCL group over the
+    main index: with one shard the global threshold is the shard's own,
+    so the answer and every counter must be bitwise block-major's."""
+    import torch.distributed as tdist
+    from datetime import timedelta
+    tdist.init_process_group(DIST1_BACKEND, init_method=_group_init("dist1"),
+                             world_size=1, rank=0,
+                             timeout=timedelta(seconds=DIST_TIMEOUT_S))
+    try:
+        results, lines, launches = run_path(
+            "block_major",
+            lambda k: distributed.search_sharded(index, queries, k=k),
+            ks=(10,))
+        res = results[10][0]
+        same = _bitwise(res, bm[10][0])
+        check(same, "dist1: search_sharded on one rank bitwise equals "
+                    "search_block_major (dist, idx, every counter)")
+        emit({"phase": "dist1", "backend": tdist.get_backend(),
+              "world_size": tdist.get_world_size(), "launches": launches,
+              "bitwise_block_major": same, **lines})
     finally:
-        shutil.rmtree(OOC_DIR, ignore_errors=True)
+        tdist.destroy_process_group()
+    return launches
+
+
+def phase_serve(args, ooc: dict) -> dict:
+    """Multi-tenant serving on the on-disk index: 4 tenant threads x 25
+    near-data queries in one coalesced drain, each tenant bitwise its
+    isolated ``SearchSession.search``; an anytime answer whose certificate
+    brackets the exact k-th distance and whose ``refine_to_exact`` is
+    bitwise the exact answer; and the ``launch.serve --search-index`` CLI
+    once, as a subprocess, with 4 queries a tenant (its default) at
+    k=``SERVE_CLI_K``.  Sessions walk at (pipeline_depth, group_blocks) =
+    ``WALK_PIPELINE``; the index file stays in the page cache (the ooc
+    phase just read it), so the phase times the walks, not the disk."""
+    path = ooc["index"]
+    opened = storage.open_index(path)
+    loads = serve.tenant_traffic(opened, args.seed, SERVE_TENANTS,
+                                 SERVE_BATCH)
+    d, g = WALK_PIPELINE
+    line = {"phase": "serve", "tenants": SERVE_TENANTS,
+            "batch": SERVE_BATCH, "k": SERVE_K,
+            "cache_blocks": OOC_CACHE_BLOCKS, "pipeline": [d, g],
+            "n_blocks": opened.n_blocks, "page_cache": "warm"}
+
+    def session():
+        return storage.SearchSession(opened, cache_blocks=OOC_CACHE_BLOCKS,
+                                     pipeline_depth=d, group_blocks=g)
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+
+    # 1. every tenant alone, each in a fresh session
+    isolated, fetched, t0 = [], 0, time.perf_counter()
+    for q in loads:
+        with session() as sess:
+            isolated.append(sess.search(q, k=SERVE_K))
+            fetched += sess.blocks_fetched
+    torch.cuda.synchronize()
+    line["isolated"] = {"seconds": time.perf_counter() - t0,
+                        "disk_blocks": fetched}
+
+    # 2. the same tenants as threads through one coalesced drain
+    results: list = [None] * SERVE_TENANTS
+    errors: list = []
+    with session() as sess:
+        admitted = threading.Barrier(SERVE_TENANTS)
+
+        def tenant(i):
+            try:
+                t = sess.submit(loads[i], k=SERVE_K)
+                admitted.wait(timeout=DIST_TIMEOUT_S)
+                results[i] = t.result(timeout=DIST_TIMEOUT_S)
+            except BaseException as e:     # reported as a failed check
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=tenant, args=(i,))
+                   for i in range(SERVE_TENANTS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=DIST_TIMEOUT_S)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        check(not errors and not any(th.is_alive() for th in threads),
+              f"serve: every tenant thread answered ({errors})")
+        drain_blocks = sess.blocks_fetched
+        line["coalesced"] = {"seconds": secs, "disk_blocks": drain_blocks,
+                             "batches_billed": sess.batches,
+                             "hit_rate": sess.hit_rate}
+    same = all(r is not None and torch.equal(r.idx, w.idx)
+               and torch.equal(r.dist, w.dist)
+               for r, w in zip(results, isolated))
+    check(same, "serve: each tenant's coalesced answer bitwise its isolated "
+                "SearchSession.search")
+    check(drain_blocks <= fetched, "serve: the drain read no more disk "
+                                   "blocks than the isolated runs together")
+    line["coalesced"]["bitwise_isolated"] = same
+
+    # 3. an anytime answer, certified, then refined to exact
+    exact = isolated[0]
+    with session() as sess:
+        t0 = time.perf_counter()
+        a = sess.search(loads[0], k=SERVE_K, deadline_blocks=SERVE_DEADLINE)
+        torch.cuda.synchronize()
+        anytime_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ex = a.refine_to_exact()
+        torch.cuda.synchronize()
+        refine_s = time.perf_counter() - t0
+    c = a.certificate
+    kth = exact.dist[:, -1].cpu().numpy()
+    brackets = bool((c.lower <= kth + 1e-5 * np.abs(kth)).all()
+                    and (c.upper >= kth - 1e-5 * np.abs(kth)).all())
+    check(brackets, "serve: the anytime certificate brackets the exact "
+                    "k-th distance")
+    refined_same = _bitwise(ex, exact)
+    check(refined_same, "serve: refine_to_exact bitwise the exact answer "
+                        "(dist, idx, every counter)")
+    line["anytime"] = {"deadline_blocks": SERVE_DEADLINE,
+                       "seconds": anytime_s, "refine_seconds": refine_s,
+                       "gap_mean": float(c.gap.mean()),
+                       "gap_max": float(c.gap.max()),
+                       "certified_exact": int(c.exact.sum()),
+                       "blocks_deferred_max": int(c.blocks_deferred.max()),
+                       "refine_disk_blocks": ex.io.blocks_fetched,
+                       "brackets": brackets,
+                       "refine_bitwise_exact": refined_same}
+    launches = ops.launch_counts()
+    for name in ("lb_scan", "fused_panel_topk"):
+        check(launches[name] > 0, f"kernel {name} launched on the serve path")
+    line["launches"] = launches
+
+    # 4. the serving CLI, once, in its own process
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--search-index",
+         str(path), "--tenants", str(SERVE_TENANTS), "--k",
+         str(SERVE_CLI_K), "--deadline-blocks", str(SERVE_DEADLINE),
+         "--seed", str(args.seed), "--device", str(opened.ids.device)],
+        capture_output=True, text=True, env=env, timeout=DIST_TIMEOUT_S)
+    out = cli.stdout.strip().splitlines()
+    check(cli.returncode == 0 and "certificate verified True" in cli.stdout,
+          f"serve: launch.serve --search-index exits 0 with a verified "
+          f"certificate (rc {cli.returncode}: {cli.stderr[-2000:]})")
+    line["cli"] = {"returncode": cli.returncode, "k": SERVE_CLI_K,
+                   "cut": "k cut from the CLI's default 5 to "
+                          f"{SERVE_CLI_K} for the time limit: at k=5 its "
+                          "4 x 4 near-data queries walk ~7,700 of the "
+                          "9,766 blocks",
+                   "seconds": time.perf_counter() - t0, "stdout": out}
+    emit(line)
+    return launches
+
+
+DIST4_CASES = ("block_major_k1", "block_major_k10", "query_major_k10",
+               "scan_k10")
+DIST4_KERNELS = {"block_major_k1": PATH_KERNELS["block_major"],
+                 "block_major_k10": PATH_KERNELS["block_major"],
+                 "query_major_k10": PATH_KERNELS["query_major"],
+                 "scan_k10": PATH_KERNELS["ucr"]}
+
+
+def _dist4_rank(rank: int, cfg: dict) -> None:
+    """One rank of ``phase_dist4`` (a spawned process): its range of the
+    series file, its shard with global ids, the sharded searches between
+    barriers, its shard saved; results to ``cfg["out"]``."""
+    import torch.distributed as tdist
+    from datetime import timedelta
+    started = time.time() - cfg["t0"]
+    dev = torch.device(cfg["device"])
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    world = cfg["world"]
+    tdist.init_process_group("gloo", init_method=cfg["init"],
+                             world_size=world, rank=rank,
+                             timeout=timedelta(seconds=cfg["timeout"]))
+    grouped = time.time() - cfg["t0"]
+    try:
+        per = cfg["n"] // world
+        lo = rank * per
+        store = storage.SeriesStore(cfg["series"], length=LENGTH)
+        t0 = time.perf_counter()
+        rows = store.read(lo, lo + per)
+        read_s = time.perf_counter() - t0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        local = torch.from_numpy(np.ascontiguousarray(rows)).to(dev)
+        shard = distributed.build_sharded(local, lo, capacity=CAPACITY,
+                                          device=dev)
+        sync()
+        info = {"rank": rank, "rows": [lo, lo + per], "started": started,
+                "grouped": grouped, "read_seconds": read_s,
+                "build_seconds": time.perf_counter() - t0,
+                "launches": {"build": ops.launch_counts()}, "seconds": {}}
+        q = torch.from_numpy(np.load(cfg["queries"])).to(dev)
+        runs = {
+            "block_major_k1": lambda: distributed.search_sharded(
+                shard, q, k=1, device=dev),
+            "block_major_k10": lambda: distributed.search_sharded(
+                shard, q, k=10, device=dev),
+            "query_major_k10": lambda: distributed.search_sharded(
+                shard, q, k=10, schedule="query_major",
+                blocks_per_iter=QUERY_MAJOR_BLOCKS, device=dev),
+            "scan_k10": lambda: distributed.search_sharded_scan(
+                local, lo, q, k=10, device=dev),
+        }
+        out = {}
+        for name in DIST4_CASES:
+            tdist.barrier()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = runs[name]()
+            sync()
+            tdist.barrier()
+            info["seconds"][name] = time.perf_counter() - t0
+            info["launches"][name] = ops.launch_counts()
+            out[name + "_dist"] = res.dist.cpu().numpy()
+            out[name + "_idx"] = res.idx.cpu().numpy()
+            for f in res.stats._fields:
+                out[name + "_" + f] = getattr(res.stats, f).cpu().numpy()
+        info["max_memory_allocated"] = (torch.cuda.max_memory_allocated()
+                                        if cuda else None)
+        t0 = time.perf_counter()
+        storage.save_index(shard, cfg["shards"][rank])
+        info["save_seconds"] = time.perf_counter() - t0
+        np.savez(Path(cfg["out"]) / f"rank{rank}.npz", **out)
+        tdist.barrier()
+        info["done"] = time.time() - cfg["t0"]
+        (Path(cfg["out"]) / f"rank{rank}.json").write_text(json.dumps(info))
+    finally:
+        tdist.destroy_process_group()
+
+
+def _spawn_ranks(fn, world: int, cfg: dict, timeout_s: float) -> bool:
+    """Run ``fn(rank, cfg)`` in ``world`` spawned processes; -> whether
+    every rank ended cleanly within ``timeout_s``.  A rank that raises or
+    dies, or a run past the limit (the others are then killed), fails."""
+    import torch.multiprocessing as tmp
+    ctx = tmp.start_processes(fn, args=(cfg,), nprocs=world, join=False,
+                              start_method="spawn")
+    deadline = time.monotonic() + timeout_s
+    try:
+        while not ctx.join(timeout=1):
+            if time.monotonic() > deadline:
+                check(False, f"{world} ranks ended within {timeout_s} s")
+                return False
+        return True
+    except Exception as e:     # torch's ProcessRaisedException / ...Exited
+        check(False, f"every rank ended cleanly: {e}")
+        return False
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join(timeout=30)
+
+
+def phase_dist4(args, ooc: dict, queries_np: np.ndarray) -> dict:
+    """The two-round protocol across 4 processes on the one card, over
+    gloo: each rank builds its quarter of the on-disk phase's series file
+    with global ids, runs ``search_sharded`` (block-major k=1 and 10,
+    query-major k=10) and ``search_sharded_scan`` (k=10), and saves its
+    shard for ``dist_ooc``.  The ids are checked against the brute-force
+    scan, and every rank must hold the same answer."""
+    n, ref = ooc["n"], ooc["ucr10"]
+    dev = ref.dist.device
+    out = OOC_DIR / "dist4"
+    out.mkdir(parents=True, exist_ok=True)
+    # the queries go by file: a spawn argument over the pipe's 64 KiB
+    # blocks each start until that child has imported this module
+    np.save(out / "queries.npy", queries_np)
+    cfg = {"world": DIST_WORLD, "n": n, "series": str(ooc["series"]),
+           "queries": str(out / "queries.npy"), "out": str(out),
+           "device": str(dev),
+           "init": _group_init("dist4"), "timeout": DIST_TIMEOUT_S,
+           "t0": time.time(),
+           "shards": [str(OOC_DIR / f"shard{r}.dsix")
+                      for r in range(DIST_WORLD)]}
+    line = {"phase": "dist4", "world_size": DIST_WORLD, "backend": "gloo",
+            "series": n, "series_per_rank": n // DIST_WORLD,
+            "queries": queries_np.shape[0]}
+    launches: dict[str, int] = {}
+    if not check(n % DIST_WORLD == 0, f"dist4: the {n} series divide "
+                                      f"into {DIST_WORLD} equal ranges"):
+        emit(line)
+        return launches
+    t0 = time.perf_counter()
+    ok = _spawn_ranks(_dist4_rank, DIST_WORLD, cfg, DIST_RANKS_TIMEOUT_S)
+    line["seconds"] = time.perf_counter() - t0
+    if not ok:
+        emit(line)
+        return launches
+    ranks = [dict(np.load(out / f"rank{r}.npz")) for r in range(DIST_WORLD)]
+    infos = [json.loads((out / f"rank{r}.json").read_text())
+             for r in range(DIST_WORLD)]
+    check(all(Path(f).exists() for f in cfg["shards"]),
+          "dist4: every rank saved its shard")
+    # started / grouped / done: seconds after the spawn to the rank's
+    # first line, to its group's forming, to its last barrier
+    line["ranks"] = [{key: i[key] for key in
+                      ("rank", "rows", "started", "grouped", "read_seconds",
+                       "build_seconds", "save_seconds", "done",
+                       "max_memory_allocated")}
+                     for i in infos]
+    q = isax.znorm(torch.from_numpy(queries_np).to(dev))
+    rows = _SeriesRows(storage.SeriesStore(ooc["series"], length=LENGTH),
+                       dev)
+    for name in DIST4_CASES:
+        r0 = ranks[0]
+        same = all(np.array_equal(r[key], r0[key]) for r in ranks[1:]
+                   for key in r0 if key.startswith(name + "_"))
+        check(same, f"dist4 {name}: every rank holds the same answer")
+        res = core.SearchResult(
+            dist=torch.from_numpy(r0[name + "_dist"]).to(dev),
+            idx=torch.from_numpy(r0[name + "_idx"]).to(dev),
+            stats=core.SearchStats(*(torch.from_numpy(r0[name + "_" + f])
+                                     for f in core.SearchStats._fields)))
+        summed = {p: sum(i["launches"][name][p] for i in infos)
+                  for p in infos[0]["launches"][name]}
+        for kernel in DIST4_KERNELS[name]:
+            check(summed[kernel] > 0, f"kernel {kernel} launched on the "
+                                      f"dist4 {name} path")
+        for kernel, c in summed.items():
+            launches[kernel] = launches.get(kernel, 0) + c
+        line[name] = {
+            "seconds_rank0": infos[0]["seconds"][name],
+            "seconds_by_rank": [i["seconds"][name] for i in infos],
+            "blocks_visited_sum": int(res.stats.blocks_visited.sum()),
+            "blocks_visited_mean": float(res.stats.blocks_visited.double()
+                                         .mean()),
+            "series_refined_mean": float(res.stats.series_refined.double()
+                                         .mean()),
+            "iters": int(res.stats.iters), "launches": summed,
+            "ranks_agree": same,
+            "vs_brute_force": _dist_ok(f"dist4 {name}", res, ref, q, rows)}
+    build = {p: sum(i["launches"]["build"][p] for i in infos)
+             for p in infos[0]["launches"]["build"]}
+    check(build["isax_summarize"] > 0,
+          "kernel isax_summarize launched on the dist4 build")
+    launches["isax_summarize"] = (launches.get("isax_summarize", 0)
+                                  + build["isax_summarize"])
+    line["launches"] = launches
+    emit(line)
+    return launches
+
+
+def phase_dist_ooc(ooc: dict, queries) -> dict:
+    """``search_sharded_ooc`` over 4 ``SearchSession``s on dist4's shard
+    files, from a cold disk, k=10, at ``WALK_PIPELINE``, checked against
+    the brute-force scan."""
+    shards = [OOC_DIR / f"shard{r}.dsix" for r in range(DIST_WORLD)]
+    line = {"phase": "dist_ooc", "shards": DIST_WORLD,
+            "cache_blocks": OOC_CACHE_BLOCKS}
+    if not check(all(p.exists() for p in shards),
+                 "dist_ooc: dist4's shard files exist"):
+        emit(line)
+        return {}
+    opened = [storage.open_index(p) for p in shards]
+    dropped = all([_drop_page_cache(p) for p in shards])
+    d, g = WALK_PIPELINE
+    line["pipeline"] = [d, g]
+    sessions = [storage.SearchSession(o, cache_blocks=OOC_CACHE_BLOCKS,
+                                      pipeline_depth=d, group_blocks=g)
+                for o in opened]
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = distributed.search_sharded_ooc(sessions, queries, k=10)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = ops.launch_counts()
+    finally:
+        for s in sessions:
+            s.close()
+    for name in ("lb_scan", "fused_panel_topk"):
+        check(launches[name] > 0, f"kernel {name} launched on the dist_ooc "
+                                  "path")
+    q = isax.znorm(queries)
+    rows = _SeriesRows(storage.SeriesStore(ooc["series"], length=LENGTH),
+                       q.device)
+    line.update({"page_cache_dropped": dropped,
+                 **_io_line(res, secs),
+                 "bytes_scan": res.io.bytes_scan,
+                 "blocks_total": res.io.blocks_total,
+                 "blocks_visited_sum": int(res.stats.blocks_visited.sum()),
+                 "launches": launches,
+                 "vs_brute_force": _dist_ok("dist_ooc k=10", res,
+                                            ooc["ucr10"], q, rows)})
     emit(line)
     return launches
 
@@ -1458,9 +1945,24 @@ def main(argv=None) -> int:
                           args.dtw_queries, scan_in, main_results[10][0])
     phase_exact(raw, queries, {"block_major": main_results, **sched_results,
                                "ucr": ucr_results})
-    launches["ooc"] = phase_ooc(args, raw, index, queries,
-                                {"block_major": main_results,
-                                 "ucr": ucr_results}, dtw_results[10][0])
+    try:
+        launches["ooc"], ooc = phase_ooc(args, raw, index, queries,
+                                         {"block_major": main_results,
+                                          "ucr": ucr_results},
+                                         dtw_results[10][0])
+        launches["dist1"] = phase_dist1(index, queries, main_results)
+        if ooc is not None:
+            launches["serve"] = phase_serve(args, ooc)
+            # the ranks share the card: free the main process's series
+            # and index first
+            del raw, index
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            launches["dist4"] = phase_dist4(args, ooc,
+                                            queries.cpu().numpy())
+            launches["dist_ooc"] = phase_dist_ooc(ooc, queries)
+    finally:
+        shutil.rmtree(OOC_DIR, ignore_errors=True)
 
     kernels = []
     for name, line in lines.items():

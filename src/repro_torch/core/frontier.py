@@ -131,6 +131,43 @@ def bound(f: Frontier, initial_threshold: torch.Tensor | None = None
     return t
 
 
+def comm_device(group=None) -> torch.device:
+    """The device a process group's collectives take their tensors on:
+    the current card for NCCL, the host for gloo.  The messages of the
+    distributed protocol are tiny ((Q,) thresholds, (Q, K) frontiers), so
+    callers copy them there and back explicitly; the kernels stay on the
+    index's device."""
+    import torch.distributed as dist
+    if dist.get_backend(group) == dist.Backend.NCCL:
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def all_gather_merge(f: Frontier, group=None) -> Frontier:
+    """Merge every rank's (Q, K) frontier into the global top-k, identical
+    on every rank of ``group`` (None: the default group).
+
+    One (D, Q, K) ``all_gather`` on the backend's device
+    (``comm_device``), then one local merge on the frontier's own device:
+    communication independent of the dataset size.
+    """
+    import torch.distributed as dist
+    dev = comm_device(group)
+    world = dist.get_world_size(group)
+    out = []
+    for t in (f.dists, f.ids):
+        t = t.to(dev).contiguous()
+        parts = [torch.empty_like(t) for _ in range(world)]
+        dist.all_gather(parts, t, group=group)
+        out.append(torch.stack(parts).to(f.dists.device))  # (D, Q, K)
+    gd, gi = out
+    qn, k = f.dists.shape
+    return insert_batch(init(qn, k, f.dists.device),
+                        gd.movedim(0, 1).reshape(qn, -1),
+                        gi.movedim(0, 1).reshape(qn, -1),
+                        assume_unique=True)        # shards are disjoint
+
+
 def query_block_l2(q: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
     """Per-query distances to its own gathered block(s).
 

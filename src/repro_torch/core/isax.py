@@ -133,6 +133,15 @@ def summarize(x: torch.Tensor, w: int = W, card: int = CARD,
     return p, s, bounds_from_sax(s, card)
 
 
+def paa_lb_sq(q_paa: torch.Tensor, s_paa: torch.Tensor, n: int
+              ) -> torch.Tensor:
+    """Squared PAA lower bound (n/w)*||q_paa - s_paa||^2 (tighter than
+    MINDIST)."""
+    w = q_paa.shape[-1]
+    d = q_paa - s_paa
+    return (n / w) * torch.sum(d * d, dim=-1)
+
+
 def mindist_paa_bounds_sq(q_paa: torch.Tensor, bounds: torch.Tensor,
                           n: int) -> torch.Tensor:
     """Squared MINDIST between query PAA (..., w) and region bounds (..., w, 2)."""

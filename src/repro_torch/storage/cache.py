@@ -32,16 +32,15 @@ in-flight set rule out an evict-refetch cycle), while
 ``IOStats.cache_hits`` counts surviving blocks served from the cache.
 A two-round run is ONE billing unit: ``approximate_threshold`` returns a
 ``PreparedRound`` owning round 1's touch-set and disk reads, and the
-``search(..., prepared=...)`` that consumes it bills them.
-
-The anytime answer (``search(deadline_blocks=...)``, a
-``serve.AnytimeResult``) and the coalesced ``submit`` / ``drain`` need
-the serving layer, which the port does not have yet (ROADMAP Queue 1
-item 15); they raise ``NotImplementedError``.  ``engine.run_cached``'s
-own deadline cut and resume are ported.
+``search(..., prepared=...)`` that consumes it bills them.  A coalesced
+drain (``submit`` / ``drain``, the ``serve`` package) is one unit too,
+billed once for all the batches it answers.  ``search(deadline_blocks=...)``
+returns a certified ``serve.AnytimeResult`` whose ``refine_to_exact()``
+resumes the walk through this session.
 """
 from __future__ import annotations
 
+import dataclasses
 import threading
 from collections import OrderedDict
 from concurrent.futures import Future, ThreadPoolExecutor
@@ -54,10 +53,6 @@ from repro_torch.core import frontier as frontier_lib
 from repro_torch.core.index import BlockIndex, HostRawBlocks
 from repro_torch.device import resolve_device
 from repro_torch.storage.ooc_search import IOStats, OocSearchResult
-
-_SERVING = ("needs the search-serving layer (serve.anytime / "
-            "serve.coalescer), not ported yet: ROADMAP Queue 1 item 15")
-
 
 class _Staging(threading.local):
     """A reader thread's copy state on the card: its side stream, two
@@ -246,6 +241,13 @@ class BlockCache:
                 except Exception:
                     pass
 
+    def clear(self) -> None:
+        """Drop every cached block once the reads in flight have landed
+        (the counters keep their totals)."""
+        self.drain()
+        with self._lock:
+            self._lru.clear()
+
     def close(self) -> None:
         """Stop the readers and drop every cached block (idempotent, and
         safe with reads still in flight: outstanding reads finish and
@@ -388,6 +390,9 @@ class SearchSession:
         self.blocks_fetched = 0
         self.last_telemetry: dict = {}
         self._closed = False
+        # built lazily on first submit()
+        self._coalescer = None         # guarded by: _coalescer_lock
+        self._coalescer_lock = threading.Lock()
 
     def _knobs(self, pipeline_depth: int | None,
                group_blocks: int | None) -> tuple[int, int]:
@@ -412,7 +417,8 @@ class SearchSession:
 
     def close(self) -> None:
         """Release the cache's reader threads and device blocks
-        (idempotent)."""
+        (idempotent).  Submitted but undrained tickets are NOT answered:
+        drain first."""
         if self._closed:
             return
         self._closed = True
@@ -425,11 +431,14 @@ class SearchSession:
         self.close()
 
     def _bill(self, tracker: _TouchTracker, *, carry_blocks: int = 0,
-              carry_bytes: int = 0, blocks_refined: int = 0) -> IOStats:
+              carry_bytes: int = 0, batches: int = 1,
+              blocks_refined: int = 0) -> IOStats:
         """Close out one accounting unit: its ``IOStats``, rolled into the
         session totals.  ``carry_*`` are disk reads billed into this unit
-        from a resumed round 1; ``blocks_refined`` is how many distinct
-        blocks the unit's walk refined."""
+        from a resumed round 1; ``batches`` is how many query batches the
+        unit answered (a coalesced drain bills once for N);
+        ``blocks_refined`` is how many distinct blocks the unit's walks
+        refined."""
         fetched = tracker.disk_blocks + carry_blocks
         io = IOStats(bytes_read=tracker.disk_bytes + carry_bytes,
                      bytes_scan=(self.index.n_real * self.index.n
@@ -438,7 +447,7 @@ class SearchSession:
                      blocks_total=self.index.n_blocks,
                      cache_hits=tracker.hits,
                      blocks_refined=blocks_refined)
-        self.batches += 1
+        self.batches += batches
         self.cache_hits += tracker.hits
         self.blocks_fetched += fetched
         return io
@@ -503,7 +512,7 @@ class SearchSession:
                prepared: PreparedRound | None = None,
                deadline_blocks: int | None = None,
                pipeline_depth: int | None = None,
-               group_blocks: int | None = None) -> OocSearchResult:
+               group_blocks: int | None = None):
         """Exact k-NN for one (Q, n) query batch through the cache.
 
         The walk is ``engine.run_cached``: envelope ranking, stage-A
@@ -514,23 +523,36 @@ class SearchSession:
         a metric is given).  ``initial_threshold`` (squared) seeds the
         pruning bound and never appears in the result.  ``prepared``
         resumes a round-1 ``PreparedRound`` from this session's
-        ``approximate_threshold`` (same queries and plan): the walk skips
-        stage A and every refined block, and this batch's ``IOStats``
-        bills the round's carried reads and continues its touch-set.
+        ``approximate_threshold`` (same queries and plan) or an anytime
+        answer's continuation: the walk skips stage A and every refined
+        block, and this batch's ``IOStats`` bills the round's carried
+        reads and continues its touch-set.
 
-        ``deadline_blocks`` (the certified anytime answer) needs the
-        serving layer and raises ``NotImplementedError``.
+        ``deadline_blocks`` caps the refines after stage A and makes the
+        result a certified ``serve.AnytimeResult`` (the current top-k, a
+        two-sided bound on the true k-th distance, and a
+        ``refine_to_exact()`` continuation); ``None`` returns the exact
+        ``OocSearchResult``.  A deadline cannot be combined with
+        ``initial_threshold`` or ``prepared``: an anytime answer starts a
+        fresh batch.
 
         ``pipeline_depth`` / ``group_blocks`` override the session's walk
         pipeline for this batch; answers are bit-identical for every
         setting.  The walk's host-side counters land in
         ``session.last_telemetry``.
         """
-        if deadline_blocks is not None:
-            raise NotImplementedError(f"search(deadline_blocks=...) {_SERVING}")
         queries = torch.as_tensor(queries, device=self.device)
         plan = self._plan(k, lb_filter, normalize_queries, metric)
         d, g = self._knobs(pipeline_depth, group_blocks)
+        if deadline_blocks is not None:
+            if deadline_blocks < 1:
+                raise ValueError(f"deadline_blocks must be >= 1 (or None "
+                                 f"for an exact search), "
+                                 f"got {deadline_blocks}")
+            if initial_threshold is not None or prepared is not None:
+                raise ValueError("deadline_blocks cannot be combined with "
+                                 "initial_threshold or prepared — an "
+                                 "anytime answer starts a fresh batch")
 
         # one touch-set per two-round run (see _TouchTracker), so a block
         # round 1 fetched is never re-counted as a warm hit in round 2
@@ -545,9 +567,12 @@ class SearchSession:
             tracker = _TouchTracker(self.cache)
             carry_blocks = carry_bytes = 0
 
+        run_plan = (plan if deadline_blocks is None else
+                    dataclasses.replace(plan,
+                                        deadline_blocks=deadline_blocks))
         tel: dict = {}
         front, stats, state = engine.run_cached(
-            self.index, queries, plan,
+            self.index, queries, run_plan,
             fetch=tracker.fetch, speculate=tracker.speculate,
             initial_threshold=initial_threshold,
             prepared=None if prepared is None else prepared.state,
@@ -558,16 +583,54 @@ class SearchSession:
         io = self._bill(tracker, carry_blocks=carry_blocks,
                         carry_bytes=carry_bytes,
                         blocks_refined=len(state.refined))
-        return OocSearchResult(dist=frontier_lib.result_dists(front),
-                               idx=front.ids, stats=stats, io=io)
+        dist = frontier_lib.result_dists(front)
+        if deadline_blocks is None:
+            return OocSearchResult(dist=dist, idx=front.ids, stats=stats,
+                                   io=io)
+        from repro_torch.serve.anytime import AnytimeResult, certify
+        resume = PreparedRound(self, plan, _query_signature(queries), state,
+                               carry_blocks=0, carry_bytes=0,
+                               touched=set(), hits=0)
+        return AnytimeResult(dist=dist, idx=front.ids, stats=stats, io=io,
+                             certificate=certify(state), resume=resume,
+                             queries=queries)
 
-    # -- concurrent serving (the coalescer, ROADMAP Queue 1 item 15) -----
+    # -- concurrent serving (serve.AdmissionCoalescer) -------------------
 
     def submit(self, queries, *, k: int = 1, lb_filter: bool = True,
                normalize_queries: bool = True, metric=None):
-        """Admit a batch for coalesced serving: needs ``serve.coalescer``."""
-        raise NotImplementedError(f"SearchSession.submit {_SERVING}")
+        """Admit a query batch for coalesced serving -> ``serve.Ticket``.
+
+        Thread-safe and non-blocking: concurrent callers each get a ticket
+        at once; the next ``drain()`` (or the first caller to block on
+        ``Ticket.result()``) answers every pending ticket in ONE coalesced
+        priority walk, each block read from disk at most once for all of
+        them.  Answers are bit-identical to ``search`` on each batch
+        alone.
+        """
+        return self._get_coalescer().submit(
+            queries, self._plan(k, lb_filter, normalize_queries, metric))
+
+    def _get_coalescer(self):
+        """The session's coalescer, made on first use.  The whole
+        check-create-read runs under the lock, so no thread can see the
+        reference before the coalescer's own fields."""
+        with self._coalescer_lock:
+            if self._coalescer is None:
+                from repro_torch.serve.coalescer import AdmissionCoalescer
+                self._coalescer = AdmissionCoalescer(self)
+            return self._coalescer
 
     def drain(self, *, deadline_blocks: int | None = None) -> list:
-        """Answer every pending ``submit``: needs ``serve.coalescer``."""
-        raise NotImplementedError(f"SearchSession.drain {_SERVING}")
+        """Answer every pending ``submit`` in one coalesced walk.
+
+        Returns the resolved tickets (an empty list if nothing is
+        pending).  With ``deadline_blocks`` the shared walk stops after
+        that many refines past stage A, and unfinished tickets resolve to
+        certified ``serve.AnytimeResult``s instead of exact results.
+        """
+        with self._coalescer_lock:
+            co = self._coalescer
+        if co is None:
+            return []
+        return co.drain(deadline_blocks=deadline_blocks)

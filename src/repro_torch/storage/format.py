@@ -267,8 +267,8 @@ class IndexFileWriter(ArrayFileWriter):
     ``save_index`` uses it in one shot; the build pipeline
     (storage/pipeline/driver.py) uses its positioned writes to fill the
     summary sections and raw permute units — resumably, via a stable
-    ``tmp_path``.  Completeness is the caller's: the pipeline tracks it
-    through its manifest.
+    ``tmp_path``.  ``append_raw_rows`` keeps the simple sequential-append
+    surface for one-shot writers.
     """
 
     def __init__(self, path: str | Path, *, n: int, w: int, card: int,
@@ -283,6 +283,7 @@ class IndexFileWriter(ArrayFileWriter):
                                  w=w, n=n),
             meta_fields=self.meta, extra=extra,
             tmp_path=tmp_path, resume=resume)
+        self._raw_rows = 0                      # guarded by: _lock
 
     def write_raw_rows(self, start: int, rows: np.ndarray) -> None:
         """Write (m, n) f32 series rows at series-row ``start`` of the raw
@@ -298,6 +299,35 @@ class IndexFileWriter(ArrayFileWriter):
         with self._lock:
             self._f.seek(self.data_start + spec["offset"] + start * n * 4)
             self._f.write(rows.tobytes())
+
+    def append_raw_rows(self, rows: np.ndarray) -> None:
+        """Append (m, n) f32 series rows to the raw section, in block order.
+
+        Reserve-then-write: the row counter advances under the lock (the
+        lock is not reentrant, so the reservation releases before the
+        positioned write re-acquires it), then the write lands in the
+        reserved span, so concurrent appenders get disjoint spans.
+        """
+        m = rows.shape[0]
+        b, c, _ = self.sections["raw"]["shape"]
+        with self._lock:
+            if self._raw_rows + m > b * c:
+                raise ValueError("raw section overflow")
+            start = self._raw_rows
+            self._raw_rows += m
+        self.write_raw_rows(start, rows)
+
+    def close(self) -> None:
+        b, c, _ = self.sections["raw"]["shape"]
+        with self._lock:
+            raw_rows = self._raw_rows
+        # append-mode completeness guard; positioned writers (the pipeline)
+        # track completeness through their manifest instead
+        if raw_rows not in (0, b * c):
+            self.abort()
+            raise ValueError(
+                f"raw section incomplete: {raw_rows} of {b * c} rows")
+        super().close()
 
 
 def write_arrays(path: str | Path, *, kind: str, arrays: dict,
@@ -337,6 +367,11 @@ def open_arrays(path: str | Path, *, kind: str | None = None,
             with open(path, "rb") as f:
                 out[name] = _read_section(f, meta, name)
     return meta, out
+
+
+def spec_row_bytes(spec: dict) -> int:
+    """Bytes of one trailing-dim row of a section (raw: one series)."""
+    return spec["shape"][-1] * np.dtype(spec["dtype"]).itemsize
 
 
 def read_meta(path: str | Path) -> dict:

@@ -307,14 +307,18 @@ def test_close_under_reads_in_flight(files):
 
 
 def test_serving_entry_points_name_the_missing_layer(files):
+    """The serving layer is ported: the entry points that raised before it
+    (``search(deadline_blocks=...)``, ``submit``, ``drain``) answer."""
+    from repro_torch import serve as tserve
     path, qs = files["ed"]
     with tst.SearchSession(_opened(path), cache_blocks=8,
                            device="cpu") as sess:
         q = torch.from_numpy(qs)
-        for call in (lambda: sess.search(q, deadline_blocks=3),
-                     lambda: sess.submit(q), lambda: sess.drain()):
-            with pytest.raises(NotImplementedError, match="item 15"):
-                call()
+        assert isinstance(sess.search(q, deadline_blocks=3),
+                          tserve.AnytimeResult)
+        t = sess.submit(q)
+        assert sess.drain() == [t] and t.done
+        assert t.result().idx.shape == (q.shape[0], 1)
 
 
 def test_knob_validation(files):

@@ -103,3 +103,19 @@ def test_sort_order_is_the_stable_lexsort(distinct_words):
     pt = tisax.sort_order(torch.from_numpy(sax))
     pj = jisax.sort_order(jnp.asarray(sax))
     assert np.array_equal(_np(pt), _np(pj))
+
+
+@pytest.mark.parametrize("n", [64, 256])
+def test_paa_lb_sq_and_its_bound(n):
+    """The squared PAA lower bound equals repro's on the same PAA, and
+    bounds the squared distance of the z-normed series from below."""
+    x = tisax.znorm(torch.from_numpy(random_walk(40, n, seed=9)))
+    q = tisax.znorm(torch.from_numpy(random_walk(6, n, seed=10)))
+    qp, sp = tisax.paa(q), tisax.paa(x)
+    got = tisax.paa_lb_sq(qp[:, None], sp[None], n)
+    want = jisax.paa_lb_sq(jnp.asarray(_np(qp))[:, None],
+                           jnp.asarray(_np(sp))[None], n)
+    assert got.shape == (6, 40)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-6, atol=1e-6)
+    d = ((q[:, None] - x[None]) ** 2).sum(-1)
+    assert bool((got <= d * (1 + 1e-5) + 1e-5).all())

@@ -258,3 +258,86 @@ def test_series_store_write_and_append(tmp_path):
     assert _sha(s.path) == _sha(t.path)
     with pytest.raises(ValueError, match="multiple"):
         tst.SeriesStore(tmp_path / "a.f32", length=63)
+
+
+def _writers(path_j, path_t, ji):
+    kw = dict(n=ji.n, w=ji.w, card=ji.card, capacity=ji.capacity,
+              n_real=ji.n_real, n_blocks=ji.n_blocks)
+    from repro.storage.format import IndexFileWriter as JWriter
+    from repro_torch.storage.format import IndexFileWriter as TWriter
+    return JWriter(path_j, **kw), TWriter(path_t, **kw)
+
+
+def test_append_raw_rows_writes_repro_bytes(files, tmp_path):
+    """One-shot appends in uneven pieces give the bytes repro's writer
+    gives; an incomplete raw section is refused at close."""
+    ji, _, _ = files
+    raw = np.asarray(ji.raw).reshape(-1, ji.n)
+    jw, tw = _writers(tmp_path / "j.dsix", tmp_path / "t.dsix", ji)
+    for wr in (jw, tw):
+        for name in ("ids", "slo", "shi", "elo", "ehi"):
+            wr.write_section(name, np.asarray(getattr(ji, name)))
+        for a, b in ((0, 1), (1, 700), (700, 2000), (2000, raw.shape[0])):
+            wr.append_raw_rows(raw[a:b])
+        with pytest.raises(ValueError, match="overflow"):
+            wr.append_raw_rows(raw[:1])
+        wr.close()
+    assert _sha(tmp_path / "t.dsix") == _sha(tmp_path / "j.dsix")
+    _, tw = _writers(tmp_path / "j2.dsix", tmp_path / "t2.dsix", ji)
+    tw.append_raw_rows(raw[:5])
+    with pytest.raises(ValueError, match="incomplete"):
+        tw.close()
+    assert not (tmp_path / "t2.dsix").exists()
+
+
+def test_append_raw_rows_concurrent_appenders_get_disjoint_spans(files,
+                                                                 tmp_path):
+    """Eight threads append one-row pieces tagged with their own value:
+    every row lands whole, once, in a span of its own."""
+    import sys
+    import threading
+    ji, _, _ = files
+    _, tw = _writers(tmp_path / "unused", tmp_path / "t.dsix", ji)
+    total = ji.n_blocks * ji.capacity
+    n_threads = 8
+    per = total // n_threads
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def appender(t):
+            for i in range(per):
+                tw.append_raw_rows(np.full((1, ji.n), t * per + i,
+                                           np.float32))
+
+        threads = [threading.Thread(target=appender, args=(t,))
+                   for t in range(n_threads)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+        assert not any(th.is_alive() for th in threads)
+        tw.append_raw_rows(np.full((total - n_threads * per, ji.n), -1.0,
+                                   np.float32))
+    finally:
+        sys.setswitchinterval(old)
+    tw.close()
+    meta = tst.read_meta(tmp_path / "t.dsix")
+    spec = meta["sections"]["raw"]
+    rows = np.fromfile(tmp_path / "t.dsix", dtype=np.float32,
+                       count=total * ji.n,
+                       offset=meta["data_start"] + spec["offset"]
+                       ).reshape(total, ji.n)
+    assert (rows == rows[:, :1]).all()                 # no torn row
+    tags = rows[:, 0]
+    assert sorted(tags[tags >= 0].astype(int).tolist()) \
+        == list(range(n_threads * per))                # each exactly once
+
+
+def test_spec_row_bytes_equals_repro(files):
+    from repro.storage.format import spec_row_bytes as jrow
+    from repro_torch.storage.format import spec_row_bytes as trow
+    _, jpath, tpath = files
+    jmeta, tmeta = jst.read_meta(jpath), tst.read_meta(tpath)
+    for name, spec in tmeta["sections"].items():
+        assert trow(spec) == jrow(jmeta["sections"][name])
+    assert trow(tmeta["sections"]["raw"]) == LEN * 4
