@@ -63,7 +63,13 @@ CUDA toolkit.  Phases, each printing one JSON line:
                  ``lb_scan`` at every shape the paths give it (``cases``:
                  the flat scan over every series, the block envelopes,
                  DTW's two passes against +-SENTINEL planes), each checked
-                 over every column (the plain version in column chunks);
+                 over every column (the plain version in column chunks),
+                 and untimed at the serving walks' envelope shapes
+                 (``envelope_slices``: Q = 1, 4, 16, 25 over the 10M
+                 index's blocks, Q = 4, 16 over the sanitize index's,
+                 Q = 100 over a dist4 shard's);
+                 ``fused_panel_topk`` also checked, untimed, at those
+                 batch sizes (first and late block, k = 1 and 10);
                  its phase line gives each case an issue floor
                  (``issue_floor_ms``, worked out, not measured) beside its
                  byte bound;
@@ -105,7 +111,24 @@ CUDA toolkit.  Phases, each printing one JSON line:
                  bitwise the exact answer; and ``python -m
                  repro_torch.launch.serve --search-index`` once, as a
                  subprocess (4 queries a tenant, k=1);
- 13. dist4     — the main process frees its tensors, then 4 ranks spawned
+ 13. analysis  — the port's static checkers (``repro_torch.analysis``:
+                 lock discipline, host syncs, kernel/oracle contracts) over
+                 ``src/repro_torch``, in process: any finding fails; the
+                 annotated ``# sync`` sites of ``core/engine.py`` grouped by
+                 the frequency their comments state;
+ 14. sanitize  — the first 1M series of the ooc phase's file built here by
+                 ``storage.run_pipeline``; then a subprocess with
+                 ``REPRO_SANITIZE=1``: the session's and cache's locks
+                 instrumented, an off-lock write to a guarded field raising
+                 ``SanitizeError``, the same build bitwise the unsanitized
+                 file, 4 tenants x 4 near-data queries at k=10 on the
+                 phase's 1M-series index isolated and through one drain
+                 from 4 threads (bitwise, no ``SanitizeError``); the
+                 drained ids against the brute-force scan of those
+                 series.  The script refuses to run at all
+                 with ``REPRO_SANITIZE`` set in its own environment: its
+                 timed phases would measure the instrumented locks;
+ 15. dist4     — the main process frees its tensors, then 4 ranks spawned
                  on the card over gloo (a ``file://`` store under
                  ``build/``): each reads its quarter of the series file,
                  ``distributed.build_sharded`` with global ids,
@@ -116,7 +139,7 @@ CUDA toolkit.  Phases, each printing one JSON line:
                  and peak device memory, launches summed over ranks; a
                  rank that fails or a collective past its timeout fails
                  the run;
- 14. dist_ooc  — ``distributed.search_sharded_ooc`` over 4 sessions on
+ 16. dist_ooc  — ``distributed.search_sharded_ooc`` over 4 sessions on
                  dist4's shard files from a cold disk, k=10: ids against
                  the brute-force scan, the summed ``IOStats``.
 
@@ -130,6 +153,7 @@ exits non-zero.  TF32 is off for every fp32 product.
 from __future__ import annotations
 
 import argparse
+import filecmp
 import json
 import os
 import shutil
@@ -208,6 +232,8 @@ DIST1_BACKEND = "nccl"             # dist1's world-size-1 group
 DIST_TIMEOUT_S = 300               # a collective's (or a tenant's) limit
 DIST_RANKS_TIMEOUT_S = 600         # dist4's ranks, spawn to exit
 SERVE_TENANTS, SERVE_BATCH, SERVE_K = 4, 25, 10   # launch.serve's traffic
+SANITIZE_ROWS = 1_000_000          # the sanitize phase's build and walks
+SANITIZE_TENANTS, SANITIZE_BATCH = 4, 4
 SERVE_DEADLINE = 8                 # the anytime answer's refine budget
 SERVE_CLI_K = 1                    # the CLI's k: its near-data queries prune
 WALK_PIPELINE = OOC_SETTINGS[1]    # serve's and dist_ooc's (depth, group)
@@ -663,9 +689,9 @@ def lb_scan_chunked_ref(q_paa, lo, hi, n: int):
         yield s, e, ref.lb_scan_ref(q_paa, lo[:, s:e], hi[:, s:e], n=n)
 
 
-def _lb_case(q_paa, lo, hi, n: int) -> dict:
-    """One shape: the kernel against the plain version over every column,
-    timed beside it, and its byte bound."""
+def _lb_check(q_paa, lo, hi, n: int) -> tuple[bool, float, float]:
+    """The kernel against the plain version over every column within rtol
+    LB_RTOL. -> (ok, max |err|, max relative err)."""
     got = lb_scan(q_paa, lo, hi, n=n)
     ok, max_err, max_rel = True, 0.0, 0.0
     for s, e, want in lb_scan_chunked_ref(q_paa, lo, hi, n):
@@ -673,7 +699,13 @@ def _lb_case(q_paa, lo, hi, n: int) -> dict:
         ok &= bool((err <= LB_RTOL * want.abs()).all())
         max_err = max(max_err, float(err.max()))
         max_rel = max(max_rel, float((err / want.abs().clamp(min=1e-30)).max()))
-    del got
+    return ok, max_err, max_rel
+
+
+def _lb_case(q_paa, lo, hi, n: int) -> dict:
+    """One shape: the kernel against the plain version over every column,
+    timed beside it, and its byte bound."""
+    ok, max_err, max_rel = _lb_check(q_paa, lo, hi, n)
     qn, w = q_paa.shape
     nb = lo.shape[1]
     b_ms, b_by, b_unit = bound(qn * w * 4 + 2 * w * nb * 4 + qn * nb * 4,
@@ -694,7 +726,7 @@ def _lb_case(q_paa, lo, hi, n: int) -> dict:
             "library_ms": None}
 
 
-def _compare_lb_scan(q_paa, index, u_paa, l_paa) -> dict:
+def _compare_lb_scan(q_paa, index, u_paa, l_paa, envelope_blocks) -> dict:
     """At every shape the search paths give the kernel: the flat scan over
     every series (``flat_view``'s (w, Np) bounds), the block envelopes
     (block ranking in ``engine.prepare``), and DTW's two passes against
@@ -702,7 +734,10 @@ def _compare_lb_scan(q_paa, index, u_paa, l_paa) -> dict:
     them.  Each is checked over every column within rtol LB_RTOL.  The
     line's own numbers are the flat case's, where the work is; the phase
     line adds each case's issue floor, worked out from the kernel's
-    arithmetic a term (LB_INSTR_PER_TERM), not measured."""
+    arithmetic a term (LB_INSTR_PER_TERM), not measured.  The serving
+    walks rank the envelopes at other shapes: each (Q, blocks) of
+    ``envelope_blocks`` is checked, untimed, on the first Q queries and
+    the first blocks of this index's envelopes."""
     n = index.n
     flat = core.flat_view(index)
     plane = torch.full(index.elo.shape, isax.SENTINEL, dtype=torch.float32,
@@ -718,8 +753,19 @@ def _compare_lb_scan(q_paa, index, u_paa, l_paa) -> dict:
                                     f"{tuple(line[label]['shape'])}: within "
                                     f"rtol {LB_RTOL} over every column")
     del flat
-    out = {**line["flat"], "cases": line,
-           "cases_match": all(c["match"] for c in line.values()),
+    sliced = {}
+    for qn, nb in envelope_blocks:
+        ok, err, rel = _lb_check(q_paa[:qn].contiguous(),
+                                 index.elo[:, :nb].contiguous(),
+                                 index.ehi[:, :nb].contiguous(), n)
+        check(ok, f"lb_scan envelope ({qn}, {q_paa.shape[1]}, {nb}): "
+                  f"within rtol {LB_RTOL} over every column")
+        sliced[f"{qn}x{nb}"] = {"shape": [qn, q_paa.shape[1], nb],
+                                "max_abs_err": err, "max_rel_err": rel,
+                                "match": ok}
+    out = {**line["flat"], "cases": line, "envelope_slices": sliced,
+           "cases_match": all(c["match"] for c in line.values())
+           and all(c["match"] for c in sliced.values()),
            "tolerance": f"rtol {LB_RTOL} over every column of every case"}
     floors = {label: c["shape"][0] * c["shape"][1] * c["shape"][2]
               * LB_INSTR_PER_TERM / INSTR_RATE * 1e3
@@ -865,10 +911,13 @@ def _fused_case(q, q_paa, block, lo, hi, ids, thr, k, n, label) -> tuple[bool, f
     return ok, float(err.max()), ties
 
 
-def _compare_fused(index, qs, front_thr, final_thr, block_lb, order) -> dict:
+def _compare_fused(index, qs, front_thr, final_thr, block_lb, order,
+                   batch_slices) -> dict:
     """Every case at k in {1, 10, 32}; timed at the walk's first block
     (stage-A bounds) and at the block 90% along the walk (the main path's
-    final k=10 bounds: few live lanes)."""
+    final k=10 bounds: few live lanes).  The serving walks refine smaller
+    batches: the first and the late block are also checked, untimed, on
+    the first Q queries for each Q of ``batch_slices`` at k in {1, 10}."""
     q, q_paa = qs.q, qs.aux[0]
     n, qn = index.n, q.shape[0]
     neg = torch.zeros(qn, dtype=torch.bool, device=q.device)
@@ -902,6 +951,18 @@ def _compare_fused(index, qs, front_thr, final_thr, block_lb, order) -> dict:
             max_err = max(max_err, err)
             ties += t
             n_cases += 1
+    for sq in batch_slices:
+        for label, b, thr in (("first_block", b0, first_thr),
+                              ("late_block", b_late, late_thr)):
+            block, lo, hi, ids = blk(b)
+            for k in (1, 10):
+                ok, err, t = _fused_case(q[:sq], q_paa[:sq], block, lo, hi,
+                                         ids, thr[:sq], k, n,
+                                         f"{label} Q={sq}")
+                ok_all &= ok
+                max_err = max(max_err, err)
+                ties += t
+                n_cases += 1
     pads = int((index.ids[b_last] < 0).sum())
 
     # time the main path's first refine call (k=10) and a late one, at the
@@ -934,6 +995,7 @@ def _compare_fused(index, qs, front_thr, final_thr, block_lb, order) -> dict:
             "bound_ms": b_ms, "bound_by": b_by, "bound_unit": b_unit}
     first = timed["first_block"]
     line = {"shape": [qn, index.capacity, n], "k": k, "cases": n_cases,
+            "batch_slices": list(batch_slices),
             "pad_lanes_in_last_block": pads, "near_ties": ties,
             "timed_call": {"n_live": first["n_live"],
                            "live_rows": first["live_rows"]},
@@ -1118,7 +1180,16 @@ def _compare_ssm(scan_in: dict) -> dict:
 
 
 def phase_kernels(raw, index, queries, n_slice: int, n_dtw: int,
-                  scan_in: dict, main_k10) -> dict:
+                  scan_in: dict, main_k10, sanitize_blocks: int,
+                  shard_blocks: int) -> dict:
+    """Every kernel against its plain version at the shapes the paths give
+    it.  Beside the main batch, the serving walks' batches: ``serve``'s
+    tenants (SERVE_BATCH queries) and the CLI's one-query warm-up on the
+    10M index's envelopes, and ``sanitize``'s tenants and their drain
+    (SANITIZE_BATCH and SANITIZE_TENANTS x SANITIZE_BATCH queries) on the
+    ``sanitize_blocks`` envelopes of its index (the CLI's 4 x 4 queries
+    at k=1 take the same two batch sizes); and the main batch on a
+    ``dist4`` / ``dist_ooc`` shard's ``shard_blocks`` envelopes."""
     metric = engine.ED()
     prep = engine.prepare(metric, index, queries, 10)
     qs = prep.qs
@@ -1126,15 +1197,22 @@ def phase_kernels(raw, index, queries, n_slice: int, n_dtw: int,
                                            w=index.w)
     order, _, _ = engine.block_major_schedule(prep.block_lb)
     topk_panels = walk_topk_panels(index, queries, n_dtw, prep)
+    sanitize_qs = (SANITIZE_BATCH, SANITIZE_TENANTS * SANITIZE_BATCH)
+    slices = sorted({q for q in (1, SERVE_BATCH, *sanitize_qs)
+                     if q < queries.shape[0]})
     return {
         "isax_summarize": _compare_summarize(raw, n_slice),
-        "lb_scan": _compare_lb_scan(qs.aux[0], index, dqs.aux[2],
-                                    dqs.aux[3]),
+        "lb_scan": _compare_lb_scan(
+            qs.aux[0], index, dqs.aux[2], dqs.aux[3],
+            [(qn, nb) for qn in slices for nb in
+             ((index.n_blocks, sanitize_blocks) if qn in sanitize_qs
+              else (index.n_blocks,))]
+            + [(queries.shape[0], min(shard_blocks, index.n_blocks))]),
         "block_topk": _compare_block_topk(topk_panels),
         "fused_panel_topk": _compare_fused(
             index, qs, prep.front.threshold(),
             main_k10.dist[:, -1].double().square().float(), prep.block_lb,
-            order),
+            order, slices),
         "batch_l2": _compare_batch_l2(qs.q, index.raw.reshape(-1, index.n)),
         "dtw_band_panel": _compare_dtw(index, queries[:n_dtw]),
         "ssm_scan": _compare_ssm(scan_in),
@@ -1634,6 +1712,253 @@ def phase_serve(args, ooc: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# static analysis and the runtime lock sanitizer
+# ---------------------------------------------------------------------------
+
+def phase_analysis() -> None:
+    """The port's checkers (``repro_torch.analysis``: lock discipline,
+    host syncs, kernel/oracle contracts) over ``src/repro_torch``, in
+    process: any finding fails the run.  Prints the sanctioned ``# sync``
+    sites of ``core/engine.py`` grouped by the frequency each comment
+    states: the device->host transfers of the walks."""
+    from repro_torch.analysis import cli, run_analysis
+    from repro_torch.analysis import syncs as syncs_lib
+    t0 = time.perf_counter()
+    project, errors = cli.load_project([str(ROOT / "src" / "repro_torch")])
+    findings = errors + run_analysis(project)
+    check(not findings, "analysis: the port's checkers find nothing ("
+          + "; ".join(f.text() for f in findings[:20]) + ")")
+    eng = project.by_module.get("repro_torch.core.engine")
+    check(eng is not None and eng.sync_trace_module(),
+          "analysis: core/engine.py carries '# repro: sync-trace'")
+    sites: dict[str, list[int]] = {}
+    for ln, freq in (syncs_lib.sync_sites(eng) if eng else []):
+        sites.setdefault(freq, []).append(ln)
+    emit({"phase": "analysis", "files": len(project.files),
+          "findings": len(findings),
+          "engine_sync_sites": {f: {"count": len(v), "lines": v}
+                                for f, v in sorted(sites.items())},
+          "seconds": time.perf_counter() - t0})
+
+
+def sanitize_child(cfg_path: str) -> int:
+    """``phase_sanitize``'s subprocess, started with ``REPRO_SANITIZE=1``
+    (the guarded classes read it when they are decorated, at import):
+    the sanitizer armed, one deliberate off-lock write caught, the
+    pipeline build of the phase's rows, and the tenants served isolated
+    and through one coalesced drain from threads, on the index file of
+    those rows that the main process built unsanitized.  Writes its
+    numbers and answers beside ``cfg_path``; -> 0 if every check
+    passed."""
+    from repro_torch.analysis import sanitize
+    from repro_torch.storage.format import IndexFileWriter
+    cfg = json.loads(Path(cfg_path).read_text())
+    work = Path(cfg_path).parent
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    info: dict = {"seconds": {}, "launches": {}}
+
+    def lap(step: str, t0: float) -> None:
+        torch.cuda.synchronize()
+        info["seconds"][step] = time.perf_counter() - t0
+
+    # 1. armed: the guarded classes hold instrumented locks
+    t0 = time.perf_counter()
+    opened = storage.open_index(cfg["index"])
+    d, g = WALK_PIPELINE
+
+    def session():
+        return storage.SearchSession(opened, cache_blocks=OOC_CACHE_BLOCKS,
+                                     pipeline_depth=d, group_blocks=g)
+
+    with session() as sess:
+        info["locks"] = {"session": type(sess._coalescer_lock).__name__,
+                         "cache": type(sess.cache._lock).__name__}
+    info["enabled"] = sanitize.enabled()
+    check(info["enabled"] and set(info["locks"].values())
+          == {"InstrumentedLock"}, "sanitize: REPRO_SANITIZE=1 armed the "
+          f"sanitizer and the session's locks ({info['locks']})")
+    lap("open", t0)
+
+    # 2. one deliberate off-lock write to a guarded field
+    wr = IndexFileWriter(work / "probe.dsix", n=8, w=4, card=4, capacity=4,
+                         n_real=16, n_blocks=4,
+                         tmp_path=work / "probe.partial")
+    try:
+        wr.append_raw_rows(np.zeros((4, 8), np.float32))   # locked path
+        with wr._lock:
+            wr._raw_rows = 0                               # held: fine
+        try:
+            wr._raw_rows = 7                               # off-lock
+            caught = False
+        except sanitize.SanitizeError:
+            caught = True
+    finally:
+        wr.abort()
+    info["offlock_write_caught"] = caught
+    check(caught, "sanitize: an off-lock write to IndexFileWriter._raw_rows "
+                  "raised SanitizeError")
+
+    # 3. the staged build of the phase's rows, sanitized
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, report = storage.run_pipeline(
+        storage.SeriesStore(cfg["series"], length=LENGTH), cfg["sanitized"],
+        capacity=CAPACITY, shards=OOC_SHARDS, workers=OOC_WORKERS)
+    lap("build", t0)
+    info["launches"]["build"] = ops.launch_counts()
+    info["build_report"] = report.as_dict()
+    check(info["launches"]["build"]["isax_summarize"] > 0,
+          "kernel isax_summarize launched on the sanitized build")
+
+    # 4. the tenants alone, then from threads through one coalesced drain
+    loads = serve.tenant_traffic(opened, cfg["seed"], SANITIZE_TENANTS,
+                                 SANITIZE_BATCH)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    isolated = []
+    for q in loads:
+        with session() as sess:
+            isolated.append(sess.search(q, k=SERVE_K))
+    lap("isolated", t0)
+    results: list = [None] * SANITIZE_TENANTS
+    errors: list = []
+    t0 = time.perf_counter()
+    with session() as sess:
+        admitted = threading.Barrier(SANITIZE_TENANTS)
+
+        def tenant(i):
+            try:
+                t = sess.submit(loads[i], k=SERVE_K)
+                admitted.wait(timeout=DIST_TIMEOUT_S)
+                results[i] = t.result(timeout=DIST_TIMEOUT_S)
+            except BaseException as e:     # reported as a failed check
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=tenant, args=(i,))
+                   for i in range(SANITIZE_TENANTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=DIST_TIMEOUT_S)
+        alive = any(th.is_alive() for th in threads)
+    lap("drain", t0)
+    info["launches"]["walk"] = ops.launch_counts()
+    for name in ("lb_scan", "fused_panel_topk"):
+        check(info["launches"]["walk"][name] > 0,
+              f"kernel {name} launched on the sanitized walks")
+    check(not errors and not alive, "sanitize: every tenant thread's ticket "
+          f"resolved with no SanitizeError ({errors})")
+    same = all(r is not None and torch.equal(r.idx, w.idx)
+               and torch.equal(r.dist, w.dist)
+               for r, w in zip(results, isolated))
+    info["drain_bitwise_isolated"] = same
+    check(same, "sanitize: each tenant's drained answer bitwise its "
+                "isolated SearchSession.search")
+    if same:
+        np.savez(work / "answers.npz",
+                 queries=torch.cat(loads).cpu().numpy(),
+                 idx=torch.cat([r.idx for r in results]).cpu().numpy(),
+                 dist=torch.cat([r.dist for r in results]).cpu().numpy())
+    (work / "child.json").write_text(json.dumps(info))
+    return 1 if FAILURES else 0
+
+
+def phase_sanitize(args, ooc: dict, raw, lb_blocks: int) -> dict:
+    """The port's classes under the runtime lock sanitizer.  The first
+    ``SANITIZE_ROWS`` rows of the on-disk phase's series file are built
+    here unsanitized; a subprocess started with ``REPRO_SANITIZE=1``
+    (``sanitize_child``) then builds the same rows and serves
+    ``SANITIZE_TENANTS`` x ``SANITIZE_BATCH`` near-data queries at k=10
+    on the unsanitized file, isolated and through one drain from
+    threads (on the 10M file the walks would take ~35 s of a phase meant
+    for well under a minute).  Its file must equal the unsanitized one
+    byte for byte, and its drained ids the brute-force scan's over those
+    rows under ``exact``'s rule.  ``lb_blocks`` are the envelope widths
+    ``phase_kernels`` checked ``lb_scan`` at; the index's must be one."""
+    work = OOC_DIR / "sanitize"
+    work.mkdir(parents=True, exist_ok=True)
+    m = min(SANITIZE_ROWS, ooc["n"])
+    line = {"phase": "sanitize", "rows": m, "tenants": SANITIZE_TENANTS,
+            "batch": SANITIZE_BATCH, "k": SERVE_K,
+            "pipeline": list(WALK_PIPELINE), "seconds": {}}
+    # 1. the phase's rows, as their own series file
+    t0 = time.perf_counter()
+    src = storage.SeriesStore(ooc["series"], length=LENGTH)
+    series = work / "series.f32"
+    for i in range(0, m, SCAN_CHUNK):
+        storage.SeriesStore.append(series, src.read(i, min(i + SCAN_CHUNK,
+                                                           m)))
+    line["seconds"]["series"] = time.perf_counter() - t0
+    # 2. the unsanitized build of those rows: the walks' index
+    t0 = time.perf_counter()
+    plain = work / "plain.dsix"
+    storage.run_pipeline(storage.SeriesStore(series, length=LENGTH), plain,
+                         capacity=CAPACITY, shards=OOC_SHARDS,
+                         workers=OOC_WORKERS)
+    torch.cuda.synchronize()
+    line["seconds"]["plain_build"] = time.perf_counter() - t0
+    n_blocks = -(-m // CAPACITY)
+    line["n_blocks"] = n_blocks
+    check(n_blocks == lb_blocks, f"sanitize: the walks' {n_blocks} envelope "
+          f"blocks are the {lb_blocks} lb_scan was checked at")
+    # 3. the sanitized subprocess
+    cfg = work / "cfg.json"
+    cfg.write_text(json.dumps({"index": str(plain),
+                               "series": str(series),
+                               "sanitized": str(work / "sanitized.dsix"),
+                               "seed": args.seed}))
+    env = dict(os.environ, REPRO_SANITIZE="1", PYTHONPATH=os.pathsep.join(
+        [str(ROOT), str(ROOT / "src")]))
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.sanitize_child(sys.argv[1]))", str(cfg)],
+        capture_output=True, text=True, env=env, cwd=ROOT,
+        timeout=DIST_RANKS_TIMEOUT_S)
+    line["seconds"]["child"] = time.perf_counter() - t0
+    check(child.returncode == 0, "sanitize: the REPRO_SANITIZE=1 subprocess "
+          f"exits 0 (rc {child.returncode}: {child.stderr[-3000:]})")
+    info = (json.loads((work / "child.json").read_text())
+            if (work / "child.json").exists() else {})
+    line["child"] = info
+    # 4. the sanitized build's file, byte for byte the unsanitized one's
+    t0 = time.perf_counter()
+    same = (work / "sanitized.dsix").exists() and filecmp.cmp(
+        plain, work / "sanitized.dsix", shallow=False)
+    line["seconds"]["compare"] = time.perf_counter() - t0
+    line["build_bitwise_unsanitized"] = same
+    check(same, "sanitize: the sanitized pipeline's file is bitwise the "
+                "unsanitized one's")
+    # 5. the drained answers against the brute-force scan
+    answers = work / "answers.npz"
+    if check(answers.exists(), "sanitize: the subprocess wrote its answers"):
+        ans = np.load(answers)
+        dev = raw.device
+        q = torch.from_numpy(ans["queries"]).to(dev)
+        got = core.SearchResult(
+            dist=torch.from_numpy(ans["dist"]).to(dev),
+            idx=torch.from_numpy(ans["idx"]).to(dev), stats=None)
+        t0 = time.perf_counter()
+        want = core.search_scan(raw[:m], q, k=SERVE_K)
+        torch.cuda.synchronize()
+        line["seconds"]["scan"] = time.perf_counter() - t0
+        line["vs_brute_force"] = _dist_ok("sanitize drain k=10", got, want,
+                                          isax.znorm(q), raw)
+    shutil.rmtree(work, ignore_errors=True)
+    launches: dict[str, int] = {}
+    for counts in info.get("launches", {}).values():
+        for name, c in counts.items():
+            launches[name] = launches.get(name, 0) + c
+    for name in ("isax_summarize", "lb_scan", "fused_panel_topk"):
+        check(launches.get(name, 0) > 0,
+              f"kernel {name} launched on the sanitize path")
+    line["launches"] = launches
+    emit(line)
+    return launches
+
 DIST4_CASES = ("block_major_k1", "block_major_k10", "query_major_k10",
                "scan_k10")
 DIST4_KERNELS = {"block_major_k1": PATH_KERNELS["block_major"],
@@ -1926,6 +2251,13 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
         return 2
+    from repro_torch.analysis import sanitize
+    if sanitize.enabled():
+        print("chip_smoke: refusing to time with REPRO_SANITIZE set: the "
+              "instrumented locks would be measured instead of the plain "
+              "ones (the sanitize phase arms its own subprocess)",
+              file=sys.stderr)
+        return 2
     torch.backends.cuda.matmul.allow_tf32 = False   # no fp32 product in TF32
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1940,9 +2272,15 @@ def main(argv=None) -> int:
     dtw_results, launches["dtw"] = phase_dtw(
         index, raw, queries[:args.dtw_queries].contiguous(), args.queries)
     launches["lm"], scan_in = phase_lm(args)
+    # the envelope widths of the sanitize phase's index (its rows of the
+    # on-disk phase's series) and of a dist4 shard
+    ooc_n = min(args.ooc_series or args.n_series, args.n_series)
+    sanitize_blocks = -(-min(SANITIZE_ROWS, ooc_n) // CAPACITY)
     lines = phase_kernels(raw, index, queries,
                           min(SUMMARIZE_SLICE, args.n_series),
-                          args.dtw_queries, scan_in, main_results[10][0])
+                          args.dtw_queries, scan_in, main_results[10][0],
+                          sanitize_blocks,
+                          -(-(ooc_n // DIST_WORLD) // CAPACITY))
     phase_exact(raw, queries, {"block_major": main_results, **sched_results,
                                "ucr": ucr_results})
     try:
@@ -1953,6 +2291,9 @@ def main(argv=None) -> int:
         launches["dist1"] = phase_dist1(index, queries, main_results)
         if ooc is not None:
             launches["serve"] = phase_serve(args, ooc)
+            phase_analysis()
+            launches["sanitize"] = phase_sanitize(args, ooc, raw,
+                                                  sanitize_blocks)
             # the ranks share the card: free the main process's series
             # and index first
             del raw, index

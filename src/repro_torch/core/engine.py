@@ -26,6 +26,9 @@ frontier's k-th-best distance, and every metric's bounds satisfy
 ``block_lb <= series_lb <= distance``, so no true k-NN member is ever
 dismissed.
 """
+# repro: sync-trace — every device->host transfer in this module must
+# carry a '# sync: once per <unit>' (deliberate) or '# host' (host data,
+# no transfer) annotation; `python -m repro_torch.analysis` enforces it
 from __future__ import annotations
 
 import dataclasses
@@ -789,12 +792,12 @@ def run_cached(index: BlockIndex, queries: torch.Tensor, plan: QueryPlan, *,
                                             index.device)
     if prepared is None:
         prep = cached_setup(index, queries, plan)
-        prep = _cached_stage_a(index, plan, prep,
-                               prep.block_lb.cpu().numpy(),  # sync: 1/batch
-                               fetch, speculate, initial_threshold,
-                               pipeline_depth=pipeline_depth,
-                               group_blocks=group_blocks,
-                               telemetry=telemetry)
+        prep = _cached_stage_a(
+            index, plan, prep,
+            prep.block_lb.cpu().numpy(),            # sync: once per batch
+            fetch, speculate, initial_threshold,
+            pipeline_depth=pipeline_depth, group_blocks=group_blocks,
+            telemetry=telemetry)
     else:
         _check_prepared(prepared, plan, n_blocks, queries.shape[0])
         prep = prepared
@@ -803,13 +806,13 @@ def run_cached(index: BlockIndex, queries: torch.Tensor, plan: QueryPlan, *,
     done = prep.refined
     # one sync a batch: the host copy drives block ordering and the
     # survivor scan; the walk then syncs once a GROUP
-    block_lb_h = block_lb.cpu().numpy()                     # sync: 1/batch
+    block_lb_h = block_lb.cpu().numpy()             # sync: once per batch
     dispatch = _GroupDispatcher(index, plan, block_lb, fetch,
                                 initial_threshold)
     budget = plan.deadline_blocks        # refines left; None = unbounded
 
     order_t, sched_t, _ = block_major_schedule(torch.from_numpy(block_lb_h))
-    order, sched_lb = order_t.numpy(), sched_t.numpy()
+    order, sched_lb = order_t.numpy(), sched_t.numpy()      # host
     # slot_done[s]: schedule slot s already refined (stage A / a resumed
     # run) or consumed by this walk; the survivor scan masks it out
     slot_done = (np.isin(order, np.fromiter(done, np.int64, len(done)))
@@ -817,7 +820,8 @@ def run_cached(index: BlockIndex, queries: torch.Tensor, plan: QueryPlan, *,
 
     walked: list[int] = []               # blocks THIS walk refined
     n_syncs = 1
-    thr_h = frontier_lib.bound(front, initial_threshold).cpu().numpy()  # sync
+    thr_h = frontier_lib.bound(  # sync: once per batch
+        front, initial_threshold).cpu().numpy()
     ptr = 0
     while ptr < n_blocks:
         if budget is not None and len(walked) >= budget:
@@ -844,8 +848,8 @@ def run_cached(index: BlockIndex, queries: torch.Tensor, plan: QueryPlan, *,
         # a speculated slot pruned later just stays cached under its id
         for s in live[g:g + pipeline_depth]:
             speculate(int(order[s]))
-        thr_h = frontier_lib.bound(
-            front, initial_threshold).cpu().numpy()      # sync: 1/group
+        thr_h = frontier_lib.bound(  # sync: once per group
+            front, initial_threshold).cpu().numpy()
         n_syncs += 1
         # slots in [ptr, take[-1]] not taken were pruned under a bound
         # that only tightened since: jump straight past the group
@@ -873,7 +877,7 @@ def run_cached_stage_a(index: BlockIndex, queries: torch.Tensor,
     queries = torch.as_tensor(queries, device=index.device)
     prep = cached_setup(index, queries, plan)
     return _cached_stage_a(index, plan, prep,
-                           prep.block_lb.cpu().numpy(),  # sync: 1/round
+                           prep.block_lb.cpu().numpy(),  # sync: once per batch
                            fetch, speculate, None,
                            pipeline_depth=pipeline_depth,
                            group_blocks=group_blocks)

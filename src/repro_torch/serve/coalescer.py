@@ -27,6 +27,7 @@ import threading
 
 import torch
 
+from repro_torch.analysis import sanitize
 from repro_torch.core import engine
 from repro_torch.core import frontier as frontier_lib
 from repro_torch.core.frontier import Frontier, SearchStats
@@ -95,6 +96,7 @@ def _slice_state(state: engine.PreparedSearch, sl: slice
         refined=state.refined)
 
 
+@sanitize.guarded
 class AdmissionCoalescer:
     """Pending-submission queue and the coalesced drain, bound to one
     ``storage.SearchSession`` (a session makes one on its first
@@ -103,9 +105,9 @@ class AdmissionCoalescer:
     def __init__(self, session):
         self.session = session
         self._pending: list[Ticket] = []      # guarded by: _admit_lock
-        self._admit_lock = threading.Lock()
+        self._admit_lock = sanitize.create_lock()
         # serializes drains; _run only ever executes under it
-        self._drain_lock = threading.Lock()
+        self._drain_lock = sanitize.create_lock()
 
     def submit(self, queries, plan: engine.QueryPlan) -> Ticket:
         if plan.deadline_blocks is not None:

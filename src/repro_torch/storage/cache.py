@@ -48,6 +48,7 @@ from concurrent.futures import Future, ThreadPoolExecutor
 import numpy as np
 import torch
 
+from repro_torch.analysis import sanitize
 from repro_torch.core import engine
 from repro_torch.core import frontier as frontier_lib
 from repro_torch.core.index import BlockIndex, HostRawBlocks
@@ -64,6 +65,7 @@ class _Staging(threading.local):
     slot = 0
 
 
+@sanitize.guarded
 class BlockCache:
     """Capacity-bounded LRU of device-resident raw blocks, keyed by block id.
 
@@ -103,7 +105,7 @@ class BlockCache:
         self.max_inflight = max_inflight
         self.device = resolve_device(device)
         self._staging = _Staging()
-        self._lock = threading.Lock()
+        self._lock = sanitize.create_lock()
         self._closed = False                       # guarded by: _lock
         # block id -> (tensor, copy event or None)
         self._lru: OrderedDict[int, tuple] = OrderedDict()  # guarded by: _lock
@@ -340,6 +342,7 @@ class _TouchTracker:
         return self.cache.disk_bytes - self._bytes0
 
 
+@sanitize.guarded
 class SearchSession:
     """Stateful out-of-core serving: one block cache across query batches.
 
@@ -392,7 +395,7 @@ class SearchSession:
         self._closed = False
         # built lazily on first submit()
         self._coalescer = None         # guarded by: _coalescer_lock
-        self._coalescer_lock = threading.Lock()
+        self._coalescer_lock = sanitize.create_lock()
 
     def _knobs(self, pipeline_depth: int | None,
                group_blocks: int | None) -> tuple[int, int]:

@@ -59,11 +59,10 @@ import os
 import struct
 from pathlib import Path
 
-import threading
-
 import numpy as np
 import torch
 
+from repro_torch.analysis import sanitize
 from repro_torch.core.index import BlockIndex, HostRawBlocks
 from repro_torch.device import resolve_device
 
@@ -140,6 +139,7 @@ def check_complete(path: str | Path, meta: dict) -> None:
             f"it.")
 
 
+@sanitize.guarded
 class ArrayFileWriter:
     """Incremental positioned writer for the DSIX container.
 
@@ -183,7 +183,7 @@ class ArrayFileWriter:
         # writers must never collide).
         self._tmp = Path(tmp_path) if tmp_path is not None else \
             self.path.with_name(f".tmp-{os.getpid()}-{self.path.name}")
-        self._lock = threading.Lock()
+        self._lock = sanitize.create_lock()
         self.resumed = False
         if resume and self._tmp.exists():
             f = open(self._tmp, "r+b")
@@ -261,6 +261,7 @@ class ArrayFileWriter:
             self.abort()
 
 
+@sanitize.guarded
 class IndexFileWriter(ArrayFileWriter):
     """Incremental writer for the index file kind.
 

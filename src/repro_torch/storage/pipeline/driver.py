@@ -41,7 +41,6 @@ import json
 import os
 import shutil
 import signal
-import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -49,6 +48,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from repro_torch.analysis import sanitize
 from repro_torch.core import index as index_lib
 from repro_torch.core import isax
 from repro_torch.core.index import RAW_PAD, BlockIndex
@@ -94,12 +94,13 @@ class BuildReport:
                    for f in ("built", "reused", "seconds")}}
 
 
+@sanitize.guarded
 class _DigestClock:
     """Wall seconds spent in the manifest's file digests (worker threads
     hash concurrently, so the sum may exceed the stage's seconds)."""
 
     def __init__(self, report: BuildReport):
-        self._lock = threading.Lock()
+        self._lock = sanitize.create_lock()
         self._report = report    # guarded by: _lock
 
     def record(self, path) -> dict:
@@ -129,6 +130,7 @@ def _maybe_kill(stage: str, done_units: int, fault) -> None:
             os.kill(os.getpid(), signal.SIGKILL)   # no cleanup, by design
 
 
+@sanitize.guarded
 class _UnitRecorder:
     """The one mutation point shared by concurrent stage workers:
     manifest record + report counter + fault hook, as a single atomic
@@ -136,7 +138,7 @@ class _UnitRecorder:
     section so 'recorded' still implies 'survives a SIGKILL'."""
 
     def __init__(self, man: Manifest, report: BuildReport, fault):
-        self._lock = threading.Lock()
+        self._lock = sanitize.create_lock()
         self._man = man          # guarded by: _lock
         self._report = report    # guarded by: _lock
         self._fault = fault

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 import repro.core as jcore
+from conftest import run_subprocess
 from repro import serve as jserve
 from repro import storage as jst
 from repro.core import engine as jengine
@@ -206,6 +207,72 @@ def test_threaded_submitters_one_drain(opened, qs, d, g):
     for g_, w in zip(got, want):
         _bitwise(g_, w)
 
+
+
+def _submit_from_threads(opened, qs, n_threads=6):
+    """``n_threads`` threads ``submit`` one batch to one session at once
+    -> (how many coalescers their tickets hold, the session's
+    ``search`` answer, every ticket's answer, the type of the session's
+    coalescer lock).  Self-contained: the sanitized test runs its source
+    in a subprocess."""
+    import threading
+    from repro_torch import storage
+    with storage.SearchSession(opened, cache_blocks=16, readers=8,
+                               device="cpu") as sess:
+        want = sess.search(qs, k=3)
+        start = threading.Barrier(n_threads)
+        tickets = [None] * n_threads
+
+        def submitter(i):
+            start.wait(timeout=60)
+            tickets[i] = sess.submit(qs, k=3)
+
+        threads = [threading.Thread(target=submitter, args=(i,))
+                   for i in range(n_threads)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        assert not any(th.is_alive() for th in threads)
+        coalescers = {id(t._coalescer) for t in tickets}
+        sess.drain()
+        got = [t.result(timeout=60) for t in tickets]
+        lock = type(sess._coalescer_lock).__name__
+    return len(coalescers), want, got, lock
+
+
+def test_concurrent_submit_builds_one_coalescer(opened, qs):
+    """Concurrent submitters share ONE coalescer (the check-create-read
+    of ``_get_coalescer`` runs under its lock) and every ticket resolves
+    bitwise to ``search``'s answer."""
+    from repro_torch.analysis import sanitize
+    n_coalescers, want, got, lock = _submit_from_threads(opened, qs[:4])
+    assert n_coalescers == 1
+    assert (lock == "InstrumentedLock") == sanitize.enabled()
+    for g_ in got:
+        _bitwise(g_, want)
+
+
+def test_concurrent_submit_under_the_sanitizer(path, qs, tmp_path):
+    """The same, in a subprocess with ``REPRO_SANITIZE=1``: the session's
+    locks are instrumented and no guarded write raises ``SanitizeError``."""
+    import inspect
+    np.save(tmp_path / "qs.npy", qs[:4].numpy())
+    code = "\n".join([
+        "import os; os.environ['REPRO_SANITIZE'] = '1'",
+        "import numpy as np, torch",
+        "from repro_torch import storage",
+        "from repro_torch.analysis import sanitize",
+        inspect.getsource(_submit_from_threads),
+        f"opened = storage.open_index({str(path)!r}, device='cpu')",
+        f"qs = torch.from_numpy(np.load({str(tmp_path / 'qs.npy')!r}))",
+        "n, want, got, lock = _submit_from_threads(opened, qs)",
+        "same = all(torch.equal(g.idx, want.idx) and "
+        "torch.equal(g.dist, want.dist) for g in got)",
+        "print('RESULT', sanitize.enabled(), n, lock, same)",
+    ])
+    out = run_subprocess(code, devices=1, timeout=300)
+    assert "RESULT True 1 InstrumentedLock True" in out
 
 def test_drain_empty_and_ticket_reuse(opened, qs):
     with _session(opened) as sess:
