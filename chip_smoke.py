@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive and check the port's search paths, its distributed protocol,
-search serving and Hymba serving on one card.
+search serving, LM serving (Hymba and the dense family) and dense
+training on one card.
 
     python3 chip_smoke.py [--seed 0] [--n-series 10000000] [--queries 100]
                           [--dtw-queries 10] [--lm-batch 4]
@@ -39,7 +40,31 @@ CUDA toolkit.  Phases, each printing one JSON line:
                  tokens, and layer 0's Mamba mixer (the ``ssm_scan``
                  kernel) against the plain ``mamba_naive`` on its real
                  input;
-  8. kernels   — each kernel against its plain PyTorch version on the
+  8. dense     — dense serving at full width through the same entry points,
+                 fp32 weights from ``--seed``: ``h2o-danube-1.8b`` (24
+                 layers, SWA 4,096), 4 requests x 4,608 tokens (the
+                 prefill rolls the ring, decode wraps it) + 32 greedy;
+                 then ``gemma3-27b``'s widths cut to 6 layers (one 5:1
+                 local:global period: qk-norm, sqrt(d) embedding scale,
+                 tied embeddings, a global layer's full cache beside SWA
+                 rings), 2 x 1,536 + 16; each checked against the
+                 teacher-forced ``forward`` under ``lm``'s rule; no
+                 custom kernel is on this path (0 launches, checked);
+  9. train     — the serving weights freed, ``h2o-danube-1.8b`` ``full()``
+                 trained with fp32 AdamW (``train.make_train_step``), 4
+                 steps of B = 2 x S = 1,024 on one batch of
+                 ``data.tokens`` from ``--seed``: every loss and gradient
+                 norm finite, no step skipped, the last loss below the
+                 first, step 1's loss ``make_eval_step``'s at the initial
+                 parameters within 1e-5 relative; the step's median
+                 seconds over steps 2-4, tokens/s, 6·N·tokens beside the
+                 fp32 peak; one ``smoke()`` step on the card against the
+                 CPU from the same parameters and batch (loss and gradient
+                 norm within 1e-4 relative); and ``python -m
+                 repro_torch.examples.train_lm --steps 40`` as a
+                 subprocess (exit 0, a ``[resume]`` line, the resumed
+                 run's last loss below the first run's first);
+ 10. kernels   — each kernel against its plain PyTorch version on the
                  card, at its paths' shapes and on their data, with the
                  stated tolerance, and timed beside its plain version, a
                  library call where one exists, and its bound (the larger
@@ -76,10 +101,10 @@ CUDA toolkit.  Phases, each printing one JSON line:
                  ``ssm_scan`` at layer 0's prefill, one decode step from
                  its state, and a state size that is no power of two
                  (N = 12 over 512 steps);
-  9. exact     — every Euclidean path's answers (block-major, query-major,
+ 11. exact     — every Euclidean path's answers (block-major, query-major,
                  flat, UCR) against a brute-force scan of every series with
                  the plain ``batch_l2_ref`` + ``topk_by_dist_id``;
- 10. ooc       — the on-disk index over the same series (``--ooc-series``,
+ 12. ooc       — the on-disk index over the same series (``--ooc-series``,
                  all by default, cut in whole millions until the files fit
                  in half the free disk, under the git-ignored
                  ``build/ooc/``, removed at the end): the series written as
@@ -98,10 +123,10 @@ CUDA toolkit.  Phases, each printing one JSON line:
                  every block (bitwise equal, 0 bytes read); DTW (r=12,
                  k=10) on the ``--dtw-queries`` through that session, ids
                  against ``dtw``'s;
- 11. dist1     — ``distributed.search_sharded`` (k=10) over the main index
+ 13. dist1     — ``distributed.search_sharded`` (k=10) over the main index
                  on a world-size-1 NCCL group: bitwise ``main``'s
                  block-major answer and counters;
- 12. serve     — on the ooc phase's index file: 4 tenant threads x 25
+ 14. serve     — on the ooc phase's index file: 4 tenant threads x 25
                  queries (members of one random block plus 0.05 noise,
                  from ``--seed``), k=10, through one coalesced
                  ``SearchSession`` drain, each tenant bitwise its isolated
@@ -111,12 +136,12 @@ CUDA toolkit.  Phases, each printing one JSON line:
                  bitwise the exact answer; and ``python -m
                  repro_torch.launch.serve --search-index`` once, as a
                  subprocess (4 queries a tenant, k=1);
- 13. analysis  — the port's static checkers (``repro_torch.analysis``:
+ 15. analysis  — the port's static checkers (``repro_torch.analysis``:
                  lock discipline, host syncs, kernel/oracle contracts) over
                  ``src/repro_torch``, in process: any finding fails; the
                  annotated ``# sync`` sites of ``core/engine.py`` grouped by
                  the frequency their comments state;
- 14. sanitize  — the first 1M series of the ooc phase's file built here by
+ 16. sanitize  — the first 1M series of the ooc phase's file built here by
                  ``storage.run_pipeline``; then a subprocess with
                  ``REPRO_SANITIZE=1``: the session's and cache's locks
                  instrumented, an off-lock write to a guarded field raising
@@ -128,7 +153,7 @@ CUDA toolkit.  Phases, each printing one JSON line:
                  series.  The script refuses to run at all
                  with ``REPRO_SANITIZE`` set in its own environment: its
                  timed phases would measure the instrumented locks;
- 15. dist4     — the main process frees its tensors, then 4 ranks spawned
+ 17. dist4     — the main process frees its tensors, then 4 ranks spawned
                  on the card over gloo (a ``file://`` store under
                  ``build/``): each reads its quarter of the series file,
                  ``distributed.build_sharded`` with global ids,
@@ -139,7 +164,7 @@ CUDA toolkit.  Phases, each printing one JSON line:
                  and peak device memory, launches summed over ranks; a
                  rank that fails or a collective past its timeout fails
                  the run;
- 16. dist_ooc  — ``distributed.search_sharded_ooc`` over 4 sessions on
+ 18. dist_ooc  — ``distributed.search_sharded_ooc`` over 4 sessions on
                  dist4's shard files from a cold disk, k=10: ids against
                  the brute-force scan, the summed ``IOStats``.
 
@@ -153,6 +178,7 @@ exits non-zero.  TF32 is off for every fp32 product.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import filecmp
 import json
 import os
@@ -183,8 +209,11 @@ from repro_torch.kernels.isax_summarize import isax_summarize  # noqa: E402
 from repro_torch.kernels.lb_scan import lb_scan  # noqa: E402
 from repro_torch.kernels.ssm_scan import ssm_scan  # noqa: E402
 from repro_torch.configs import count_params, get_config  # noqa: E402
+from repro_torch.data.tokens import synthetic_token_batches  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import common, mamba, transformer  # noqa: E402
+from repro_torch.train import (make_eval_step, make_train_step,  # noqa: E402
+                               opt_init)
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 # (operations a second, the unit a bound names) of the H100 SXM's units
@@ -217,6 +246,18 @@ LOGIT_REL = 1e-3               # serving vs forward: |dlogit| <= LOGIT_REL * max
 MIX_TOL = 1e-3                 # mixer vs mamba_naive, rtol and atol
 SSM_REL = 1e-4                 # ssm_scan vs ssm_scan_ref: SSM_REL * (|ref| + max |ref|)
 SSM_ODD_N, SSM_ODD_STEPS = 12, 512   # the scan's case at a state size no power of two
+# dense serving: (arch, layers or None for all, requests, prompt, generated)
+DENSE_RUNS = (("h2o-danube-1.8b", None, 4, 4608, 32),
+              ("gemma3-27b", 6, 2, 1536, 16))   # depth cut: one 5:1 period
+TRAIN_ARCH = "h2o-danube-1.8b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 1024, 4
+# the rate from step 1 on (no warmup): AdamW's first steps move every
+# weight by about lr, and at 1e-4 the loss of this one batch rose again
+# at step 3
+TRAIN_LR, TRAIN_WARMUP = 1e-5, 1
+EVAL_REL = 1e-5                # step 1's loss vs make_eval_step's, relative
+CARD_CPU_REL = 1e-4            # a smoke() step, card vs CPU: loss, grad norm
+EXAMPLE_TIMEOUT_S = 600        # the train_lm example's subprocess
 
 OOC_DIR = ROOT / "build" / "ooc"   # git-ignored; removed at the phase's end
 # bytes on disk a series of 256 points: the series file (1,024), the index
@@ -544,6 +585,37 @@ def lm_setup(seed: int, batch: int, prompt_len: int, smoke: bool = False):
     return cfg, params, prompt
 
 
+def serving_consistency(label: str, out, full, s_p: int, gen: int, b: int,
+                        vocab: int) -> dict:
+    """Served logits (prefill, then each decode step) against the
+    teacher-forced forward ``full`` over prompt and generated tokens:
+    within LOGIT_REL of the logits' scale, and every greedy token with a
+    top-2 gap above that tolerance the forward's argmax."""
+    want = full[:, s_p - 1:s_p + gen - 1]
+    scale = float(want.abs().max())
+    tol = LOGIT_REL * scale
+    err = float((out.logits - want).abs().max())
+    top2 = torch.topk(want, 2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > tol
+    greedy = torch.argmax(want, dim=-1)
+    tok_ok = torch.equal(out.tokens[clear], greedy[clear])
+    check(err <= tol, f"{label}: serving logits within {LOGIT_REL} x "
+                      f"max|logit| ({tol:.3g}) of the forward's, got "
+                      f"{err:.3g}")
+    check(tok_ok, f"{label}: every greedy token with a top-2 gap above the "
+                  "tolerance is the forward's argmax")
+    finite = bool(torch.isfinite(out.logits).all()) and bool(
+        torch.isfinite(full).all())
+    check(finite, f"{label}: every logit finite")
+    check(tuple(out.tokens.shape) == (b, gen)
+          and tuple(out.logits.shape) == (b, gen, vocab),
+          f"{label}: tokens (B, gen) and logits (B, gen, V)")
+    return {"max_abs_err": err, "logit_scale": scale, "tolerance": tol,
+            "clear_tokens": int(clear.sum()),
+            "tokens_equal": int((out.tokens == greedy).sum()),
+            "compared_positions": [s_p - 1, s_p + gen - 2]}
+
+
 def phase_lm(args) -> tuple[dict, dict]:
     """Hymba serving through the user's entry points, its consistency with
     the teacher-forced forward, and layer 0's mixer against its oracle.
@@ -574,24 +646,8 @@ def phase_lm(args) -> tuple[dict, dict]:
     full = transformer.forward(params, {"tokens": seq}, cfg)
     torch.cuda.synchronize()
     forward_s = time.perf_counter() - t0
-    want = full[:, s_p - 1:s_p + gen - 1]
-    scale = float(want.abs().max())
-    tol = LOGIT_REL * scale
-    err = float((out.logits - want).abs().max())
-    top2 = torch.topk(want, 2, dim=-1).values
-    clear = (top2[..., 0] - top2[..., 1]) > tol
-    greedy = torch.argmax(want, dim=-1)
-    tok_ok = torch.equal(out.tokens[clear], greedy[clear])
-    check(err <= tol, f"lm: serving logits within {LOGIT_REL} x max|logit| "
-                      f"({tol:.3g}) of the forward's, got {err:.3g}")
-    check(tok_ok, "lm: every greedy token with a top-2 gap above the "
-                  "tolerance is the forward's argmax")
-    finite = bool(torch.isfinite(out.logits).all()) and bool(
-        torch.isfinite(full).all())
-    check(finite, "lm: every logit finite")
-    check(tuple(out.tokens.shape) == (b, gen)
-          and tuple(out.logits.shape) == (b, gen, cfg.vocab),
-          "lm: tokens (B, gen) and logits (B, gen, V)")
+    consistency = serving_consistency("lm", out, full, s_p, gen, b,
+                                      cfg.vocab)
 
     # 2. layer 0's mixer on its real input: kernel against the plain oracle
     p0 = transformer._layer(params["layers"], 0)
@@ -624,10 +680,7 @@ def phase_lm(args) -> tuple[dict, dict]:
           "max_memory_allocated_serving": serve_peak,
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "forward_seconds": forward_s,
-          "consistency": {"max_abs_err": err, "logit_scale": scale,
-                          "tolerance": tol, "clear_tokens": int(clear.sum()),
-                          "tokens_equal": int((out.tokens == greedy).sum()),
-                          "compared_positions": [s_p - 1, s_p + gen - 2]},
+          "consistency": consistency,
           "mixer_vs_naive": {"max_abs_err": mix_err, "match": mix_ok,
                              "naive_seconds": naive_s,
                              "tolerance": f"rtol and atol {MIX_TOL}"},
@@ -636,6 +689,199 @@ def phase_lm(args) -> tuple[dict, dict]:
                "bm": bt.contiguous(), "cm": ct.contiguous(),
                "a": a_mat.contiguous(), "h_last": gst.h}
     return launches, scan_in
+
+
+def _serve_dense(cfg, seed: int, b: int, s_p: int, gen: int) -> dict:
+    """One dense model served through ``greedy_generate`` from fp32
+    weights built from ``seed`` (prompts from ``seed + 2``), checked
+    against the teacher-forced forward.  -> its phase entry."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = serve.build_params(cfg, seed)
+    dev = params["embed"].device
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 2)
+    prompt = torch.randint(0, cfg.vocab, (b, s_p), generator=g, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    tensors = [t for _, t in common.leaves(params)]
+
+    ops.reset_launch_counts()
+    out = serve.greedy_generate(params, cfg, prompt, gen)
+    launches = ops.launch_counts()
+    serve_peak = torch.cuda.max_memory_allocated()
+    check(not any(launches.values()),
+          f"dense {cfg.name}: no custom kernel on the dense path, got "
+          f"{launches}")
+    t0 = time.perf_counter()
+    full = transformer.forward(params, {"tokens": torch.cat(
+        [prompt, out.tokens], dim=1)}, cfg)
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    consistency = serving_consistency(f"dense {cfg.name}", out, full, s_p,
+                                      gen, b, cfg.vocab)
+    return {"arch": cfg.name, "layers": cfg.n_layers,
+            "d_model": cfg.d_model,
+            "segments": [[sg.kind, sg.start, sg.end]
+                         for sg in transformer.segments(cfg)],
+            "params": sum(t.numel() for t in tensors),
+            "count_params": count_params(cfg),
+            "param_bytes": sum(t.numel() * t.element_size()
+                               for t in tensors),
+            "param_build_seconds": build_s, "batch": b, "prompt": s_p,
+            "gen": gen, "prefill_seconds": out.prefill_s,
+            "decode_ms_per_token": out.decode_s * 1e3 / max(gen - 1, 1),
+            "forward_seconds": forward_s, "launches": launches,
+            "max_memory_allocated_serving": serve_peak,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "consistency": consistency,
+            "sample_tokens": out.tokens[0, :16].tolist()}
+
+
+def phase_dense(args) -> dict:
+    """The dense family served at full width (gemma3 at a cut depth).
+    -> launches over both runs (all zero)."""
+    t0 = time.perf_counter()
+    runs = []
+    for arch, layers, b, s_p, gen in DENSE_RUNS:
+        cfg = get_config(arch, smoke=args.lm_smoke)
+        if args.lm_smoke:
+            b, s_p, gen = b // 2 or 1, args.lm_prompt, args.lm_gen
+        elif layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        runs.append(_serve_dense(cfg, args.seed, b, s_p, gen))
+        torch.cuda.empty_cache()
+    emit({"phase": "dense", "nvidia_smi": nvidia_smi_line(),
+          "seconds": time.perf_counter() - t0,
+          "smoke_config": args.lm_smoke, "runs": runs,
+          "custom_kernel_launches": sum(sum(r["launches"].values())
+                                        for r in runs)})
+    return {k: sum(r["launches"][k] for r in runs)
+            for k in runs[0]["launches"]}
+
+
+def _last_loss_lines(text: str) -> list[float]:
+    return [float(line.split()[3]) for line in text.splitlines()
+            if line.startswith("step ") and " loss " in line]
+
+
+def _train_example(args) -> dict:
+    """``python -m repro_torch.examples.train_lm --steps 40`` on the card,
+    as a user runs it: exit 0, a resume, and a falling loss."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.examples.train_lm",
+                        "--steps", "40"], cwd=ROOT, env=env,
+                       capture_output=True, text=True,
+                       timeout=EXAMPLE_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    first, _, resumed = r.stdout.partition("[resume]")
+    a, b = _last_loss_lines(first), _last_loss_lines(resumed)
+    ok = (r.returncode == 0 and bool(resumed) and bool(a) and bool(b)
+          and b[-1] < a[0])
+    check(ok, f"train: the train_lm example exits 0, resumes and ends "
+              f"below its first loss (rc {r.returncode}, losses {a} / {b}; "
+              f"stderr {r.stderr[-2000:]!r})")
+    return {"seconds": secs, "returncode": r.returncode,
+            "resumed": bool(resumed), "first_loss": a[0] if a else None,
+            "resumed_last_loss": b[-1] if b else None}
+
+
+def _card_vs_cpu_step(seed: int, card: str = "cuda") -> dict:
+    """One smoke() train step on the card and one on the CPU from the
+    same parameters and batch."""
+    cfg = get_config(TRAIN_ARCH, smoke=True)
+    host = serve.build_params(cfg, seed, "cpu")
+    batch = next(synthetic_token_batches(batch=8, seq_len=256,
+                                         vocab=cfg.vocab, seed=seed))
+    out = {}
+    for where, params in (("card", common.tree_map(
+            lambda t: t.to(card, copy=True), host)), ("cpu", host)):
+        step = make_train_step(cfg, microbatch=1,
+                               device=card if where == "card" else "cpu")
+        _, _, m = step(params, opt_init(cfg.optimizer, params), batch)
+        out[where] = {k: float(m[k]) for k in ("loss", "grad_norm")}
+    rel = {k: abs(out["card"][k] - out["cpu"][k]) / abs(out["cpu"][k])
+           for k in out["cpu"]}
+    check(max(rel.values()) <= CARD_CPU_REL,
+          f"train: a smoke() step on the card within {CARD_CPU_REL} of the "
+          f"CPU's (loss, grad norm), got {rel}")
+    return {**out, "rel_err": rel}
+
+
+def phase_train(args) -> dict:
+    """Dense training at full width: fp32 AdamW steps of h2o-danube-1.8b
+    on one batch, their checks and times; the smoke config's step on the
+    card against the CPU; the train_lm example.  -> launches (all zero)."""
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(TRAIN_ARCH, smoke=args.lm_smoke)
+    b, s = (TRAIN_BATCH, 64) if args.lm_smoke else (TRAIN_BATCH, TRAIN_SEQ)
+    t0 = time.perf_counter()
+    params = serve.build_params(cfg, args.seed)
+    opt = opt_init(cfg.optimizer, params)
+    batch = next(synthetic_token_batches(batch=b, seq_len=s, vocab=cfg.vocab,
+                                         seed=args.seed))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in common.leaves(params))
+
+    ops.reset_launch_counts()
+    eval_loss = float(make_eval_step(cfg)(params, batch)["loss"])
+    step = make_train_step(cfg, base_lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                           total_steps=100)
+    secs, mets = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        mets.append({k: float(v) for k, v in m.items()})
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in mets]
+    finite = all(np.isfinite([m["loss"], m["grad_norm"]]).all()
+                 for m in mets)
+    check(finite, f"train: every loss and gradient norm finite ({mets})")
+    check(all(m["skipped"] == 0 for m in mets), "train: no step skipped")
+    check(losses[-1] < losses[0], f"train: the last loss below the first "
+                                  f"({losses})")
+    eval_rel = abs(losses[0] - eval_loss) / abs(eval_loss)
+    check(eval_rel <= EVAL_REL, f"train: step 1's loss within {EVAL_REL} "
+                                f"of make_eval_step's, got {eval_rel:.3g}")
+    check(not any(launches.values()),
+          f"train: no custom kernel on the training path, got {launches}")
+    del params, opt
+    torch.cuda.empty_cache()
+
+    step_s = float(np.median(secs[1:]))
+    flops = 6.0 * n_params * b * s
+    card_vs_cpu = _card_vs_cpu_step(args.seed)
+    example = _train_example(args)
+    emit({"phase": "train", "nvidia_smi": nvidia_smi_line(),
+          "seconds": time.perf_counter() - t_phase,
+          "arch": cfg.name, "smoke_config": args.lm_smoke,
+          "optimizer": cfg.optimizer, "remat": cfg.remat, "batch": b,
+          "seq": s, "steps": TRAIN_STEPS, "params": n_params,
+          "param_build_seconds": build_s, "step_seconds": secs,
+          "step_seconds_median_2_to_last": step_s,
+          "tokens_per_second": b * s / step_s,
+          "model_flops_per_step_6ND": flops,
+          "fp32_peak_flops": FP32[0],
+          "fp32_peak_share": flops / step_s / FP32[0],
+          "max_memory_allocated": peak, "losses": losses,
+          "grad_norms": [m["grad_norm"] for m in mets],
+          "lr": [m["lr"] for m in mets],
+          "eval_loss_initial": eval_loss, "eval_rel_err": eval_rel,
+          "launches": launches,
+          "custom_kernel_launches": sum(launches.values()),
+          "card_vs_cpu_smoke_step": card_vs_cpu,
+          "train_lm_example": example})
+    return launches
 
 
 def _compare_summarize(raw: torch.Tensor, n_slice: int) -> dict:
@@ -2242,7 +2488,8 @@ def main(argv=None) -> int:
     ap.add_argument("--lm-prompt", type=int, default=LM_PROMPT)
     ap.add_argument("--lm-gen", type=int, default=LM_GEN)
     ap.add_argument("--lm-smoke", action="store_true",
-                    help="serve Hymba's smoke() config instead of full()")
+                    help="the LM phases (lm, dense, train) on smoke() "
+                         "configs at --lm-prompt / --lm-gen sizes")
     ap.add_argument("--ooc-series", type=int, default=None,
                     help="series the on-disk phase writes (default all; "
                          "cut in whole millions to fit half the free disk)")
@@ -2272,6 +2519,8 @@ def main(argv=None) -> int:
     dtw_results, launches["dtw"] = phase_dtw(
         index, raw, queries[:args.dtw_queries].contiguous(), args.queries)
     launches["lm"], scan_in = phase_lm(args)
+    launches["dense"] = phase_dense(args)
+    launches["train"] = phase_train(args)
     # the envelope widths of the sanitize phase's index (its rows of the
     # on-disk phase's series) and of a dist4 shard
     ooc_n = min(args.ooc_series or args.n_series, args.n_series)

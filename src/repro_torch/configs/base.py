@@ -1,19 +1,41 @@
-"""Model configuration for the LM wing of the port.
+"""Model and shape configuration for the LM wing of the port.
 
 The port's own copy of ``repro.configs.base``: the ``ModelConfig``
-dataclass with the same fields and defaults, and the helpers the Hymba
-serving path uses (``layer_kind``, ``q_dim``, ``kv_dim``,
-``vocab_padded``, the registry and ``count_params``).  Only Hymba is
-registered; the other architectures come with their families
-(ROADMAP.md Queue 1, item 18).
+dataclass with the same fields and defaults, the shape cells, the
+registry of the ten architectures (``get_config``, ``list_archs``) and
+the analytic counts (``count_params``, ``active_params``).  Every
+architecture resolves; which families the model code runs is decided in
+``repro_torch.models.transformer``.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable
 
-LATER = ("ROADMAP.md Queue 1, item 18: the port serves only hymba-1.5b "
-         "so far; the other architectures come with their families")
+# ---------------------------------------------------------------------------
+# Shapes
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                     # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524_288, 1, "decode"),
+}
+
+
+# ---------------------------------------------------------------------------
+# Model config
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,10 +85,10 @@ class ModelConfig:
     frontend: str = "none"        # none | audio_stub | vision_stub
     n_patches: int = 0            # vlm: image patch prefix length
 
-    # distribution / memory policy (read by the reference's trainer)
-    fsdp: bool = False
-    remat: str = "full"           # full | dots | none
-    microbatch: int = 1
+    # distribution / memory policy
+    fsdp: bool = False            # the reference's mesh sharding (item 18e)
+    remat: str = "full"           # full | dots | none (train/step.py)
+    microbatch: int = 1           # grad-accumulation steps per train step
     optimizer: str = "adamw"      # adamw | adafactor
     param_dtype: str = "bfloat16"
     scan_chunk: int = 512         # attention/recurrence chunk length
@@ -94,6 +116,23 @@ class ModelConfig:
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.head_dim
 
+    @property
+    def attn_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can this arch run the 500k-context decode cell?"""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        # a bounded window (the global layers' caches shard the sequence)
+        return self.attn_kind in ("swa", "local_global")
+
+    def runs_shape(self, shape: str) -> bool:
+        if shape == "long_500k":
+            return self.sub_quadratic
+        return shape in SHAPES
+
     def layer_kind(self, i: int) -> str:
         """'full' or 'swa' for attention layer i (local_global patterning)."""
         if self.attn_kind == "swa":
@@ -104,6 +143,15 @@ class ModelConfig:
             return "full" if (i + 1) % self.global_every == 0 else "swa"
         return "full"
 
+    @property
+    def global_positions(self) -> tuple[int, ...]:
+        return tuple(i for i in range(self.n_layers)
+                     if self.layer_kind(i) == "full")
+
+
+# ---------------------------------------------------------------------------
+# Registry
+# ---------------------------------------------------------------------------
 
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
 _SMOKE: dict[str, Callable[[], ModelConfig]] = {}
@@ -120,8 +168,13 @@ def get_config(name: str, *, smoke: bool = False) -> ModelConfig:
     import repro_torch.configs  # noqa: F401  (registers the architectures)
     table = _SMOKE if smoke else _REGISTRY
     if name not in table:
-        raise KeyError(f"unknown arch {name!r}; have {sorted(table)} ({LATER})")
+        raise KeyError(f"unknown arch {name!r}; have {sorted(table)}")
     return table[name]()
+
+
+def list_archs() -> list[str]:
+    import repro_torch.configs  # noqa: F401
+    return sorted(_REGISTRY)
 
 
 def count_params(cfg: ModelConfig) -> int:
@@ -152,3 +205,13 @@ def count_params(cfg: ModelConfig) -> int:
                                        + cfg.q_dim * d) + 3 * d * f)
         n += dec
     return n
+
+
+def active_params(cfg: ModelConfig) -> int:
+    """Active parameters a token (MoE: top_k of n_experts), for 6·N·D."""
+    if not cfg.n_experts:
+        return count_params(cfg)
+    d, f, L = cfg.d_model, cfg.d_ff, cfg.n_layers
+    nf = 3 if cfg.mlp_gated else 2
+    inactive = L * (cfg.n_experts - cfg.top_k) * nf * d * f
+    return count_params(cfg) - inactive

@@ -23,9 +23,9 @@ batch and one coalesced drain answers them all.
         [--arch hymba-1.5b] [--k 5] [--index-path corpus.dsix] \\
         [--concurrency 4] [--device cpu]
 
-Runs on the card unless ``--device cpu`` is given.  ``--arch`` takes the
-families the port has (``hymba-1.5b``); any other raises the config
-registry's ``KeyError``.
+Runs on the card unless ``--device cpu`` is given.  ``--arch`` takes any
+architecture of the families the port runs (dense, vlm, hybrid); the
+others raise NotImplementedError naming their ROADMAP item.
 """
 from __future__ import annotations
 

@@ -1,13 +1,15 @@
 """Serving entry point: prefill + batched greedy decode, or, with
 ``--search-index``, multi-tenant similarity-search serving.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \\
         [--smoke] --batch 4 --prompt-len 64 --gen 32 --seed 0 [--device cpu]
 
-The counterpart of ``repro.launch.serve``.  The LM mode builds parameters
-from ``--seed``, an fp32 cache, the prompt's prefill, then a greedy decode
-loop; it prints the prefill time and the decode time a token,
-synchronised with the card.
+The counterpart of ``repro.launch.serve``.  The LM mode serves any
+architecture of the families the port runs (dense, vlm, hybrid: ``RUNS``);
+the others raise NotImplementedError naming their ROADMAP item.  It
+builds parameters from ``--seed``, an fp32 cache, the prompt's prefill,
+then a greedy decode loop; it prints the prefill time and the decode
+time a token, synchronised with the card.
 
 The search mode takes a saved data-series index and drives the
 multi-tenant serving layer against it: ``--tenants`` threads each submit
@@ -32,11 +34,16 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, list_archs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import common, transformer
 from repro_torch.train.step import make_prefill_step, make_serve_step
+
+
+# the architectures whose families the port runs
+RUNS = tuple(a for a in list_archs()
+             if get_config(a).family in transformer.SERVED)
 
 
 @dataclasses.dataclass
@@ -187,7 +194,7 @@ def serve_search(args, dev: torch.device) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch")
+    ap.add_argument("--arch", help="one of " + ", ".join(RUNS))
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)

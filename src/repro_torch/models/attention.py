@@ -12,9 +12,11 @@ structure:
     is never repeated in memory;
   * ``swa`` attention slices a ``window + Cq`` wide KV span per query
     chunk, O(S·W);
-  * the full path sweeps the whole rectangle with a causal mask, as the
-    reference's baseline does (its block-triangular schedule waits:
-    ROADMAP.md Queue 1, item 18);
+  * the causal path walks only the causally live block pairs, the
+    reference's ``triangular=True`` schedule: a query chunk stops at the
+    first KV chunk it cannot see.  A fully masked chunk merges to
+    nothing, so this gives the values of the reference's rectangle sweep
+    too;
   * decode attends one new token against the whole cache, in chunks, with
     a position mask; SWA decode reads a ring buffer of width ``window``.
 
@@ -79,13 +81,13 @@ def _finish(l, o, dtype):
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            causal: bool = True, window: int = 0, chunk: int = 512,
-           q_offset: int = 0, sm_scale: float | None = None) -> torch.Tensor:
+           q_offset: int = 0, sm_scale: float | None = None
+           ) -> torch.Tensor:
     """Chunked attention.  q (B, Sq, H, hd); k, v (B, Sk, KVH, hd).
 
     ``q_offset``: absolute position of q[0] relative to k[0].
-    ``window > 0`` = sliding-window (causal implied).  The chunk is the
-    largest divisor of each length not above ``chunk``, as in the
-    reference.  Returns (B, Sq, H, hd), q.dtype.
+    ``window > 0`` = sliding-window (causal implied).  The chunk is the largest divisor of each length not above ``chunk``,
+    as in the reference.  Returns (B, Sq, H, hd), q.dtype.
     """
     b, sq, h, hd = q.shape
     sk, kvh = k.shape[1], k.shape[2]
@@ -108,6 +110,8 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         qpos = q_offset + iq * cq + torch.arange(cq, device=dev)
         m0, l0, o0 = _init_state(b, kvh, g, cq, hd, dev)
         for ik in range(nk):
+            if causal and ik * ck >= q_offset + (iq + 1) * cq:
+                break                   # this and later chunks: all masked
             ki = k[:, ik * ck:(ik + 1) * ck]
             vi = v[:, ik * ck:(ik + 1) * ck]
             if causal:

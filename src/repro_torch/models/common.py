@@ -63,6 +63,15 @@ def tree_map(fn: Callable[[Any], Any], tree: dict) -> dict:
             for k, v in tree.items()}
 
 
+def with_leaves(tree: dict, values: dict) -> dict:
+    """``tree``'s nested-dict structure with the leaf at each path (a
+    tuple of keys, as ``leaves`` gives them) taken from ``values``."""
+    def go(node, prefix):
+        return {k: go(v, prefix + (k,)) if isinstance(v, dict)
+                else values[prefix + (k,)] for k, v in node.items()}
+    return go(tree, ())
+
+
 def build_params(specs: dict, generator: torch.Generator,
                  device: str | torch.device | None = "cuda") -> dict:
     """Instantiate a nested dict of ParamSpec on ``device`` (the card by

@@ -1,45 +1,59 @@
-"""The LM stack, hybrid family (Hymba): ``forward`` / ``prefill`` /
-``decode_step`` over stacked per-layer parameters.
+"""The LM stack of the dense, vlm and hybrid families: ``forward`` /
+``prefill`` / ``decode_step`` and the training loss ``loss_fn`` over
+stacked per-layer parameters.
 
 The PyTorch counterpart of ``repro.models.transformer`` for the branches
-Hymba takes: a hybrid layer runs attention and a Mamba mixer side by side
-on the same normed input and averages their normed outputs, then a gated
-dense FFN.  Heterogeneous layer patterns (Hymba's explicit global layers
-among SWA ones) are cut into *segments*, runs of one attention kind;
-parameters stay stacked over all layers with the reference's names, and
-``decoder_stack`` is a host loop over each segment's layers where the
-reference scans them.
+these families take.  A dense layer is pre-norm attention then a dense
+FFN (gated or not), or with ``parallel_block`` both on the same normed
+input added to one residual; a hybrid layer (Hymba) runs attention and a
+Mamba mixer side by side and averages their normed outputs; a vlm model
+is a dense one with a patch-embedding prefix.  Heterogeneous layer
+patterns (gemma3's 5:1 local:global, Hymba's explicit global layers) are
+cut into *segments*, runs of one attention kind; parameters stay stacked
+over all layers with the reference's names, and ``decoder_stack`` is a
+host loop over each segment's layers where the reference scans them.
 
 Caches are the reference's list of per-segment dicts: full-attention
 segments carry (run, B, S, KVH, hd) K/V, SWA segments ring buffers of
-width ``window``, and every hybrid segment the Mamba states ``m_h``
+width ``window``, and hybrid segments also the Mamba states ``m_h``
 (run, B, D, N) and ``m_conv`` (run, B, K-1, D).  ``prefill`` and
 ``decode_step`` write the cache in place and return it.
 
 Entry points take ``device=`` (the card by default) and raise if the
-parameters do not lie there.  Other families raise NotImplementedError
-naming their ROADMAP item.
+parameters do not lie there.  The MoE, RWKV and Whisper families raise
+NotImplementedError naming their ROADMAP item, and so does training a
+hybrid model.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, common, mamba
 from repro_torch.models.common import ParamSpec as PS
 
-LATER = ("ROADMAP.md Queue 1, item 18: the port runs the hybrid family "
-         "(Hymba) with a dense FFN so far")
+SERVED = ("dense", "vlm", "hybrid")
+TRAINED = ("dense", "vlm")
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if (cfg.family != "hybrid" or cfg.n_experts or cfg.enc_dec
-            or cfg.parallel_block):
+def _check_family(cfg: ModelConfig, *, train: bool = False) -> None:
+    """Raise NotImplementedError, naming the ROADMAP item, for what the
+    port does not run yet."""
+    where = f"{cfg.name} ({cfg.family} family)"
+    if cfg.n_experts or cfg.family in ("moe", "ssm"):
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family} family): {LATER}")
+            f"{where}: MoE and RWKV wait for ROADMAP.md Queue 1, item 18c")
+    if cfg.enc_dec or cfg.family not in SERVED:
+        raise NotImplementedError(
+            f"{where}: Whisper waits for ROADMAP.md Queue 1, item 18d")
+    if train and cfg.family not in TRAINED:
+        raise NotImplementedError(
+            f"{where}: training a hybrid model needs a backward of the "
+            "ssm_scan kernel, ROADMAP.md Queue 1, item 20")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,8 +67,9 @@ class Segment:
         return self.end - self.start
 
 
-def segments(cfg: ModelConfig) -> list[Segment]:
-    n = cfg.n_layers
+def segments(cfg: ModelConfig, n_layers: int | None = None
+             ) -> list[Segment]:
+    n = cfg.n_layers if n_layers is None else n_layers
     kinds = [cfg.layer_kind(i) for i in range(n)]
     segs, a = [], 0
     for i in range(1, n + 1):
@@ -103,16 +118,19 @@ def param_specs(cfg: ModelConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = PS((d, v), ("embed", "vocab"))
-    specs["layers"] = {
+    layers = {
         "ln1": PS((L, d), ("layers", "embed"), init="zeros"),
         "ln2": PS((L, d), ("layers", "embed"), init="zeros"),
         "attn": _attn_specs(cfg, L),
-        "mamba": mamba.param_specs(cfg, d_inner=cfg.q_dim),
-        "attn_gamma": PS((L, cfg.q_dim), ("layers", "q_heads"), init="zeros"),
-        "mamba_gamma": PS((L, cfg.q_dim), ("layers", "q_heads"),
-                          init="zeros"),
         "ffn": _ffn_specs(cfg, L),
     }
+    if cfg.family == "hybrid":
+        layers["mamba"] = mamba.param_specs(cfg, d_inner=cfg.q_dim)
+        layers["attn_gamma"] = PS((L, cfg.q_dim), ("layers", "q_heads"),
+                                  init="zeros")
+        layers["mamba_gamma"] = PS((L, cfg.q_dim), ("layers", "q_heads"),
+                                   init="zeros")
+    specs["layers"] = layers
     if cfg.meta_tokens:
         specs["meta"] = PS((cfg.meta_tokens, d), (None, "embed"), scale=1.0)
     return specs
@@ -137,7 +155,7 @@ def _qkv(x, p, cfg: ModelConfig, positions):
 
 
 def attn_train(x, p, cfg: ModelConfig, kind: str):
-    """Full-sequence attention (forward / prefill compute).
+    """Full-sequence attention (forward, loss and prefill compute).
 
     Returns (out, (k, v)) so prefill can write the cache."""
     b, s, _ = x.shape
@@ -175,7 +193,12 @@ def _mix(attn_out, m_out, p):
                   + common.rmsnorm(m_out, p["mamba_gamma"]))
 
 
-def _ffn_residual(x, attn_out, p, cfg: ModelConfig):
+def _ffn_residual(x, h, attn_out, p, cfg: ModelConfig):
+    """The FFN and the residual adds.  A parallel block's FFN reads the
+    same normed ``h`` as attention and ``ln2`` is not applied, as in the
+    reference."""
+    if cfg.parallel_block:
+        return x + attn_out + ffn_block(h, p["ffn"], cfg)
     x = x + attn_out
     return x + ffn_block(common.rmsnorm(x, p["ln2"]), p["ffn"], cfg)
 
@@ -189,8 +212,10 @@ def layer_train(x, p, cfg: ModelConfig, kind: str):
     """One decoder layer, full sequence. Returns (x, (k, v))."""
     h = common.rmsnorm(x, p["ln1"])
     attn_out, kv = attn_train(h, p["attn"], cfg, kind)
-    m_out, _ = mamba.mamba_mix(h, p["mamba"], d_inner=cfg.q_dim)
-    return _ffn_residual(x, _mix(attn_out, m_out, p), p, cfg), kv
+    if cfg.family == "hybrid":
+        m_out, _ = mamba.mamba_mix(h, p["mamba"], d_inner=cfg.q_dim)
+        attn_out = _mix(attn_out, m_out, p)
+    return _ffn_residual(x, h, attn_out, p, cfg), kv
 
 
 def layer_decode(x, p, cfg: ModelConfig, kind: str, cache, pos):
@@ -198,11 +223,14 @@ def layer_decode(x, p, cfg: ModelConfig, kind: str, cache, pos):
     Returns (x, cache)."""
     h = common.rmsnorm(x, p["ln1"])
     attn_out, _ = attn_decode(h, p["attn"], cfg, kind, cache, pos)
-    mst = mamba.MambaState(h=cache["m_h"], conv=cache["m_conv"])
-    m_out, mst = mamba.mamba_mix(h, p["mamba"], d_inner=cfg.q_dim, state=mst)
-    cache["m_h"].copy_(mst.h)
-    cache["m_conv"].copy_(mst.conv)
-    return _ffn_residual(x, _mix(attn_out, m_out, p), p, cfg), cache
+    if cfg.family == "hybrid":
+        mst = mamba.MambaState(h=cache["m_h"], conv=cache["m_conv"])
+        m_out, mst = mamba.mamba_mix(h, p["mamba"], d_inner=cfg.q_dim,
+                                     state=mst)
+        cache["m_h"].copy_(mst.h)
+        cache["m_conv"].copy_(mst.conv)
+        attn_out = _mix(attn_out, m_out, p)
+    return _ffn_residual(x, h, attn_out, p, cfg), cache
 
 
 def layer_prefill(x, p, cfg: ModelConfig, kind: str, cache):
@@ -220,10 +248,12 @@ def layer_prefill(x, p, cfg: ModelConfig, kind: str, cache):
     else:
         cache["k"][:, :s] = kd
         cache["v"][:, :s] = vd
-    m_out, mst = mamba.mamba_mix(h, p["mamba"], d_inner=cfg.q_dim)
-    cache["m_h"].copy_(mst.h)
-    cache["m_conv"].copy_(mst.conv)
-    return _ffn_residual(x, _mix(attn_out, m_out, p), p, cfg), cache
+    if cfg.family == "hybrid":
+        m_out, mst = mamba.mamba_mix(h, p["mamba"], d_inner=cfg.q_dim)
+        cache["m_h"].copy_(mst.h)
+        cache["m_conv"].copy_(mst.conv)
+        attn_out = _mix(attn_out, m_out, p)
+    return _ffn_residual(x, h, attn_out, p, cfg), cache
 
 
 # ---------------------------------------------------------------------------
@@ -236,16 +266,42 @@ def _layer(tree: dict, i: int) -> dict:
     return common.tree_map(lambda a: a[i], tree)
 
 
+def _unstack(tree: dict, n: int) -> list[dict]:
+    """The n per-layer slices of a stacked (L, ...) tree, views taken by
+    one ``unbind`` a leaf: under autograd the layers' gradients then meet
+    in one stack a leaf, not in one full-size add a layer."""
+    per_leaf = common.tree_map(torch.unbind, tree)
+    return [common.tree_map(lambda t: t[i], per_leaf) for i in range(n)]
+
+
+def _train_layer(x, p_l, cfg: ModelConfig, kind: str):
+    return layer_train(x, p_l, cfg, kind)[0]
+
+
 def decoder_stack(params, x, cfg: ModelConfig, mode: str, *,
                   cache=None, pos=None):
     """Run all decoder layers, a host loop over each segment's layers.
     ``mode`` is "train" (no cache), "prefill" or "decode" (the cache is
-    written in place).  Returns (x, cache)."""
+    written in place).  Returns (x, cache).
+
+    In "train" mode under autograd, ``cfg.remat`` "full" and "dots" put
+    each layer under ``torch.utils.checkpoint`` (only its input is kept;
+    its activations are recomputed in the backward), "none" keeps them
+    all.  "dots" saves nothing more than "full" here: the reference's
+    policy of also keeping the matmul outputs has no counterpart.  The
+    values are the same either way."""
+    remat = mode == "train" and torch.is_grad_enabled() \
+        and cfg.remat != "none"
+    layers = _unstack(params["layers"], cfg.n_layers)
     for si, seg in enumerate(segments(cfg)):
         for i in range(seg.start, seg.end):
-            p_l = _layer(params["layers"], i)
+            p_l = layers[i]
             if mode == "train":
-                x, _ = layer_train(x, p_l, cfg, seg.kind)
+                if remat:
+                    x = checkpoint(_train_layer, x, p_l, cfg, seg.kind,
+                                   use_reentrant=False)
+                else:
+                    x = _train_layer(x, p_l, cfg, seg.kind)
                 continue
             c_l = _layer(cache[si], i - seg.start)
             if mode == "prefill":
@@ -271,6 +327,18 @@ def _on_device(params: dict, tokens, device) -> tuple[torch.device,
     return dev, torch.as_tensor(tokens, device=dev).to(torch.int64)
 
 
+def _patches(batch: dict, cfg: ModelConfig, dev: torch.device):
+    """A vlm batch's (B, P, d) patch embeddings on ``dev``, else None."""
+    if cfg.family != "vlm" or batch.get("patches") is None:
+        return None
+    return torch.as_tensor(batch["patches"], device=dev)
+
+
+def _prefix(cfg: ModelConfig, patches) -> int:
+    """Positions before the first token: meta tokens and patches."""
+    return cfg.meta_tokens + (0 if patches is None else patches.shape[1])
+
+
 def _embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig):
     x = params["embed"][tokens]
     if cfg.emb_scale:
@@ -278,9 +346,13 @@ def _embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig):
     return x
 
 
-def embed_inputs(params, tokens: torch.Tensor, cfg: ModelConfig):
-    """Token embedding with the meta-token prefix. -> (B, S_total, d)."""
+def embed_inputs(params, tokens: torch.Tensor, cfg: ModelConfig,
+                 patches: torch.Tensor | None = None):
+    """Token embedding behind the vlm patch prefix and the meta-token
+    prefix. -> (B, S_total, d)."""
     x = _embed_tokens(params, tokens, cfg)
+    if patches is not None:
+        x = torch.cat([patches.to(x.dtype), x], dim=1)
     if cfg.meta_tokens:
         meta = params["meta"][None].to(x.dtype).expand(
             x.shape[0], cfg.meta_tokens, cfg.d_model)
@@ -297,25 +369,93 @@ def lm_logits(params, x, cfg: ModelConfig):
     return logits
 
 
+def _hidden(params, batch: dict, cfg: ModelConfig, device):
+    """The final-normed hidden states of the tokens (prefixes cut),
+    (B, S, d), and the tokens on the device."""
+    dev, tokens = _on_device(params, batch["tokens"], device)
+    patches = _patches(batch, cfg, dev)
+    x = embed_inputs(params, tokens, cfg, patches)
+    x, _ = decoder_stack(params, x, cfg, "train")
+    x = common.rmsnorm(x, params["final_norm"])
+    prefix = _prefix(cfg, patches)
+    return (x[:, prefix:] if prefix else x), tokens
+
+
 @torch.no_grad()
 def forward(params, batch: dict, cfg: ModelConfig, *,
             device: str | torch.device | None = "cuda"):
-    """Teacher-forcing forward: batch {"tokens": (B, S)} -> logits (B, S, V)."""
+    """Teacher-forcing forward: batch {"tokens": (B, S)} (a vlm batch may
+    add "patches" (B, P, d)) -> logits (B, S, V) of the tokens."""
     _check_family(cfg)
-    _, tokens = _on_device(params, batch["tokens"], device)
-    x = embed_inputs(params, tokens, cfg)
-    x, _ = decoder_stack(params, x, cfg, "train")
-    x = common.rmsnorm(x, params["final_norm"])
-    if cfg.meta_tokens:
-        x = x[:, cfg.meta_tokens:]
+    x, _ = _hidden(params, batch, cfg, device)
     return lm_logits(params, x, cfg)
+
+
+def _ce_chunk(xs, ls, head, pad_mask, cap: float):
+    """Summed next-token cross-entropy of one chunk of positions; label
+    < 0 is masked.  (B, C, d) x (d, Vp) logits, held for this chunk only."""
+    logits = common.softcap(xs.to(torch.float32) @ head.to(torch.float32),
+                            cap)
+    if pad_mask is not None:
+        logits = logits + pad_mask
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, torch.clamp(ls, min=0)[..., None])[..., 0]
+    return torch.sum((lse - gold) * (ls >= 0).to(torch.float32))
+
+
+def loss_fn(params, batch: dict, cfg: ModelConfig, *,
+            device: str | torch.device | None = "cuda"):
+    """Next-token cross-entropy with chunked logits: (loss, metrics).
+
+    Labels are ``batch["labels"]`` or the tokens shifted left with -1
+    last; a label < 0 is masked.  The logits are computed in chunks of
+    positions (the largest divisor of S up to 512, as in the reference)
+    and, under autograd, recomputed chunk by chunk in the backward, so no
+    (B, S, V) tensor is ever held.  The padded vocabulary's columns are
+    masked at -1e30.  Differentiable: the caller decides whether autograd
+    records it.  A hybrid model's loss is refused only under autograd:
+    its forward runs, its backward does not exist yet."""
+    _check_family(cfg, train=torch.is_grad_enabled())
+    x, tokens = _hidden(params, batch, cfg, device)
+    labels = batch.get("labels")
+    if labels is None:
+        labels = torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], -1)],
+                           dim=1)
+    else:
+        labels = torch.as_tensor(labels, device=x.device).to(torch.int64)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    s = x.shape[1]
+    chunk = attention.div_chunk(s, 512)
+    pad_mask = None
+    if cfg.vocab_padded != cfg.vocab:
+        pad_mask = torch.where(
+            torch.arange(cfg.vocab_padded, device=x.device) < cfg.vocab,
+            0.0, -1e30).to(torch.float32)
+    grad = torch.is_grad_enabled()
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lo in range(0, s, chunk):
+        xs, ls = x[:, lo:lo + chunk], labels[:, lo:lo + chunk]
+        if grad:
+            part = checkpoint(_ce_chunk, xs, ls, head, pad_mask,
+                              cfg.logit_softcap, use_reentrant=False)
+        else:
+            part = _ce_chunk(xs, ls, head, pad_mask, cfg.logit_softcap)
+        tot = tot + part
+        cnt = cnt + torch.sum((ls >= 0).to(torch.float32))
+    ce = tot / torch.clamp(cnt, min=1.0)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    # the MoE load-balance and drop terms come with item 18c
+    return ce, {"ce": ce, "loss": ce, "tokens": cnt, "moe_lb": zero,
+                "moe_drop": zero}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
                device: str | torch.device | None = "cuda") -> list:
-    """Per-segment cache (zeros) for ``max_len`` tokens after the meta
-    prefix; shapes depend on the segment kinds."""
+    """Per-segment cache (zeros) for ``max_len`` positions after the meta
+    prefix (a vlm prompt's patches count among them); shapes depend on
+    the segment kinds."""
     _check_family(cfg)
     dev = resolve_device(device)
     total = max_len + cfg.meta_tokens
@@ -323,24 +463,26 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     for seg in segments(cfg):
         s_kv = min(cfg.window, total) if seg.kind == "swa" else total
         kv_shape = (seg.size, batch, s_kv, cfg.n_kv_heads, cfg.head_dim)
-        out.append(dict(
-            k=torch.zeros(kv_shape, dtype=dtype, device=dev),
-            v=torch.zeros(kv_shape, dtype=dtype, device=dev),
-            m_h=torch.zeros((seg.size, batch, cfg.q_dim, cfg.ssm_state),
-                            dtype=torch.float32, device=dev),
-            m_conv=torch.zeros((seg.size, batch, cfg.ssm_conv - 1,
-                                cfg.q_dim), dtype=dtype, device=dev)))
+        c = dict(k=torch.zeros(kv_shape, dtype=dtype, device=dev),
+                 v=torch.zeros(kv_shape, dtype=dtype, device=dev))
+        if cfg.family == "hybrid":
+            c.update(
+                m_h=torch.zeros((seg.size, batch, cfg.q_dim, cfg.ssm_state),
+                                dtype=torch.float32, device=dev),
+                m_conv=torch.zeros((seg.size, batch, cfg.ssm_conv - 1,
+                                    cfg.q_dim), dtype=dtype, device=dev))
+        out.append(c)
     return out
 
 
 @torch.no_grad()
 def prefill(params, batch: dict, cache: list, cfg: ModelConfig, *,
             device: str | torch.device | None = "cuda"):
-    """Process the prompt; returns (last-position logits (B, 1, V), the
-    cache, filled in place)."""
+    """Process the prompt (a vlm batch's patches first); returns
+    (last-position logits (B, 1, V), the cache, filled in place)."""
     _check_family(cfg)
-    _, tokens = _on_device(params, batch["tokens"], device)
-    x = embed_inputs(params, tokens, cfg)
+    dev, tokens = _on_device(params, batch["tokens"], device)
+    x = embed_inputs(params, tokens, cfg, _patches(batch, cfg, dev))
     x, cache = decoder_stack(params, x, cfg, "prefill", cache=cache)
     x = common.rmsnorm(x, params["final_norm"])
     return lm_logits(params, x[:, -1:], cfg), cache
@@ -350,7 +492,8 @@ def prefill(params, batch: dict, cache: list, cfg: ModelConfig, *,
 def decode_step(params, tokens, pos: int, cache: list, cfg: ModelConfig, *,
                 device: str | torch.device | None = "cuda"):
     """One token step. tokens (B, 1); ``pos`` = its absolute position in
-    the prompt + generated stream (the meta prefix is added here).
+    the prompt + generated stream, a vlm prompt's patches included (the
+    meta prefix is added here).
 
     Returns (logits (B, 1, V), the cache, updated in place)."""
     _check_family(cfg)

@@ -27,6 +27,7 @@ from pathlib import Path
 import jax.numpy as jnp
 import numpy as np
 import pytest
+torch = pytest.importorskip("torch", exc_type=ImportError)
 
 import repro.core as jcore
 import test_analysis as ref_fixtures

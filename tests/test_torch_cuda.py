@@ -18,7 +18,9 @@ kernel may contract a * h + b into an FMA, and its expf and the plain
 exp differ by an ulp or two); the Mamba mixer and Hymba serving on the
 card against the plain oracle and the CPU 1e-3 and 2e-3, the bars of
 tests/test_kernels.py's mixer test and tests/test_models.py's
-prefill/decode test.  The on-disk index on the card: the block cache
+prefill/decode test; a dense smoke() forward and train step on the card
+against the CPU 2e-3 (logits) and 1e-4 relative (loss, gradient norm,
+fp32 sums in another order).  The on-disk index on the card: the block cache
 with a reader slowed on purpose and a block evicted under a queued read
 (bitwise), the loader's pinned staging (bitwise), the pipeline's file
 against save_index(core.build(...)) (sha256), z-norm's independence of
@@ -27,7 +29,7 @@ squared distances rtol 1e-5 / atol 1e-4).
 """
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch", exc_type=ImportError)
 
 from repro_torch import interop
 from repro_torch.core import dtw, isax, paris
@@ -616,6 +618,36 @@ def test_hymba_serving_on_the_card_matches_the_cpu(cuda):
     clear = (top2[..., 0] - top2[..., 1]) > 4e-3
     assert torch.equal(got.tokens.cpu()[clear],
                        torch.argmax(want, dim=-1)[clear])
+
+
+def test_dense_forward_and_train_step_on_the_card_match_the_cpu(cuda):
+    """gemma3 smoke() (qk-norm, local:global, tied embeddings) on the
+    card against the CPU from the same weights and batch: the forward's
+    logits within 2e-3; one train step's loss and gradient norm within
+    1e-4 relative; no custom kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import common, transformer
+    from repro_torch.train import make_train_step, opt_init
+    cfg = get_config("gemma3-27b", smoke=True)
+    p_cpu = serve.build_params(cfg, 0, "cpu")
+    p_card = common.tree_map(lambda t: t.to(cuda), p_cpu)
+    batch = {"tokens": np.random.default_rng(0).integers(0, cfg.vocab,
+                                                         (2, 64))}
+    ops.reset_launch_counts()
+    got = transformer.forward(p_card, batch, cfg, device=cuda)
+    want = transformer.forward(p_cpu, batch, cfg, device="cpu")
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=2e-3)
+    outs = []
+    for p, dev in ((p_card, cuda), (p_cpu, "cpu")):
+        step = make_train_step(cfg, base_lr=1e-2, warmup=1, microbatch=1,
+                               device=dev)
+        outs.append(step(p, opt_init(cfg.optimizer, p), batch))
+    assert not any(ops.launch_counts().values())
+    (_, _, mc), (_, _, mp) = outs
+    for k in ("loss", "grad_norm"):
+        torch.testing.assert_close(mc[k].cpu(), mp[k], rtol=1e-4, atol=0)
+    assert int(mc["skipped"]) == 0 and int(mp["skipped"]) == 0
 
 
 # ---------------------------------------------------------------------------

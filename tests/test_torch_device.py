@@ -14,7 +14,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch", exc_type=ImportError)
 
 from repro_torch import interop, resolve_device
 from repro_torch.core import engine

@@ -27,7 +27,7 @@ from concurrent.futures import ThreadPoolExecutor
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch", exc_type=ImportError)
 
 import repro.core as jcore
 from repro import storage as jst

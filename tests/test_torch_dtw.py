@@ -12,7 +12,7 @@ its own summation order).
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch", exc_type=ImportError)
 
 import repro.core as jcore
 from repro.core import dtw as jdtw

@@ -11,7 +11,7 @@ squared distances agree to rtol 1e-5 / atol 1e-4 (see _torch_parity).
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch", exc_type=ImportError)
 
 import repro.core as jcore
 from repro.core import paris as jparis

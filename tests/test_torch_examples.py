@@ -16,7 +16,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch", exc_type=ImportError)
 
 import repro.core as jcore
 from repro import storage as jst
@@ -93,8 +93,11 @@ def test_serve_with_index_out_of_core_and_concurrent(tmp_path, capsys):
 
 
 def test_serve_with_index_names_the_missing_architectures():
-    with pytest.raises(KeyError, match="item 18"):
-        serve_with_index.main(["--arch", "rwkv6-7b", "--device", "cpu"])
+    for arch, item in (("rwkv6-7b", "item 18c"),
+                       ("granite-moe-1b-a400m", "item 18c"),
+                       ("whisper-medium", "item 18d")):
+        with pytest.raises(NotImplementedError, match=item):
+            serve_with_index.main(["--arch", arch, "--device", "cpu"])
 
 
 def _reference_example():

@@ -7,7 +7,7 @@ duplicate-id MIN rule, the (INF, -1) empty slots, and the threshold.
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch", exc_type=ImportError)
 
 from repro.core import frontier as jf
 from repro_torch.core import frontier as tf

@@ -10,7 +10,7 @@ condition, and none occurs on these inputs, so the arrays must match.
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch", exc_type=ImportError)
 
 import repro.core as jcore
 from repro.core import isax as jisax

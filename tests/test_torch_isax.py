@@ -8,7 +8,7 @@ bounds, sort keys, the sort permutation) must be exactly equal.
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch", exc_type=ImportError)
 
 from repro.core import isax as jisax
 from repro_torch.core import isax as tisax

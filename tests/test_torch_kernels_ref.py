@@ -16,7 +16,7 @@ tests/test_kernels.py's scan test, at that test's shapes.
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch", exc_type=ImportError)
 
 from repro.core import isax as jisax
 from repro.kernels import ref as jref

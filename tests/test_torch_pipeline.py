@@ -20,7 +20,7 @@ from pathlib import Path
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch", exc_type=ImportError)
 
 from repro import storage as jst
 from repro.core import isax as jisax

@@ -12,7 +12,7 @@ near zero the sqrt would magnify that error to ~sqrt(1e-4).
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch", exc_type=ImportError)
 
 import repro.core as jcore
 from repro.core import engine as jengine
