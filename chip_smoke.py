@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive and check the port's search paths, its distributed protocol,
-search serving, LM serving (Hymba and the dense family) and dense
-training on one card.
+search serving, LM serving (every family) and training (the dense and
+MoE families at full width) on one card.
 
     python3 chip_smoke.py [--seed 0] [--n-series 10000000] [--queries 100]
                           [--dtw-queries 10] [--lm-batch 4]
@@ -64,7 +64,29 @@ CUDA toolkit.  Phases, each printing one JSON line:
                  repro_torch.examples.train_lm --steps 40`` as a
                  subprocess (exit 0, a ``[resume]`` line, the resumed
                  run's last loss below the first run's first);
- 10. kernels   — each kernel against its plain PyTorch version on the
+ 10. families  — the MoE, RWKV and Whisper families through the same
+                 entry points as ``dense``, fp32 weights from ``--seed``:
+                 ``granite-moe-1b-a400m`` in full (24 layers, 32 experts,
+                 top-8), 4 x 2,048 + 32 greedy at capacity factor 16
+                 (no drops, so serving can match the forward), then a
+                 ``make_eval_step`` pass over the same tokens at the
+                 config's 1.25 (``dropped_frac``, ``moe_lb``);
+                 ``moonshot-v1-16b-a3b`` at its widths (64 experts,
+                 top-6, vocab 163,840) cut to 4 layers, 2 x 1,024 + 16
+                 at capacity factor 16; ``rwkv6-7b`` at full width (all
+                 32 layers where the card's free memory holds them beside
+                 16 GiB, else cut), 2 x 2,048 + 32; ``whisper-medium`` in
+                 full (24 + 24 layers), 4 x 1,500 frames (N(0, 0.1) from
+                 ``--seed + 3``), a 224-token decoder prompt, 32 greedy;
+                 each against its teacher-forced forward under ``lm``'s
+                 rule, a depth cut printed with its reason; then
+                 granite-moe ``full()`` trained with AdamW under
+                 ``train``'s checks (4 steps of 2 x 1,024, one
+                 microbatch; ``moe_lb`` and ``moe_drop`` each step) and
+                 one ``smoke()`` step of granite-moe (capacity factor
+                 16), rwkv6 and whisper on the card against the CPU
+                 (1e-4 relative); no custom kernel (0 launches, checked);
+ 11. kernels   — each kernel against its plain PyTorch version on the
                  card, at its paths' shapes and on their data, with the
                  stated tolerance, and timed beside its plain version, a
                  library call where one exists, and its bound (the larger
@@ -101,10 +123,10 @@ CUDA toolkit.  Phases, each printing one JSON line:
                  ``ssm_scan`` at layer 0's prefill, one decode step from
                  its state, and a state size that is no power of two
                  (N = 12 over 512 steps);
- 11. exact     — every Euclidean path's answers (block-major, query-major,
+ 12. exact     — every Euclidean path's answers (block-major, query-major,
                  flat, UCR) against a brute-force scan of every series with
                  the plain ``batch_l2_ref`` + ``topk_by_dist_id``;
- 12. ooc       — the on-disk index over the same series (``--ooc-series``,
+ 13. ooc       — the on-disk index over the same series (``--ooc-series``,
                  all by default, cut in whole millions until the files fit
                  in half the free disk, under the git-ignored
                  ``build/ooc/``, removed at the end): the series written as
@@ -123,10 +145,10 @@ CUDA toolkit.  Phases, each printing one JSON line:
                  every block (bitwise equal, 0 bytes read); DTW (r=12,
                  k=10) on the ``--dtw-queries`` through that session, ids
                  against ``dtw``'s;
- 13. dist1     — ``distributed.search_sharded`` (k=10) over the main index
+ 14. dist1     — ``distributed.search_sharded`` (k=10) over the main index
                  on a world-size-1 NCCL group: bitwise ``main``'s
                  block-major answer and counters;
- 14. serve     — on the ooc phase's index file: 4 tenant threads x 25
+ 15. serve     — on the ooc phase's index file: 4 tenant threads x 25
                  queries (members of one random block plus 0.05 noise,
                  from ``--seed``), k=10, through one coalesced
                  ``SearchSession`` drain, each tenant bitwise its isolated
@@ -136,12 +158,12 @@ CUDA toolkit.  Phases, each printing one JSON line:
                  bitwise the exact answer; and ``python -m
                  repro_torch.launch.serve --search-index`` once, as a
                  subprocess (4 queries a tenant, k=1);
- 15. analysis  — the port's static checkers (``repro_torch.analysis``:
+ 16. analysis  — the port's static checkers (``repro_torch.analysis``:
                  lock discipline, host syncs, kernel/oracle contracts) over
                  ``src/repro_torch``, in process: any finding fails; the
                  annotated ``# sync`` sites of ``core/engine.py`` grouped by
                  the frequency their comments state;
- 16. sanitize  — the first 1M series of the ooc phase's file built here by
+ 17. sanitize  — the first 1M series of the ooc phase's file built here by
                  ``storage.run_pipeline``; then a subprocess with
                  ``REPRO_SANITIZE=1``: the session's and cache's locks
                  instrumented, an off-lock write to a guarded field raising
@@ -153,7 +175,7 @@ CUDA toolkit.  Phases, each printing one JSON line:
                  series.  The script refuses to run at all
                  with ``REPRO_SANITIZE`` set in its own environment: its
                  timed phases would measure the instrumented locks;
- 17. dist4     — the main process frees its tensors, then 4 ranks spawned
+ 18. dist4     — the main process frees its tensors, then 4 ranks spawned
                  on the card over gloo (a ``file://`` store under
                  ``build/``): each reads its quarter of the series file,
                  ``distributed.build_sharded`` with global ids,
@@ -164,7 +186,7 @@ CUDA toolkit.  Phases, each printing one JSON line:
                  and peak device memory, launches summed over ranks; a
                  rank that fails or a collective past its timeout fails
                  the run;
- 18. dist_ooc  — ``distributed.search_sharded_ooc`` over 4 sessions on
+ 19. dist_ooc  — ``distributed.search_sharded_ooc`` over 4 sessions on
                  dist4's shard files from a cold disk, k=10: ids against
                  the brute-force scan, the summed ``IOStats``.
 
@@ -211,6 +233,7 @@ from repro_torch.kernels.ssm_scan import ssm_scan  # noqa: E402
 from repro_torch.configs import count_params, get_config  # noqa: E402
 from repro_torch.data.tokens import synthetic_token_batches  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import common, mamba, transformer  # noqa: E402
 from repro_torch.train import (make_eval_step, make_train_step,  # noqa: E402
                                opt_init)
@@ -258,6 +281,20 @@ TRAIN_LR, TRAIN_WARMUP = 1e-5, 1
 EVAL_REL = 1e-5                # step 1's loss vs make_eval_step's, relative
 CARD_CPU_REL = 1e-4            # a smoke() step, card vs CPU: loss, grad norm
 EXAMPLE_TIMEOUT_S = 600        # the train_lm example's subprocess
+# the MoE, RWKV and Whisper families served: (arch, layers or None for
+# all, requests, prompt, generated); Whisper's prompt is its decoder
+# prompt beside WHISPER_FRAMES frame embeddings (30 s of audio)
+FAMILY_RUNS = (("granite-moe-1b-a400m", None, 4, 2048, 32),
+               ("moonshot-v1-16b-a3b", 4, 2, 1024, 16),
+               ("rwkv6-7b", None, 2, 2048, 32),
+               ("whisper-medium", None, 4, 224, 32))
+WHISPER_FRAMES = 1500
+MOE_SERVE_CF = 16.0            # serving vs forward with no drops at any T
+FAMILY_TRAIN_ARCH = "granite-moe-1b-a400m"
+FAMILY_CARD_CPU = ("granite-moe-1b-a400m", "rwkv6-7b", "whisper-medium")
+# device memory kept free beside a run's parameters (activations, the
+# forward's logits); a model that does not fit is cut in depth
+FAMILY_HEADROOM_BYTES = 16 << 30
 
 OOC_DIR = ROOT / "build" / "ooc"   # git-ignored; removed at the phase's end
 # bytes on disk a series of 256 points: the series file (1,024), the index
@@ -691,10 +728,12 @@ def phase_lm(args) -> tuple[dict, dict]:
     return launches, scan_in
 
 
-def _serve_dense(cfg, seed: int, b: int, s_p: int, gen: int) -> dict:
-    """One dense model served through ``greedy_generate`` from fp32
-    weights built from ``seed`` (prompts from ``seed + 2``), checked
-    against the teacher-forced forward.  -> its phase entry."""
+def _serve_model(label: str, cfg, seed: int, b: int, s_p: int, gen: int,
+                 frames: int = 0) -> dict:
+    """One model served through ``greedy_generate`` from fp32 weights built
+    from ``seed`` (prompts from ``seed + 2``; an enc_dec model's ``frames``
+    frame embeddings N(0, 0.1) from ``seed + 3``), checked against the
+    teacher-forced forward; no custom kernel may launch.  -> its entry."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -703,40 +742,50 @@ def _serve_dense(cfg, seed: int, b: int, s_p: int, gen: int) -> dict:
     g = torch.Generator(device=dev)
     g.manual_seed(seed + 2)
     prompt = torch.randint(0, cfg.vocab, (b, s_p), generator=g, device=dev)
+    fr = None
+    if cfg.enc_dec:
+        g.manual_seed(seed + 3)
+        fr = 0.1 * torch.randn((b, frames, cfg.d_model), generator=g,
+                               device=dev)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     tensors = [t for _, t in common.leaves(params)]
 
     ops.reset_launch_counts()
-    out = serve.greedy_generate(params, cfg, prompt, gen)
+    out = serve.greedy_generate(params, cfg, prompt, gen, frames=fr)
     launches = ops.launch_counts()
     serve_peak = torch.cuda.max_memory_allocated()
     check(not any(launches.values()),
-          f"dense {cfg.name}: no custom kernel on the dense path, got "
-          f"{launches}")
+          f"{label}: no custom kernel on this path, got {launches}")
+    seq = torch.cat([prompt, out.tokens], dim=1)
+    batch = {"frames": fr, "dec_tokens": seq} if cfg.enc_dec \
+        else {"tokens": seq}
     t0 = time.perf_counter()
-    full = transformer.forward(params, {"tokens": torch.cat(
-        [prompt, out.tokens], dim=1)}, cfg)
+    full = transformer.forward(params, batch, cfg)
     torch.cuda.synchronize()
     forward_s = time.perf_counter() - t0
-    consistency = serving_consistency(f"dense {cfg.name}", out, full, s_p,
-                                      gen, b, cfg.vocab)
-    return {"arch": cfg.name, "layers": cfg.n_layers,
-            "d_model": cfg.d_model,
-            "segments": [[sg.kind, sg.start, sg.end]
-                         for sg in transformer.segments(cfg)],
-            "params": sum(t.numel() for t in tensors),
-            "count_params": count_params(cfg),
-            "param_bytes": sum(t.numel() * t.element_size()
-                               for t in tensors),
-            "param_build_seconds": build_s, "batch": b, "prompt": s_p,
-            "gen": gen, "prefill_seconds": out.prefill_s,
-            "decode_ms_per_token": out.decode_s * 1e3 / max(gen - 1, 1),
-            "forward_seconds": forward_s, "launches": launches,
-            "max_memory_allocated_serving": serve_peak,
-            "max_memory_allocated": torch.cuda.max_memory_allocated(),
-            "consistency": consistency,
-            "sample_tokens": out.tokens[0, :16].tolist()}
+    consistency = serving_consistency(label, out, full, s_p, gen, b,
+                                      cfg.vocab)
+    entry = {"arch": cfg.name, "family": cfg.family,
+             "layers": cfg.n_layers, "d_model": cfg.d_model,
+             "params": sum(t.numel() for t in tensors),
+             "count_params": count_params(cfg),
+             "param_bytes": sum(t.numel() * t.element_size()
+                                for t in tensors),
+             "param_build_seconds": build_s, "batch": b, "prompt": s_p,
+             "gen": gen, "prefill_seconds": out.prefill_s,
+             "decode_ms_per_token": out.decode_s * 1e3 / max(gen - 1, 1),
+             "forward_seconds": forward_s, "launches": launches,
+             "max_memory_allocated_serving": serve_peak,
+             "max_memory_allocated": torch.cuda.max_memory_allocated(),
+             "consistency": consistency,
+             "sample_tokens": out.tokens[0, :16].tolist()}
+    if cfg.enc_dec:
+        entry["frames"] = frames
+    elif cfg.family != "ssm":
+        entry["segments"] = [[sg.kind, sg.start, sg.end]
+                             for sg in transformer.segments(cfg)]
+    return entry, params, batch
 
 
 def phase_dense(args) -> dict:
@@ -750,7 +799,8 @@ def phase_dense(args) -> dict:
             b, s_p, gen = b // 2 or 1, args.lm_prompt, args.lm_gen
         elif layers:
             cfg = dataclasses.replace(cfg, n_layers=layers)
-        runs.append(_serve_dense(cfg, args.seed, b, s_p, gen))
+        runs.append(_serve_model(f"dense {cfg.name}", cfg, args.seed, b,
+                                 s_p, gen)[0])
         torch.cuda.empty_cache()
     emit({"phase": "dense", "nvidia_smi": nvidia_smi_line(),
           "seconds": time.perf_counter() - t0,
@@ -788,13 +838,14 @@ def _train_example(args) -> dict:
             "resumed_last_loss": b[-1] if b else None}
 
 
-def _card_vs_cpu_step(seed: int, card: str = "cuda") -> dict:
-    """One smoke() train step on the card and one on the CPU from the
-    same parameters and batch."""
-    cfg = get_config(TRAIN_ARCH, smoke=True)
+def _card_vs_cpu_step(seed: int, card: str = "cuda",
+                      arch: str = TRAIN_ARCH, **overrides) -> dict:
+    """One smoke() train step (``overrides`` on the config) on the card and
+    one on the CPU from the same parameters and batch (the training CLI's
+    batch of 8 x 256 from ``seed``)."""
+    cfg = dataclasses.replace(get_config(arch, smoke=True), **overrides)
     host = serve.build_params(cfg, seed, "cpu")
-    batch = next(synthetic_token_batches(batch=8, seq_len=256,
-                                         vocab=cfg.vocab, seed=seed))
+    batch = launch_train.make_batch_fn(cfg, 8, 256, seed)(0)
     out = {}
     for where, params in (("card", common.tree_map(
             lambda t: t.to(card, copy=True), host)), ("cpu", host)):
@@ -805,7 +856,7 @@ def _card_vs_cpu_step(seed: int, card: str = "cuda") -> dict:
     rel = {k: abs(out["card"][k] - out["cpu"][k]) / abs(out["cpu"][k])
            for k in out["cpu"]}
     check(max(rel.values()) <= CARD_CPU_REL,
-          f"train: a smoke() step on the card within {CARD_CPU_REL} of the "
+          f"{arch}: a smoke() step on the card within {CARD_CPU_REL} of the "
           f"CPU's (loss, grad norm), got {rel}")
     return {**out, "rel_err": rel}
 
@@ -881,6 +932,149 @@ def phase_train(args) -> dict:
           "custom_kernel_launches": sum(launches.values()),
           "card_vs_cpu_smoke_step": card_vs_cpu,
           "train_lm_example": example})
+    return launches
+
+
+def _param_bytes(cfg) -> int:
+    """fp32 bytes of ``cfg``'s parameters, from its specs."""
+    return 4 * sum(int(np.prod(sp.shape)) for _, sp in
+                   common.leaves(transformer.param_specs(cfg)))
+
+
+def _fit_depth(cfg, layers):
+    """``cfg`` cut to ``layers`` (None: all), then further to what fits in
+    the card's free memory beside FAMILY_HEADROOM_BYTES of activations.
+    -> (cfg, the reason of a cut or None)."""
+    full = cfg.n_layers
+    free, _ = torch.cuda.mem_get_info()
+    fixed = _param_bytes(dataclasses.replace(cfg, n_layers=0))
+    per_layer = _param_bytes(dataclasses.replace(cfg, n_layers=1)) - fixed
+    fit = max(1, int((free - FAMILY_HEADROOM_BYTES - fixed) // per_layer))
+    want = layers or full
+    if fit < want:
+        return dataclasses.replace(cfg, n_layers=fit), (
+            f"{full} -> {fit} layers: {free / 2**30:.1f} GiB free beside the "
+            f"search data, {per_layer / 2**30:.2f} GiB of fp32 weights a "
+            "layer")
+    if want < full:
+        return dataclasses.replace(cfg, n_layers=want), (
+            f"{full} -> {want} layers: all {full} are "
+            f"{(fixed + full * per_layer) / 2**30:.1f} GiB of fp32 weights, "
+            "more than the card holds beside the search data")
+    return cfg, None
+
+
+def _family_train(args) -> dict:
+    """granite-moe-1b-a400m full(): fp32 steps with its optimizer on one
+    batch, under ``train``'s checks; moe_lb and moe_drop of each step."""
+    cfg = get_config(FAMILY_TRAIN_ARCH, smoke=args.lm_smoke)
+    b, s = (TRAIN_BATCH, 64) if args.lm_smoke else (TRAIN_BATCH, TRAIN_SEQ)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = serve.build_params(cfg, args.seed)
+    opt = opt_init(cfg.optimizer, params)
+    batch = next(synthetic_token_batches(batch=b, seq_len=s, vocab=cfg.vocab,
+                                         seed=args.seed))
+    n_params = sum(t.numel() for _, t in common.leaves(params))
+    eval_loss = float(make_eval_step(cfg)(params, batch)["loss"])
+    # one microbatch: capacity is computed per call, so step 1's loss is
+    # make_eval_step's on the same 2 x S tokens only without a split
+    step = make_train_step(cfg, base_lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                           total_steps=100, microbatch=1)
+    secs, mets = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        mets.append({k: float(v) for k, v in m.items()})
+    losses = [m["loss"] for m in mets]
+    label = f"families train {cfg.name}"
+    check(all(np.isfinite([m["loss"], m["grad_norm"]]).all() for m in mets),
+          f"{label}: every loss and gradient norm finite ({mets})")
+    check(all(m["skipped"] == 0 for m in mets), f"{label}: no step skipped")
+    check(losses[-1] < losses[0], f"{label}: the last loss below the first "
+                                  f"({losses})")
+    eval_rel = abs(losses[0] - eval_loss) / abs(eval_loss)
+    check(eval_rel <= EVAL_REL, f"{label}: step 1's loss within {EVAL_REL} "
+                                f"of make_eval_step's, got {eval_rel:.3g}")
+    step_s = float(np.median(secs[1:]))
+    out = {"arch": cfg.name, "optimizer": cfg.optimizer, "remat": cfg.remat,
+           "capacity_factor": cfg.capacity_factor, "microbatch": 1,
+           "batch": b, "seq": s, "steps": TRAIN_STEPS, "params": n_params,
+           "step_seconds": secs, "step_seconds_median_2_to_last": step_s,
+           "tokens_per_second": b * s / step_s, "losses": losses,
+           "grad_norms": [m["grad_norm"] for m in mets],
+           "moe_lb": [m["moe_lb"] for m in mets],
+           "moe_drop": [m["moe_drop"] for m in mets],
+           "eval_loss_initial": eval_loss, "eval_rel_err": eval_rel,
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    del params, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_families(args) -> dict:
+    """The MoE, RWKV and Whisper families served (granite-moe and whisper
+    in full, moonshot at its widths cut in depth, rwkv6 in full where it
+    fits) and trained (granite-moe in full; a smoke() step of each family
+    on the card against the CPU).  -> launches (all zero, checked)."""
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    runs = []
+    for arch, layers, b, s_p, gen in FAMILY_RUNS:
+        cfg, cut = get_config(arch, smoke=args.lm_smoke), None
+        frames = WHISPER_FRAMES
+        if args.lm_smoke:
+            b, s_p, gen, frames = 2, args.lm_prompt, args.lm_gen, \
+                args.lm_prompt
+            if cfg.enc_dec:
+                s_p = min(s_p, cfg.decoder_len // 2)
+                gen = min(gen, cfg.decoder_len - s_p)
+        else:
+            cfg, cut = _fit_depth(cfg, layers)
+        label = f"families {cfg.name}"
+        serve_cfg = cfg
+        if cfg.n_experts:
+            serve_cfg = dataclasses.replace(cfg,
+                                            capacity_factor=MOE_SERVE_CF)
+        entry, params, batch = _serve_model(label, serve_cfg, args.seed, b,
+                                            s_p, gen, frames)
+        entry["depth_cut"] = cut
+        if cfg.n_experts:
+            # the config's capacity over the same prompt + generated tokens
+            m = make_eval_step(cfg)(params, batch)
+            entry["serve_capacity_factor"] = MOE_SERVE_CF
+            entry["config_capacity_factor"] = {
+                "capacity_factor": cfg.capacity_factor,
+                "tokens": int(batch["tokens"].numel()),
+                "moe_lb_sum": float(m["moe_lb"]),
+                "dropped_frac_sum": float(m["moe_drop"]),
+                "dropped_frac": float(m["moe_drop"]) / cfg.n_layers,
+                "ce": float(m["ce"])}
+            check(0.0 <= entry["config_capacity_factor"]["dropped_frac"]
+                  < 1.0, f"{label}: dropped_frac at the config's capacity "
+                         "in [0, 1)")
+        runs.append(entry)
+        del params, batch
+        torch.cuda.empty_cache()
+    train = _family_train(args)
+    card_vs_cpu = {arch: _card_vs_cpu_step(
+        args.seed, arch=arch,
+        **({"capacity_factor": MOE_SERVE_CF}
+           if get_config(arch, smoke=True).n_experts else {}))
+        for arch in FAMILY_CARD_CPU}
+    launches = ops.launch_counts()
+    check(not any(launches.values()),
+          f"families: no custom kernel on these paths, got {launches}")
+    emit({"phase": "families", "nvidia_smi": nvidia_smi_line(),
+          "seconds": time.perf_counter() - t_phase,
+          "smoke_config": args.lm_smoke, "runs": runs, "train": train,
+          "card_vs_cpu_smoke_step": card_vs_cpu, "launches": launches,
+          "custom_kernel_launches": sum(launches.values())})
     return launches
 
 
@@ -2488,8 +2682,8 @@ def main(argv=None) -> int:
     ap.add_argument("--lm-prompt", type=int, default=LM_PROMPT)
     ap.add_argument("--lm-gen", type=int, default=LM_GEN)
     ap.add_argument("--lm-smoke", action="store_true",
-                    help="the LM phases (lm, dense, train) on smoke() "
-                         "configs at --lm-prompt / --lm-gen sizes")
+                    help="the LM phases (lm, dense, train, families) on "
+                         "smoke() configs at --lm-prompt / --lm-gen sizes")
     ap.add_argument("--ooc-series", type=int, default=None,
                     help="series the on-disk phase writes (default all; "
                          "cut in whole millions to fit half the free disk)")
@@ -2521,6 +2715,7 @@ def main(argv=None) -> int:
     launches["lm"], scan_in = phase_lm(args)
     launches["dense"] = phase_dense(args)
     launches["train"] = phase_train(args)
+    launches["families"] = phase_families(args)
     # the envelope widths of the sanitize phase's index (its rows of the
     # on-disk phase's series) and of a dist4 shard
     ooc_n = min(args.ooc_series or args.n_series, args.n_series)

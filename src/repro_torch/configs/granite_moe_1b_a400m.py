@@ -3,9 +3,6 @@
 24L d_model=1024 16H (GQA kv=8, head_dim=64) d_ff=512 (expert) vocab=49155,
 MoE 32 experts top-8, tied embeddings.
 [hf:ibm-granite/granite-3.0-1b-a400m-base; hf]
-
-The port resolves and counts this config; its MoE model code waits for
-ROADMAP.md Queue 1, item 18c (``param_specs`` and the entry points raise).
 """
 from repro_torch.configs.base import ModelConfig, register
 

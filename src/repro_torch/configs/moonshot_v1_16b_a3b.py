@@ -2,9 +2,6 @@
 
 48L d_model=2048 16H (kv=16, head_dim=128 via q_dim=2048) d_ff=1408 (expert)
 vocab=163840, MoE 64 experts top-6.  [hf:moonshotai/Moonlight-16B-A3B; hf]
-
-The port resolves and counts this config; its MoE model code waits for
-ROADMAP.md Queue 1, item 18c (``param_specs`` and the entry points raise).
 """
 from repro_torch.configs.base import ModelConfig, register
 

@@ -2,9 +2,6 @@
 
 32L d_model=4096 (64 heads x 64 head_dim) d_ff=14336 vocab=65536.
 [arXiv:2404.05892; hf]
-
-The port resolves and counts this config; its RWKV model code waits for
-ROADMAP.md Queue 1, item 18c (``param_specs`` and the entry points raise).
 """
 from repro_torch.configs.base import ModelConfig, register
 

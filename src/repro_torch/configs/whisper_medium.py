@@ -5,9 +5,6 @@ vocab=51865.  ``input_specs()`` supplies precomputed frame embeddings
 (B, seq_len, d) — the conv1d/mel frontend is the assignment-mandated stub.
 seq_len applies to the ENCODER; the decoder is fixed at 448 positions.
 [arXiv:2212.04356; unverified]
-
-The port resolves and counts this config; its Whisper model code waits for
-ROADMAP.md Queue 1, item 18d (``param_specs`` and the entry points raise).
 """
 from repro_torch.configs.base import ModelConfig, register
 

@@ -24,8 +24,10 @@ batch and one coalesced drain answers them all.
         [--concurrency 4] [--device cpu]
 
 Runs on the card unless ``--device cpu`` is given.  ``--arch`` takes any
-architecture of the families the port runs (dense, vlm, hybrid); the
-others raise NotImplementedError naming their ROADMAP item.
+of the ten architectures; the embedding is the mean of the final-normed
+hidden states of its decoder stack (Whisper's: its encoder layers run
+causally over the token embeddings, as the reference example's
+``embed`` runs them).
 """
 from __future__ import annotations
 
@@ -53,7 +55,7 @@ def embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor
           ) -> torch.Tensor:
     """Mean-pooled final hidden state as the sequence embedding. -> (B, d)."""
     x = T.embed_inputs(params, tokens, cfg)
-    x, _ = T.decoder_stack(params, x, cfg, "train")
+    x, _, _ = T.decoder_stack(params, x, cfg, "train")
     x = common.rmsnorm(x, params["final_norm"])
     return torch.mean(x.to(torch.float32), dim=1)
 

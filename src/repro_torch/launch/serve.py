@@ -4,12 +4,13 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \\
         [--smoke] --batch 4 --prompt-len 64 --gen 32 --seed 0 [--device cpu]
 
-The counterpart of ``repro.launch.serve``.  The LM mode serves any
-architecture of the families the port runs (dense, vlm, hybrid: ``RUNS``);
-the others raise NotImplementedError naming their ROADMAP item.  It
-builds parameters from ``--seed``, an fp32 cache, the prompt's prefill,
-then a greedy decode loop; it prints the prefill time and the decode
-time a token, synchronised with the card.
+The counterpart of ``repro.launch.serve``.  The LM mode serves any of the
+ten architectures (``RUNS``).  It builds parameters from ``--seed``, an
+fp32 cache, the prompt's prefill, then a greedy decode loop; it prints
+the prefill time and the decode time a token, synchronised with the
+card.  Whisper's request is ``--prompt-len`` frame embeddings (N(0, 0.1)
+from ``--seed``) and the first min(prompt, decoder_len / 2) prompt
+tokens as its decoder prompt, as the reference builds it.
 
 The search mode takes a saved data-series index and drives the
 multi-tenant serving layer against it: ``--tenants`` threads each submit
@@ -41,9 +42,7 @@ from repro_torch.models import common, transformer
 from repro_torch.train.step import make_prefill_step, make_serve_step
 
 
-# the architectures whose families the port runs
-RUNS = tuple(a for a in list_archs()
-             if get_config(a).family in transformer.SERVED)
+RUNS = tuple(list_archs())      # the port serves every family
 
 
 @dataclasses.dataclass
@@ -70,21 +69,37 @@ def build_params(cfg: ModelConfig, seed: int,
 
 
 def greedy_generate(params: dict, cfg: ModelConfig, prompt, gen: int, *,
+                    frames=None,
                     device: str | torch.device | None = "cuda") -> Generation:
     """Serve a batch of prompts (B, S): an fp32 cache for S + gen tokens,
     the prefill (its argmax is the first token), then gen - 1 decode
-    steps, each feeding back the last argmax."""
+    steps, each feeding back the last argmax.
+
+    An enc_dec model also takes ``frames`` (B, F, d): ``prompt`` is its
+    decoder prompt, the cache's cross K/V spans the F frames, and
+    S + gen must fit in ``decoder_len``."""
     dev = resolve_device(device)
     prompt = torch.as_tensor(prompt, device=dev).to(torch.int64)
     b, s = prompt.shape
-    cache = transformer.init_cache(cfg, b, s + gen, dtype=torch.float32,
+    if cfg.enc_dec:
+        if frames is None:
+            raise ValueError(f"{cfg.name} serves frames: pass frames=")
+        if s + gen > cfg.decoder_len:
+            raise ValueError(f"{cfg.name}: {s} prompt + {gen} generated "
+                             f"tokens exceed decoder_len {cfg.decoder_len}")
+        frames = torch.as_tensor(frames, device=dev)
+        batch = {"frames": frames, "dec_tokens": prompt}
+        max_len = frames.shape[1]
+    else:
+        batch, max_len = {"tokens": prompt}, s + gen
+    cache = transformer.init_cache(cfg, b, max_len, dtype=torch.float32,
                                    device=dev)
     prefill = make_prefill_step(cfg, device=dev)
     decode = make_serve_step(cfg, device=dev)
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": prompt}, cache)
+    logits, cache = prefill(params, batch, cache)
     tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
     _sync(dev)
     prefill_s = time.perf_counter() - t0
@@ -225,7 +240,14 @@ def main(argv=None) -> int:
     params = build_params(cfg, args.seed, dev)
     rng = np.random.default_rng(args.seed)
     prompt = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len))
-    out = greedy_generate(params, cfg, prompt, args.gen, device=dev)
+    frames = None
+    if cfg.enc_dec:
+        frames = (rng.standard_normal((args.batch, args.prompt_len,
+                                       cfg.d_model)) * 0.1
+                  ).astype(np.float32)
+        prompt = prompt[:, :min(args.prompt_len, cfg.decoder_len // 2)]
+    out = greedy_generate(params, cfg, prompt, args.gen, frames=frames,
+                          device=dev)
 
     n_dec = max(1, args.gen - 1)
     print(f"arch={cfg.name} batch={args.batch} prompt={args.prompt_len} "

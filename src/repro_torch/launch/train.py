@@ -1,5 +1,5 @@
-"""Training entry point: any architecture the port trains (the dense and vlm
-families), on synthetic tokens, with checkpoints.
+"""Training entry point: any architecture the port trains (every family
+but the hybrid one), on synthetic tokens, with checkpoints.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b \\
         --smoke --steps 200 --batch 8 --seq 256 --ckpt-dir /tmp/run1 \\
@@ -32,13 +32,19 @@ from repro_torch.train import Checkpointer, make_train_step, opt_init
 def make_batch_fn(cfg, batch: int, seq: int, seed: int = 0):
     """step -> the next batch (numpy) of the token stream from ``seed``;
     a vlm batch gets a patch prefix (N(0, 0.1) from ``seed + 1``) in
-    place of its first tokens."""
+    place of its first tokens; an enc_dec batch is ``seq`` frame
+    embeddings (N(0, 0.1) from ``seed + 1``) and the first
+    ``decoder_len`` tokens as "dec_tokens"."""
     gen = synthetic_token_batches(batch=batch, seq_len=seq, vocab=cfg.vocab,
                                   seed=seed)
     rng = np.random.default_rng(seed + 1)
 
     def next_batch(step: int) -> dict:
         tokens = next(gen)["tokens"]
+        if cfg.enc_dec:
+            return {"frames": rng.standard_normal(
+                        (batch, seq, cfg.d_model)).astype(np.float32) * 0.1,
+                    "dec_tokens": tokens[:, :cfg.decoder_len]}
         if cfg.family == "vlm":
             p = min(cfg.n_patches, seq // 2)
             return {"patches": rng.standard_normal(

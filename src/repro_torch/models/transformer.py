@@ -1,28 +1,35 @@
-"""The LM stack of the dense, vlm and hybrid families: ``forward`` /
-``prefill`` / ``decode_step`` and the training loss ``loss_fn`` over
-stacked per-layer parameters.
+"""The LM stack of every family: ``forward`` / ``prefill`` /
+``decode_step`` and the training loss ``loss_fn`` over stacked per-layer
+parameters.
 
-The PyTorch counterpart of ``repro.models.transformer`` for the branches
-these families take.  A dense layer is pre-norm attention then a dense
-FFN (gated or not), or with ``parallel_block`` both on the same normed
-input added to one residual; a hybrid layer (Hymba) runs attention and a
-Mamba mixer side by side and averages their normed outputs; a vlm model
-is a dense one with a patch-embedding prefix.  Heterogeneous layer
+The PyTorch counterpart of ``repro.models.transformer``.  A dense layer
+is pre-norm attention then a dense FFN (gated or not), or with
+``parallel_block`` both on the same normed input added to one residual;
+a MoE layer (granite-moe, moonshot) puts ``models.moe``'s routed experts
+in place of the FFN, and its load-balance and z-loss terms are summed
+over the layers into the loss; a hybrid layer (Hymba) runs attention and
+a Mamba mixer side by side and averages their normed outputs; a vlm
+model is a dense one with a patch-embedding prefix; an ssm model
+(RWKV6) is a stack of ``models.rwkv`` blocks, no attention; an enc_dec
+model (Whisper) runs a non-causal encoder over frame embeddings and a
+decoder with self- and cross-attention, no RoPE.  Heterogeneous layer
 patterns (gemma3's 5:1 local:global, Hymba's explicit global layers) are
 cut into *segments*, runs of one attention kind; parameters stay stacked
-over all layers with the reference's names, and ``decoder_stack`` is a
-host loop over each segment's layers where the reference scans them.
+over all layers with the reference's names, and each stack is a host
+loop over its layers where the reference scans them.
 
 Caches are the reference's list of per-segment dicts: full-attention
 segments carry (run, B, S, KVH, hd) K/V, SWA segments ring buffers of
-width ``window``, and hybrid segments also the Mamba states ``m_h``
-(run, B, D, N) and ``m_conv`` (run, B, K-1, D).  ``prefill`` and
-``decode_step`` write the cache in place and return it.
+width ``window``, hybrid segments also the Mamba states ``m_h``
+(run, B, D, N) and ``m_conv`` (run, B, K-1, D); an ssm model has one
+segment of RWKV states ``s`` (L, B, H, n, n) f32, ``x_tm`` and ``x_cm``
+(L, B, d); Whisper one of the decoder's self K/V over ``decoder_len``
+positions and its cross K/V ``xk`` / ``xv`` over the frames.
+``prefill`` and ``decode_step`` write the cache in place and return it.
 
 Entry points take ``device=`` (the card by default) and raise if the
-parameters do not lie there.  The MoE, RWKV and Whisper families raise
-NotImplementedError naming their ROADMAP item, and so does training a
-hybrid model.
+parameters do not lie there.  Training a hybrid model raises
+NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -33,27 +40,20 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, common, mamba
+from repro_torch.models import attention, common, mamba, moe, rwkv
 from repro_torch.models.common import ParamSpec as PS
 
-SERVED = ("dense", "vlm", "hybrid")
-TRAINED = ("dense", "vlm")
+TRAINED = ("dense", "vlm", "moe", "ssm", "audio")
 
 
 def _check_family(cfg: ModelConfig, *, train: bool = False) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for what the
-    port does not run yet."""
-    where = f"{cfg.name} ({cfg.family} family)"
-    if cfg.n_experts or cfg.family in ("moe", "ssm"):
-        raise NotImplementedError(
-            f"{where}: MoE and RWKV wait for ROADMAP.md Queue 1, item 18c")
-    if cfg.enc_dec or cfg.family not in SERVED:
-        raise NotImplementedError(
-            f"{where}: Whisper waits for ROADMAP.md Queue 1, item 18d")
+    port does not run yet: training a hybrid model."""
     if train and cfg.family not in TRAINED:
         raise NotImplementedError(
-            f"{where}: training a hybrid model needs a backward of the "
-            "ssm_scan kernel, ROADMAP.md Queue 1, item 20")
+            f"{cfg.name} ({cfg.family} family): training a hybrid model "
+            "needs a backward of the ssm_scan kernel, ROADMAP.md Queue 1, "
+            "item 20")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,7 +110,6 @@ def _ffn_specs(cfg: ModelConfig, L: int) -> dict:
 
 
 def param_specs(cfg: ModelConfig) -> dict:
-    _check_family(cfg)
     d, v, L = cfg.d_model, cfg.vocab_padded, cfg.n_layers
     specs: dict = {
         "embed": PS((v, d), ("vocab", "embed"), scale=1.0),
@@ -118,11 +117,13 @@ def param_specs(cfg: ModelConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = PS((d, v), ("embed", "vocab"))
+    if cfg.family == "ssm":
+        specs["layers"] = rwkv.param_specs(cfg)
+        return specs
     layers = {
         "ln1": PS((L, d), ("layers", "embed"), init="zeros"),
         "ln2": PS((L, d), ("layers", "embed"), init="zeros"),
         "attn": _attn_specs(cfg, L),
-        "ffn": _ffn_specs(cfg, L),
     }
     if cfg.family == "hybrid":
         layers["mamba"] = mamba.param_specs(cfg, d_inner=cfg.q_dim)
@@ -130,9 +131,26 @@ def param_specs(cfg: ModelConfig) -> dict:
                                   init="zeros")
         layers["mamba_gamma"] = PS((L, cfg.q_dim), ("layers", "q_heads"),
                                    init="zeros")
+    if cfg.n_experts:
+        layers["moe"] = moe.param_specs(cfg)
+    else:
+        layers["ffn"] = _ffn_specs(cfg, L)
     specs["layers"] = layers
     if cfg.meta_tokens:
         specs["meta"] = PS((cfg.meta_tokens, d), (None, "embed"), scale=1.0)
+    if cfg.enc_dec:
+        Ld = cfg.n_dec_layers
+        specs["enc_final_norm"] = PS((d,), ("embed",), init="zeros")
+        specs["dec_pos"] = PS((cfg.decoder_len, d), (None, "embed"),
+                              scale=1.0)
+        specs["dec"] = {
+            "ln1": PS((Ld, d), ("layers", "embed"), init="zeros"),
+            "ln_x": PS((Ld, d), ("layers", "embed"), init="zeros"),
+            "ln2": PS((Ld, d), ("layers", "embed"), init="zeros"),
+            "attn": _attn_specs(cfg, Ld),
+            "xattn": _attn_specs(cfg, Ld),
+            "ffn": _ffn_specs(cfg, Ld),
+        }
     return specs
 
 
@@ -142,6 +160,8 @@ def param_specs(cfg: ModelConfig) -> dict:
 
 
 def _qkv(x, p, cfg: ModelConfig, positions):
+    """Projected q, k, v; RoPE at ``positions`` unless it is None (an
+    enc_dec model has no RoPE)."""
     b, s, _ = x.shape
     q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
     k = (x @ p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
@@ -149,20 +169,23 @@ def _qkv(x, p, cfg: ModelConfig, positions):
     if cfg.qk_norm:
         q = common.rmsnorm(q, p["q_gamma"])
         k = common.rmsnorm(k, p["k_gamma"])
-    q = common.rope(q, positions, cfg.rope_theta)
-    k = common.rope(k, positions, cfg.rope_theta)
+    if positions is not None:
+        q = common.rope(q, positions, cfg.rope_theta)
+        k = common.rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
-def attn_train(x, p, cfg: ModelConfig, kind: str):
-    """Full-sequence attention (forward, loss and prefill compute).
+def attn_train(x, p, cfg: ModelConfig, kind: str, *, causal: bool = True):
+    """Full-sequence attention (forward, loss and prefill compute);
+    ``causal=False`` for Whisper's encoder.
 
     Returns (out, (k, v)) so prefill can write the cache."""
     b, s, _ = x.shape
-    positions = torch.arange(s, device=x.device)[None, :]
+    positions = None if cfg.enc_dec \
+        else torch.arange(s, device=x.device)[None, :]
     q, k, v = _qkv(x, p, cfg, positions)
     window = cfg.window if kind == "swa" else 0
-    out = attention.attend(q, k, v, causal=True, window=window,
+    out = attention.attend(q, k, v, causal=causal, window=window,
                            chunk=attention.div_chunk(s, cfg.scan_chunk))
     return out.reshape(b, s, cfg.q_dim) @ p["wo"], (k, v)
 
@@ -179,13 +202,27 @@ def attn_decode(x, p, cfg: ModelConfig, kind: str, cache, pos):
     return out.reshape(b, 1, cfg.q_dim) @ p["wo"], {"k": kc, "v": vc}
 
 
+def _zero_aux(device) -> moe.MoEAux:
+    return moe.MoEAux(*(torch.zeros((), dtype=torch.float32, device=device)
+                        for _ in range(3)))
+
+
+def _add_aux(a: moe.MoEAux, b: moe.MoEAux) -> moe.MoEAux:
+    return moe.MoEAux(*(x + y for x, y in zip(a, b)))
+
+
 def ffn_block(x, p, cfg: ModelConfig):
+    """The dense FFN, or the routed experts of a MoE model.
+    -> (out, MoEAux); a dense FFN's aux is zeros."""
     act = common.activation(cfg.mlp_act)
+    if cfg.n_experts:
+        return moe.moe_ffn(x, p, top_k=cfg.top_k,
+                           capacity_factor=cfg.capacity_factor, act=act)
     if cfg.mlp_gated:
         h = act(x @ p["wg"]) * (x @ p["wu"])
     else:
         h = act(x @ p["wu"])
-    return h @ p["wd"]
+    return h @ p["wd"], _zero_aux(x.device)
 
 
 def _mix(attn_out, m_out, p):
@@ -194,13 +231,16 @@ def _mix(attn_out, m_out, p):
 
 
 def _ffn_residual(x, h, attn_out, p, cfg: ModelConfig):
-    """The FFN and the residual adds.  A parallel block's FFN reads the
-    same normed ``h`` as attention and ``ln2`` is not applied, as in the
-    reference."""
+    """The FFN and the residual adds -> (x, MoEAux).  A parallel block's
+    FFN reads the same normed ``h`` as attention and ``ln2`` is not
+    applied, as in the reference."""
+    pf = p["moe"] if cfg.n_experts else p["ffn"]
     if cfg.parallel_block:
-        return x + attn_out + ffn_block(h, p["ffn"], cfg)
+        f_out, aux = ffn_block(h, pf, cfg)
+        return x + attn_out + f_out, aux
     x = x + attn_out
-    return x + ffn_block(common.rmsnorm(x, p["ln2"]), p["ffn"], cfg)
+    f_out, aux = ffn_block(common.rmsnorm(x, p["ln2"]), pf, cfg)
+    return x + f_out, aux
 
 
 # ---------------------------------------------------------------------------
@@ -209,13 +249,14 @@ def _ffn_residual(x, h, attn_out, p, cfg: ModelConfig):
 
 
 def layer_train(x, p, cfg: ModelConfig, kind: str):
-    """One decoder layer, full sequence. Returns (x, (k, v))."""
+    """One decoder layer, full sequence. Returns (x, MoEAux, (k, v))."""
     h = common.rmsnorm(x, p["ln1"])
     attn_out, kv = attn_train(h, p["attn"], cfg, kind)
     if cfg.family == "hybrid":
         m_out, _ = mamba.mamba_mix(h, p["mamba"], d_inner=cfg.q_dim)
         attn_out = _mix(attn_out, m_out, p)
-    return _ffn_residual(x, h, attn_out, p, cfg), kv
+    x, aux = _ffn_residual(x, h, attn_out, p, cfg)
+    return x, aux, kv
 
 
 def layer_decode(x, p, cfg: ModelConfig, kind: str, cache, pos):
@@ -230,7 +271,7 @@ def layer_decode(x, p, cfg: ModelConfig, kind: str, cache, pos):
         cache["m_h"].copy_(mst.h)
         cache["m_conv"].copy_(mst.conv)
         attn_out = _mix(attn_out, m_out, p)
-    return _ffn_residual(x, h, attn_out, p, cfg), cache
+    return _ffn_residual(x, h, attn_out, p, cfg)[0], cache
 
 
 def layer_prefill(x, p, cfg: ModelConfig, kind: str, cache):
@@ -253,7 +294,7 @@ def layer_prefill(x, p, cfg: ModelConfig, kind: str, cache):
         cache["m_h"].copy_(mst.h)
         cache["m_conv"].copy_(mst.conv)
         attn_out = _mix(attn_out, m_out, p)
-    return _ffn_residual(x, h, attn_out, p, cfg), cache
+    return _ffn_residual(x, h, attn_out, p, cfg)[0], cache
 
 
 # ---------------------------------------------------------------------------
@@ -274,15 +315,30 @@ def _unstack(tree: dict, n: int) -> list[dict]:
     return [common.tree_map(lambda t: t[i], per_leaf) for i in range(n)]
 
 
+def _remat(cfg: ModelConfig, mode: str) -> bool:
+    """Whether "train" mode puts each layer under checkpointing."""
+    return mode == "train" and torch.is_grad_enabled() \
+        and cfg.remat != "none"
+
+
+def _run(fn, remat: bool, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` when ``remat``."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def _train_layer(x, p_l, cfg: ModelConfig, kind: str):
-    return layer_train(x, p_l, cfg, kind)[0]
+    x, aux, _ = layer_train(x, p_l, cfg, kind)
+    return (x, *aux)
 
 
 def decoder_stack(params, x, cfg: ModelConfig, mode: str, *,
                   cache=None, pos=None):
     """Run all decoder layers, a host loop over each segment's layers.
     ``mode`` is "train" (no cache), "prefill" or "decode" (the cache is
-    written in place).  Returns (x, cache).
+    written in place).  Returns (x, MoEAux summed over the layers in
+    "train" mode, zeros otherwise, cache).
 
     In "train" mode under autograd, ``cfg.remat`` "full" and "dots" put
     each layer under ``torch.utils.checkpoint`` (only its input is kept;
@@ -290,25 +346,164 @@ def decoder_stack(params, x, cfg: ModelConfig, mode: str, *,
     all.  "dots" saves nothing more than "full" here: the reference's
     policy of also keeping the matmul outputs has no counterpart.  The
     values are the same either way."""
-    remat = mode == "train" and torch.is_grad_enabled() \
-        and cfg.remat != "none"
+    if cfg.family == "ssm":
+        return _rwkv_stack(params, x, cfg, mode, cache=cache)
+    remat = _remat(cfg, mode)
+    aux = _zero_aux(x.device)
     layers = _unstack(params["layers"], cfg.n_layers)
     for si, seg in enumerate(segments(cfg)):
         for i in range(seg.start, seg.end):
             p_l = layers[i]
             if mode == "train":
-                if remat:
-                    x = checkpoint(_train_layer, x, p_l, cfg, seg.kind,
-                                   use_reentrant=False)
-                else:
-                    x = _train_layer(x, p_l, cfg, seg.kind)
+                x, *a = _run(_train_layer, remat, x, p_l, cfg, seg.kind)
+                aux = _add_aux(aux, moe.MoEAux(*a))
                 continue
             c_l = _layer(cache[si], i - seg.start)
             if mode == "prefill":
                 x, _ = layer_prefill(x, p_l, cfg, seg.kind, c_l)
             else:
                 x, _ = layer_decode(x, p_l, cfg, seg.kind, c_l, pos)
-    return x, cache
+    return x, aux, cache
+
+
+def _rwkv_layer(x, p_l, cfg: ModelConfig, state=None):
+    return rwkv.rwkv_layer(x, p_l, head_dim=cfg.rwkv_head_dim,
+                           chunk=min(64, cfg.scan_chunk), state=state)
+
+
+def _rwkv_train_layer(x, p_l, cfg: ModelConfig):
+    return _rwkv_layer(x, p_l, cfg)[0]
+
+
+def _rwkv_stack(params, x, cfg: ModelConfig, mode: str, *, cache=None):
+    """The RWKV6 blocks.  "train" starts every layer from the zero state
+    (what the reference's zero cache gives); "prefill" and "decode" read
+    each layer's state from ``cache`` and write the new one in place.
+    Returns (x, zero MoEAux, cache)."""
+    remat = _remat(cfg, mode)
+    for i, p_l in enumerate(_unstack(params["layers"], cfg.n_layers)):
+        if mode == "train":
+            x = _run(_rwkv_train_layer, remat, x, p_l, cfg)
+            continue
+        c = cache[0]
+        x, st = _rwkv_layer(x, p_l, cfg, rwkv.RwkvState(
+            s=c["s"][i], x_tm=c["x_tm"][i], x_cm=c["x_cm"][i]))
+        c["s"][i].copy_(st.s)
+        c["x_tm"][i].copy_(st.x_tm)
+        c["x_cm"][i].copy_(st.x_cm)
+    return x, _zero_aux(x.device), cache
+
+
+# ---------------------------------------------------------------------------
+# Whisper encoder-decoder
+# ---------------------------------------------------------------------------
+
+
+def _sinusoid(n: int, d: int, device=None) -> torch.Tensor:
+    """(n, d) sinusoidal positions: sines, then cosines.  The frequencies'
+    power is taken in float64 and rounded once, as XLA's float32 power
+    rounds it (torch's float32 power is an ulp off at some exponents,
+    which moved a sine at 1,500 x 1,024 by 3e-5)."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    i = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    freq = torch.pow(10000.0, (2 * i / d).to(torch.float64)).to(torch.float32)
+    ang = pos / freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=1)
+
+
+def _encoder_layer(x, p_l, cfg: ModelConfig):
+    h = common.rmsnorm(x, p_l["ln1"])
+    out, _ = attn_train(h, p_l["attn"], cfg, "full", causal=False)
+    x = x + out
+    f_out, _ = ffn_block(common.rmsnorm(x, p_l["ln2"]), p_l["ffn"], cfg)
+    return x + f_out
+
+
+def encoder_stack(params, frames: torch.Tensor, cfg: ModelConfig):
+    """Whisper's encoder over frame embeddings (B, F, d): sinusoidal
+    positions, then ``n_layers`` non-causal pre-norm layers (under
+    checkpointing as the decoder stack's).  -> (B, F, d), final-normed."""
+    x = frames + _sinusoid(frames.shape[1], cfg.d_model,
+                           frames.device).to(frames.dtype)[None]
+    remat = _remat(cfg, "train")
+    for p_l in _unstack(params["layers"], cfg.n_layers):
+        x = _run(_encoder_layer, remat, x, p_l, cfg)
+    return common.rmsnorm(x, params["enc_final_norm"])
+
+
+def _cross_kv(enc_out, p, cfg: ModelConfig):
+    b, f, _ = enc_out.shape
+    return ((enc_out @ p["wk"]).reshape(b, f, cfg.n_kv_heads, cfg.head_dim),
+            (enc_out @ p["wv"]).reshape(b, f, cfg.n_kv_heads, cfg.head_dim))
+
+
+def _decoder_layer(x, p_l, enc_out, cfg: ModelConfig, c_l=None):
+    """One decoder layer over the whole token sequence: causal self-
+    attention, cross-attention to ``enc_out``, the FFN.  With ``c_l``
+    (prefill) the self K/V and the cross K/V are written into it."""
+    h = common.rmsnorm(x, p_l["ln1"])
+    out, (k, v) = attn_train(h, p_l["attn"], cfg, "full")
+    x = x + out
+    h = common.rmsnorm(x, p_l["ln_x"])
+    b, sq, _ = h.shape
+    q = (h @ p_l["xattn"]["wq"]).reshape(b, sq, cfg.n_heads, cfg.head_dim)
+    xk, xv = _cross_kv(enc_out, p_l["xattn"], cfg)
+    out = attention.attend(q, xk, xv, causal=False,
+                           chunk=attention.div_chunk(sq, cfg.scan_chunk))
+    x = x + out.reshape(b, sq, cfg.q_dim) @ p_l["xattn"]["wo"]
+    f_out, _ = ffn_block(common.rmsnorm(x, p_l["ln2"]), p_l["ffn"], cfg)
+    if c_l is not None:
+        c_l["k"][:, :sq] = k.to(c_l["k"].dtype)
+        c_l["v"][:, :sq] = v.to(c_l["v"].dtype)
+        c_l["xk"].copy_(xk)
+        c_l["xv"].copy_(xv)
+    return x + f_out
+
+
+def _decoder_layer_decode(x, p_l, cfg: ModelConfig, c_l, pos: int):
+    """One decoder layer, one token at ``pos``; its self K/V written into
+    the cache.  The cross-attention reads every frame of ``xk`` / ``xv``
+    (the reference's reads only whole chunks of 1,024)."""
+    b = x.shape[0]
+    h = common.rmsnorm(x, p_l["ln1"])
+    q, k, v = _qkv(h, p_l["attn"], cfg, None)
+    kc, vc = attention.cache_update(c_l["k"], c_l["v"], k, v, pos)
+    out = attention.decode_attend(q, kc, vc, pos)
+    x = x + out.reshape(b, 1, cfg.q_dim) @ p_l["attn"]["wo"]
+    h = common.rmsnorm(x, p_l["ln_x"])
+    q = (h @ p_l["xattn"]["wq"]).reshape(b, 1, cfg.n_heads, cfg.head_dim)
+    out = attention.decode_attend(q, c_l["xk"], c_l["xv"],
+                                  c_l["xk"].shape[1] - 1)
+    x = x + out.reshape(b, 1, cfg.q_dim) @ p_l["xattn"]["wo"]
+    f_out, _ = ffn_block(common.rmsnorm(x, p_l["ln2"]), p_l["ffn"], cfg)
+    return x + f_out
+
+
+def whisper_decoder(params, tokens: torch.Tensor, enc_out, cfg: ModelConfig,
+                    mode: str, *, cache=None, pos: int | None = None):
+    """Whisper's decoder: self- and cross-attention.
+
+    "train" / "prefill": tokens (B, T) against ``enc_out`` (B, F, d);
+    "prefill" fills the cache's self K/V at [0, T) and its cross K/V
+    (which must span F frames).  "decode": tokens (B, 1) at ``pos``
+    against the cache, written in place.  -> (x final-normed, cache)."""
+    x = params["embed"][tokens]
+    if mode == "decode":
+        x = x + params["dec_pos"][pos][None, None].to(x.dtype)
+    else:
+        x = x + params["dec_pos"][None, :x.shape[1]].to(x.dtype)
+    if mode == "prefill" and cache[0]["xk"].shape[2] != enc_out.shape[1]:
+        raise ValueError(f"the cache holds {cache[0]['xk'].shape[2]} frames,"
+                         f" the encoder gave {enc_out.shape[1]}")
+    remat = _remat(cfg, mode)
+    for i, p_l in enumerate(_unstack(params["dec"], cfg.n_dec_layers)):
+        if mode == "train":
+            x = _run(_decoder_layer, remat, x, p_l, enc_out, cfg)
+        elif mode == "prefill":
+            x = _decoder_layer(x, p_l, enc_out, cfg, _layer(cache[0], i))
+        else:
+            x = _decoder_layer_decode(x, p_l, cfg, _layer(cache[0], i), pos)
+    return common.rmsnorm(x, params["final_norm"]), cache
 
 
 # ---------------------------------------------------------------------------
@@ -369,25 +564,37 @@ def lm_logits(params, x, cfg: ModelConfig):
     return logits
 
 
+def _encode(params, batch: dict, cfg: ModelConfig, device):
+    """An enc_dec batch's encoder output and decoder tokens on the device."""
+    dev, tokens = _on_device(params, batch["dec_tokens"], device)
+    frames = torch.as_tensor(batch["frames"], device=dev)
+    return encoder_stack(params, frames, cfg), tokens
+
+
 def _hidden(params, batch: dict, cfg: ModelConfig, device):
     """The final-normed hidden states of the tokens (prefixes cut),
-    (B, S, d), and the tokens on the device."""
+    (B, S, d), the tokens on the device and the MoEAux summed over the
+    layers.  An enc_dec batch holds "frames" and "dec_tokens"."""
+    if cfg.enc_dec:
+        enc, tokens = _encode(params, batch, cfg, device)
+        x, _ = whisper_decoder(params, tokens, enc, cfg, "train")
+        return x, tokens, _zero_aux(x.device)
     dev, tokens = _on_device(params, batch["tokens"], device)
     patches = _patches(batch, cfg, dev)
     x = embed_inputs(params, tokens, cfg, patches)
-    x, _ = decoder_stack(params, x, cfg, "train")
+    x, aux, _ = decoder_stack(params, x, cfg, "train")
     x = common.rmsnorm(x, params["final_norm"])
     prefix = _prefix(cfg, patches)
-    return (x[:, prefix:] if prefix else x), tokens
+    return (x[:, prefix:] if prefix else x), tokens, aux
 
 
 @torch.no_grad()
 def forward(params, batch: dict, cfg: ModelConfig, *,
             device: str | torch.device | None = "cuda"):
     """Teacher-forcing forward: batch {"tokens": (B, S)} (a vlm batch may
-    add "patches" (B, P, d)) -> logits (B, S, V) of the tokens."""
-    _check_family(cfg)
-    x, _ = _hidden(params, batch, cfg, device)
+    add "patches" (B, P, d); an enc_dec batch is {"frames": (B, F, d),
+    "dec_tokens": (B, T)}) -> logits (B, S, V) of the tokens."""
+    x, _, _ = _hidden(params, batch, cfg, device)
     return lm_logits(params, x, cfg)
 
 
@@ -412,11 +619,15 @@ def loss_fn(params, batch: dict, cfg: ModelConfig, *,
     positions (the largest divisor of S up to 512, as in the reference)
     and, under autograd, recomputed chunk by chunk in the backward, so no
     (B, S, V) tensor is ever held.  The padded vocabulary's columns are
-    masked at -1e30.  Differentiable: the caller decides whether autograd
+    masked at -1e30.  A MoE model's loss adds 0.01·lb/L + 1e-4·z/L of
+    the load-balance and z-loss terms summed over its L layers; its
+    metrics carry their sums ``moe_lb`` and ``moe_drop`` (zeros for the
+    other families).  An enc_dec model's loss is over its
+    ``dec_tokens``.  Differentiable: the caller decides whether autograd
     records it.  A hybrid model's loss is refused only under autograd:
     its forward runs, its backward does not exist yet."""
     _check_family(cfg, train=torch.is_grad_enabled())
-    x, tokens = _hidden(params, batch, cfg, device)
+    x, tokens, aux = _hidden(params, batch, cfg, device)
     labels = batch.get("labels")
     if labels is None:
         labels = torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], -1)],
@@ -444,10 +655,12 @@ def loss_fn(params, batch: dict, cfg: ModelConfig, *,
         tot = tot + part
         cnt = cnt + torch.sum((ls >= 0).to(torch.float32))
     ce = tot / torch.clamp(cnt, min=1.0)
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    # the MoE load-balance and drop terms come with item 18c
-    return ce, {"ce": ce, "loss": ce, "tokens": cnt, "moe_lb": zero,
-                "moe_drop": zero}
+    loss = ce
+    if cfg.n_experts:
+        loss = loss + 0.01 * aux.load_balance / cfg.n_layers \
+            + 1e-4 * aux.router_z / cfg.n_layers
+    return loss, {"ce": ce, "loss": loss, "tokens": cnt,
+                  "moe_lb": aux.load_balance, "moe_drop": aux.dropped_frac}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -455,9 +668,23 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: str | torch.device | None = "cuda") -> list:
     """Per-segment cache (zeros) for ``max_len`` positions after the meta
     prefix (a vlm prompt's patches count among them); shapes depend on
-    the segment kinds."""
-    _check_family(cfg)
+    the segment kinds.  An ssm model's RWKV states ``s`` are f32 whatever
+    ``dtype``; an enc_dec model's ``max_len`` is its frame count (the
+    cross K/V), its self K/V spans ``decoder_len``."""
     dev = resolve_device(device)
+    zeros = lambda *shape, dt=dtype: torch.zeros(shape, dtype=dt, device=dev)
+    if cfg.enc_dec:
+        Ld, kvh, hd = cfg.n_dec_layers, cfg.n_kv_heads, cfg.head_dim
+        return [dict(k=zeros(Ld, batch, cfg.decoder_len, kvh, hd),
+                     v=zeros(Ld, batch, cfg.decoder_len, kvh, hd),
+                     xk=zeros(Ld, batch, max_len, kvh, hd),
+                     xv=zeros(Ld, batch, max_len, kvh, hd))]
+    if cfg.family == "ssm":
+        L, n = cfg.n_layers, cfg.rwkv_head_dim
+        return [dict(s=zeros(L, batch, cfg.d_model // n, n, n,
+                             dt=torch.float32),
+                     x_tm=zeros(L, batch, cfg.d_model),
+                     x_cm=zeros(L, batch, cfg.d_model))]
     total = max_len + cfg.meta_tokens
     out = []
     for seg in segments(cfg):
@@ -478,12 +705,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 @torch.no_grad()
 def prefill(params, batch: dict, cache: list, cfg: ModelConfig, *,
             device: str | torch.device | None = "cuda"):
-    """Process the prompt (a vlm batch's patches first); returns
+    """Process the prompt (a vlm batch's patches first; an enc_dec batch's
+    frames through the encoder, then its "dec_tokens"); returns
     (last-position logits (B, 1, V), the cache, filled in place)."""
-    _check_family(cfg)
+    if cfg.enc_dec:
+        enc, tokens = _encode(params, batch, cfg, device)
+        x, cache = whisper_decoder(params, tokens, enc, cfg, "prefill",
+                                   cache=cache)
+        return lm_logits(params, x[:, -1:], cfg), cache
     dev, tokens = _on_device(params, batch["tokens"], device)
     x = embed_inputs(params, tokens, cfg, _patches(batch, cfg, dev))
-    x, cache = decoder_stack(params, x, cfg, "prefill", cache=cache)
+    x, _, cache = decoder_stack(params, x, cfg, "prefill", cache=cache)
     x = common.rmsnorm(x, params["final_norm"])
     return lm_logits(params, x[:, -1:], cfg), cache
 
@@ -493,15 +725,20 @@ def decode_step(params, tokens, pos: int, cache: list, cfg: ModelConfig, *,
                 device: str | torch.device | None = "cuda"):
     """One token step. tokens (B, 1); ``pos`` = its absolute position in
     the prompt + generated stream, a vlm prompt's patches included (the
-    meta prefix is added here).
+    meta prefix is added here; an enc_dec model's is its position among
+    the decoder's tokens).
 
     Returns (logits (B, 1, V), the cache, updated in place)."""
-    _check_family(cfg)
     dev, tokens = _on_device(params, tokens, device)
+    if cfg.enc_dec:
+        x, cache = whisper_decoder(params, tokens, None, cfg, "decode",
+                                   cache=cache, pos=int(pos))
+        return lm_logits(params, x, cfg), cache
     x = _embed_tokens(params, tokens, cfg)
     eff_pos = pos + cfg.meta_tokens
     posv = torch.full((tokens.shape[0],), eff_pos, dtype=torch.int64,
                       device=dev)
-    x, cache = decoder_stack(params, x, cfg, "decode", cache=cache, pos=posv)
+    x, _, cache = decoder_stack(params, x, cfg, "decode", cache=cache,
+                                pos=posv)
     x = common.rmsnorm(x, params["final_norm"])
     return lm_logits(params, x, cfg), cache

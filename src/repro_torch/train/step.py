@@ -119,7 +119,6 @@ def make_train_step(cfg: ModelConfig, *, base_lr: float = 3e-4,
 def make_eval_step(cfg: ModelConfig, *,
                    device: str | torch.device | None = "cuda") -> Callable:
     """(params, batch) -> the loss's metrics, without autograd."""
-    transformer._check_family(cfg)
 
     @torch.no_grad()
     def eval_step(params, batch):
@@ -140,8 +139,9 @@ def make_serve_step(cfg: ModelConfig, *,
 
 def make_prefill_step(cfg: ModelConfig, *,
                       device: str | torch.device | None = "cuda") -> Callable:
-    """Prompt step: (params, batch {"tokens": (B, S)}, cache) ->
-    (last-position logits (B, 1, V), cache)."""
+    """Prompt step: (params, batch {"tokens": (B, S)} or an enc_dec
+    model's {"frames", "dec_tokens"}, cache) -> (last-position logits
+    (B, 1, V), cache)."""
     def prefill_step(params, batch, cache):
         return transformer.prefill(params, batch, cache, cfg, device=device)
     return prefill_step

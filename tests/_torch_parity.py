@@ -1,5 +1,6 @@
 """Helpers shared by the port's parity tests: carry a ``repro`` index
-across with ``interop`` and compare two SearchResults.
+across with ``interop``, compare two SearchResults, and the
+``one_intra_op_thread`` fixture every port test module imports.
 
 Ids and every SearchStats counter must be equal.  Squared distances agree
 to rtol 1e-5 / atol 1e-4: the expanded form cancels two terms of size ~n
@@ -7,8 +8,24 @@ to rtol 1e-5 / atol 1e-4: the expanded form cancels two terms of size ~n
 results hold sqrt'd distances, so they are squared back (in float64).
 """
 import numpy as np
+import pytest
+import torch
 
 from repro_torch import interop
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_intra_op_thread():
+    """Torch on one intra-op thread for the importing test module.  The
+    test run puts several worker processes on the machine's cores; torch's
+    default of one thread per core in each oversubscribes them, and its
+    many small ops then wait on each other (a smoke() train step of 8 x
+    64 tokens took 0.4 s alone on 8 threads, 0.12 s on one, and ~2.3 s
+    beside five other workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def carry(ji):

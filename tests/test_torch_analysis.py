@@ -41,6 +41,7 @@ from repro_torch.analysis import Project, contracts, locks, run_analysis
 from repro_torch.analysis import cli, sanitize, syncs
 from repro_torch.analysis.common import SourceFile
 from repro_torch.examples import quickstart
+from _torch_parity import one_intra_op_thread  # noqa: F401
 
 SRC = Path(__file__).resolve().parent.parent / "src"
 PORT = str(SRC / "repro_torch")

@@ -29,6 +29,7 @@ from repro_torch.kernels.fused_refine import fused_panel_topk
 from repro_torch.kernels.isax_summarize import isax_summarize
 from repro_torch.kernels.lb_scan import lb_scan
 from repro_torch.kernels.ssm_scan import ssm_scan
+from _torch_parity import one_intra_op_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 

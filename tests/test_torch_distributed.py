@@ -36,6 +36,7 @@ from repro_torch import storage as tst
 from repro_torch.core import distributed as tdist
 from repro_torch.core import engine as tengine
 from repro_torch.data import random_walk
+from _torch_parity import one_intra_op_thread  # noqa: F401
 
 from conftest import run_subprocess
 

@@ -23,6 +23,7 @@ from repro_torch.core import dtw as tdtw
 from repro_torch.core import engine as tengine
 from repro_torch.core import isax
 from repro_torch.data import random_walk
+from _torch_parity import one_intra_op_thread  # noqa: F401
 
 R = 4
 

@@ -23,6 +23,7 @@ from repro_torch.core import engine as tengine
 from repro_torch.core import paris as tparis
 from repro_torch.core import vector as tvector
 from repro_torch.data import random_walk
+from _torch_parity import one_intra_op_thread  # noqa: F401
 
 KS = (1, 5, 32)
 

@@ -11,6 +11,7 @@ torch = pytest.importorskip("torch", exc_type=ImportError)
 
 from repro.core import frontier as jf
 from repro_torch.core import frontier as tf
+from _torch_parity import one_intra_op_thread  # noqa: F401
 
 
 def _pair(qn, k, seed):

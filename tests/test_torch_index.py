@@ -17,6 +17,7 @@ from repro.core import isax as jisax
 from repro_torch import interop
 from repro_torch.core import index as tindex, isax as tisax
 from repro_torch.data import random_walk
+from _torch_parity import one_intra_op_thread  # noqa: F401
 
 CASES = {
     "engine_data": (lambda: random_walk(1024, 128, seed=13), 64),

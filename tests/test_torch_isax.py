@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch", exc_type=ImportError)
 from repro.core import isax as jisax
 from repro_torch.core import isax as tisax
 from repro_torch.data import random_walk
+from _torch_parity import one_intra_op_thread  # noqa: F401
 
 
 def _np(t):

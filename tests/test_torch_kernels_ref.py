@@ -22,6 +22,7 @@ from repro.core import isax as jisax
 from repro.kernels import ref as jref
 from repro_torch.kernels import ref as tref
 from repro_torch.data import random_walk
+from _torch_parity import one_intra_op_thread  # noqa: F401
 
 QS = (1, 6, 13)
 KS = (1, 5, 32)

@@ -34,6 +34,7 @@ from repro_torch.launch import serve
 from repro_torch.models import attention, common
 from repro_torch.models import transformer as T
 from repro_torch.train import make_eval_step, make_train_step
+from _torch_parity import one_intra_op_thread  # noqa: F401
 
 ARCH = "hymba-1.5b"
 B, PROMPT, GEN = 2, 32, 8
@@ -66,22 +67,25 @@ def test_config_matches_reference(smoke):
 
 
 def test_other_architectures_name_their_roadmap_item():
-    """Every architecture resolves; the families the port does not run
-    yet raise in ``param_specs`` and in every entry point, naming their
-    item, and so does training Hymba."""
-    for arch, item in (("rwkv6-7b", "item 18c"),
-                       ("granite-moe-1b-a400m", "item 18c"),
-                       ("whisper-medium", "item 18d")):
+    """The MoE, RWKV and Whisper families run ``param_specs``,
+    ``init_cache``, ``forward`` and ``loss_fn`` (their parity with the
+    reference is tests/test_torch_{moe,rwkv,whisper}.py); training Hymba
+    is the one thing refused, naming its item."""
+    for arch in ("rwkv6-7b", "granite-moe-1b-a400m", "whisper-medium"):
         cfg = get_config(arch, smoke=True)
-        calls = (lambda: T.param_specs(cfg),
-                 lambda: T.init_cache(cfg, 1, 8, device="cpu"),
-                 lambda: T.forward({}, {"tokens": np.zeros((1, 8))}, cfg,
-                                   device="cpu"),
-                 lambda: T.loss_fn({}, {"tokens": np.zeros((1, 8))}, cfg,
-                                   device="cpu"))
-        for call in calls:
-            with pytest.raises(NotImplementedError, match=item):
-                call()
+        params = serve.build_params(cfg, 0, "cpu")
+        assert common.tree_map(lambda s: s.shape, T.param_specs(cfg)) == \
+            common.tree_map(lambda t: tuple(t.shape), params)
+        assert T.init_cache(cfg, 1, 8, device="cpu")
+        batch = {"tokens": np.zeros((1, 8), np.int64)}
+        if cfg.enc_dec:
+            batch = {"frames": np.zeros((1, 8, cfg.d_model), np.float32),
+                     "dec_tokens": np.zeros((1, 8), np.int64)}
+        logits = T.forward(params, batch, cfg, device="cpu")
+        assert logits.shape == (1, 8, cfg.vocab)
+        assert bool(torch.isfinite(logits).all())
+        loss, metrics = T.loss_fn(params, batch, cfg, device="cpu")
+        assert bool(torch.isfinite(loss)) and float(metrics["tokens"]) == 7
     cfg = get_config(ARCH, smoke=True)
     params = serve.build_params(cfg, 0, "cpu")
     with pytest.raises(NotImplementedError, match="item 20"):
@@ -370,3 +374,14 @@ def test_serve_cli_on_the_cpu(capsys):
                        "3"]) == 0
     out = capsys.readouterr().out
     assert "prefill:" in out and "ms/token" in out and "device=cpu" in out
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "whisper-medium"])
+def test_serve_cli_serves_rwkv_and_whisper(arch, capsys):
+    """Whisper's request: --prompt-len frames and a decoder prompt of
+    min(prompt, decoder_len / 2) tokens, as the reference builds it."""
+    assert serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                       "--batch", "2", "--prompt-len", "12", "--gen",
+                       "3"]) == 0
+    out = capsys.readouterr().out
+    assert f"arch={arch}" in out and "ms/token" in out

@@ -33,6 +33,7 @@ from repro_torch.data import ChunkedLoader, build_streaming, random_walk
 from repro_torch.storage.pipeline import (BuildInterrupted, build_run,
                                           merge_order, merge_runs,
                                           run_pipeline)
+from _torch_parity import one_intra_op_thread  # noqa: F401
 
 CAP, CHUNK, LEN = 32, 128, 64
 SECTIONS = ("ids", "slo", "shi", "elo", "ehi")

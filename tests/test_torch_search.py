@@ -23,6 +23,7 @@ from repro_torch.core import engine as tengine
 from repro_torch.core.index import build as t_build
 from repro_torch.core.search import search_block_major as t_search
 from repro_torch.data import random_walk
+from _torch_parity import one_intra_op_thread  # noqa: F401
 
 KS = (1, 5, 32)
 

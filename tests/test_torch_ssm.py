@@ -20,6 +20,7 @@ from repro.models import mamba as jmamba
 from repro_torch import interop
 from repro_torch.kernels import ops, ref
 from repro_torch.models import mamba
+from _torch_parity import one_intra_op_thread  # noqa: F401
 
 D_MODEL, D_INNER, N_STATE = 32, 48, 8
 

@@ -29,7 +29,7 @@ from repro_torch.core.search import search as t_search_qm
 from repro_torch.core.search import search_block_major as t_search
 from repro_torch.data import random_walk
 
-from _torch_parity import carry, close_sq, same
+from _torch_parity import carry, close_sq, one_intra_op_thread, same  # noqa: F401
 
 N, LEN, CAP = 2000, 128, 64
 FIELDS = ("raw", "slo", "shi", "elo", "ehi", "ids")

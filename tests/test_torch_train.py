@@ -44,6 +44,7 @@ from repro_torch.train import (Checkpointer, compression,  # noqa: E402
                                make_eval_step, make_train_step, opt_init)
 from repro_torch.train import optimizer as opt_lib  # noqa: E402
 from repro_torch.train.step import lr_schedule  # noqa: E402
+from _torch_parity import one_intra_op_thread  # noqa: E402,F401
 
 TRAINS = ("command-r-35b", "gemma3-27b", "h2o-danube-1.8b",
           "nemotron-4-340b", "pixtral-12b")

@@ -29,6 +29,7 @@ from repro_torch.train import (Checkpointer, compression,  # noqa: E402
                                make_train_step, opt_init)
 from repro_torch.train import optimizer as opt_lib  # noqa: E402
 from repro_torch.train.step import lr_schedule  # noqa: E402
+from _torch_parity import one_intra_op_thread  # noqa: E402,F401
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "src")
@@ -183,8 +184,8 @@ def test_quantize_roundtrip_error_bounded():
 
 
 def test_checkpointer_atomic_keep_and_resume():
-    cfg, params = _params("nemotron-4-340b")
-    opt = opt_lib.adafactor_init(params)
+    cfg, params = _params("rwkv6-7b")
+    opt = opt_init(cfg.optimizer, params)
     with tempfile.TemporaryDirectory() as d:
         ck = Checkpointer(d, keep=2)
         for s in (1, 5, 9):
@@ -192,7 +193,7 @@ def test_checkpointer_atomic_keep_and_resume():
         ck.wait()
         assert ck.all_steps() == [5, 9]             # keep-last-2
         back = ck.restore({"params": params, "opt": opt})
-        assert isinstance(back["opt"], opt_lib.AdafactorState)
+        assert isinstance(back["opt"], opt_lib.AdamWState)
         for (pa, a), (pb, b) in zip(common.leaves(back["params"]),
                                     common.leaves(params)):
             assert pa == pb and torch.equal(a, b)
@@ -242,6 +243,17 @@ def test_train_cli_resumes_from_its_checkpoint(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "[resume] from step 5 -> starting at 6" in out
     assert "step     6 loss" in out and "step     5 loss" in out
+
+
+def test_train_cli_trains_a_moe_model(capsys):
+    assert launch_train.main(["--arch", "granite-moe-1b-a400m", "--smoke",
+                              "--steps", "3", "--batch", "2", "--seq", "32",
+                              "--device", "cpu", "--log-every", "1"]) == 0
+    out = capsys.readouterr().out
+    losses = [float(ln.split()[3]) for ln in out.splitlines()
+              if ln.startswith("step ")]
+    assert len(losses) == 3 and all(np.isfinite(losses))
+    assert "skipped 0" in out and "done." in out
 
 
 def test_train_cli_checkpoints_on_sigterm(tmp_path):
