@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive and check the port's search paths, its distributed protocol,
-search serving, LM serving (every family) and training (the dense and
-MoE families at full width) on one card.
+search serving, LM serving (every family) and training (the dense, MoE
+and hybrid families at full width, and data-parallel over ranks) on one
+card.
 
     python3 chip_smoke.py [--seed 0] [--n-series 10000000] [--queries 100]
                           [--dtw-queries 10] [--lm-batch 4]
@@ -13,7 +14,8 @@ CUDA toolkit.  Phases, each printing one JSON line:
 
   1. device    — the card's name and count, and nvidia-smi's name and
                  power limit; fails without a card;
-  2. build     — builds the seven CUDA kernels from
+  2. build     — builds the eight CUDA kernels (the seven TPU kernels'
+                 ports and the scan's backward) from
                  ``src/repro_torch/kernels/csrc`` (build seconds, ptxas
                  registers / shared memory / spills);
   3. main      — the main path through the user's entry points:
@@ -86,7 +88,30 @@ CUDA toolkit.  Phases, each printing one JSON line:
                  one ``smoke()`` step of granite-moe (capacity factor
                  16), rwkv6 and whisper on the card against the CPU
                  (1e-4 relative); no custom kernel (0 launches, checked);
- 11. kernels   — each kernel against its plain PyTorch version on the
+ 11. hybrid_train — ``hymba-1.5b`` ``full()`` trained as ``train`` trains
+                 h2o-danube (fp32 AdamW, per-layer checkpointing, 4 steps
+                 of 2 x 1,024 tokens on one batch, 128 meta tokens ahead
+                 of them) under ``train``'s checks, its Mamba recurrence
+                 through ``ssm_scan`` (the training launch keeps the
+                 state every 32 steps) and ``ssm_scan_bwd``: a step
+                 launches ``ssm_scan`` twice a layer (the forward and the
+                 checkpointed layer's recompute) and ``ssm_scan_bwd``
+                 once a layer, and nothing else (checked); a ``smoke()``
+                 step on the card against the CPU (1e-4 relative);
+ 12. mesh      — on the one card: ``python -m repro_torch.launch.train
+                 --mesh 2x1`` (hymba smoke(), 2 steps of 4 x 64 tokens;
+                 gloo, as two ranks share the card) as a subprocess, its checkpoint against
+                 one process's steps over the whole batch in two
+                 microbatches (1e-5); ``attention.decode_attend_seqsharded``
+                 on 2 spawned gloo ranks at one of ``gemma3-27b``'s global
+                 layers (32 query and 16 KV heads of 128) over the
+                 ``long_500k`` cache of 524,288 slots (8.6 GB of fp32
+                 K/V, from ``--seed``), B = 1, at a position inside rank
+                 1's half and off a chunk edge, against one-process
+                 ``decode_attend`` over the whole cache (1e-5 x its
+                 largest magnitude), the new
+                 K/V written by its owner; ms a call of both;
+ 13. kernels   — each kernel against its plain PyTorch version on the
                  card, at its paths' shapes and on their data, with the
                  stated tolerance, and timed beside its plain version, a
                  library call where one exists, and its bound (the larger
@@ -122,11 +147,17 @@ CUDA toolkit.  Phases, each printing one JSON line:
                  byte bound;
                  ``ssm_scan`` at layer 0's prefill, one decode step from
                  its state, and a state size that is no power of two
-                 (N = 12 over 512 steps);
- 12. exact     — every Euclidean path's answers (block-major, query-major,
+                 (N = 12 over 512 steps); ``ssm_scan_bwd`` against the
+                 plain reverse scan in float64 (1e-4 of each gradient's
+                 largest magnitude) at Hymba's training shape (2, 1,152,
+                 1,600) on layer 0's coefficients of ``hybrid_train``'s
+                 batch (N = 16, with and without dh_last) and on random
+                 ones at N = 1, 3, 12, 33 and 64, two launches bitwise
+                 equal;
+ 14. exact     — every Euclidean path's answers (block-major, query-major,
                  flat, UCR) against a brute-force scan of every series with
                  the plain ``batch_l2_ref`` + ``topk_by_dist_id``;
- 13. ooc       — the on-disk index over the same series (``--ooc-series``,
+ 15. ooc       — the on-disk index over the same series (``--ooc-series``,
                  all by default, cut in whole millions until the files fit
                  in half the free disk, under the git-ignored
                  ``build/ooc/``, removed at the end): the series written as
@@ -145,10 +176,10 @@ CUDA toolkit.  Phases, each printing one JSON line:
                  every block (bitwise equal, 0 bytes read); DTW (r=12,
                  k=10) on the ``--dtw-queries`` through that session, ids
                  against ``dtw``'s;
- 14. dist1     — ``distributed.search_sharded`` (k=10) over the main index
+ 16. dist1     — ``distributed.search_sharded`` (k=10) over the main index
                  on a world-size-1 NCCL group: bitwise ``main``'s
                  block-major answer and counters;
- 15. serve     — on the ooc phase's index file: 4 tenant threads x 25
+ 17. serve     — on the ooc phase's index file: 4 tenant threads x 25
                  queries (members of one random block plus 0.05 noise,
                  from ``--seed``), k=10, through one coalesced
                  ``SearchSession`` drain, each tenant bitwise its isolated
@@ -158,12 +189,12 @@ CUDA toolkit.  Phases, each printing one JSON line:
                  bitwise the exact answer; and ``python -m
                  repro_torch.launch.serve --search-index`` once, as a
                  subprocess (4 queries a tenant, k=1);
- 16. analysis  — the port's static checkers (``repro_torch.analysis``:
+ 18. analysis  — the port's static checkers (``repro_torch.analysis``:
                  lock discipline, host syncs, kernel/oracle contracts) over
                  ``src/repro_torch``, in process: any finding fails; the
                  annotated ``# sync`` sites of ``core/engine.py`` grouped by
                  the frequency their comments state;
- 17. sanitize  — the first 1M series of the ooc phase's file built here by
+ 19. sanitize  — the first 1M series of the ooc phase's file built here by
                  ``storage.run_pipeline``; then a subprocess with
                  ``REPRO_SANITIZE=1``: the session's and cache's locks
                  instrumented, an off-lock write to a guarded field raising
@@ -175,7 +206,7 @@ CUDA toolkit.  Phases, each printing one JSON line:
                  series.  The script refuses to run at all
                  with ``REPRO_SANITIZE`` set in its own environment: its
                  timed phases would measure the instrumented locks;
- 18. dist4     — the main process frees its tensors, then 4 ranks spawned
+ 20. dist4     — the main process frees its tensors, then 4 ranks spawned
                  on the card over gloo (a ``file://`` store under
                  ``build/``): each reads its quarter of the series file,
                  ``distributed.build_sharded`` with global ids,
@@ -186,7 +217,7 @@ CUDA toolkit.  Phases, each printing one JSON line:
                  and peak device memory, launches summed over ranks; a
                  rank that fails or a collective past its timeout fails
                  the run;
- 19. dist_ooc  — ``distributed.search_sharded_ooc`` over 4 sessions on
+ 21. dist_ooc  — ``distributed.search_sharded_ooc`` over 4 sessions on
                  dist4's shard files from a cold disk, k=10: ids against
                  the brute-force scan, the summed ``IOStats``.
 
@@ -229,14 +260,17 @@ from repro_torch.kernels.dtw_band import dtw_band_panel  # noqa: E402
 from repro_torch.kernels.fused_refine import fused_panel_topk  # noqa: E402
 from repro_torch.kernels.isax_summarize import isax_summarize  # noqa: E402
 from repro_torch.kernels.lb_scan import lb_scan  # noqa: E402
-from repro_torch.kernels.ssm_scan import ssm_scan  # noqa: E402
+from repro_torch.kernels.ssm_scan import (ssm_scan,  # noqa: E402
+                                          ssm_scan_with_checkpoints)
+from repro_torch.kernels.ssm_scan_bwd import ssm_scan_bwd  # noqa: E402
 from repro_torch.configs import count_params, get_config  # noqa: E402
 from repro_torch.data.tokens import synthetic_token_batches  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
-from repro_torch.models import common, mamba, transformer  # noqa: E402
-from repro_torch.train import (make_eval_step, make_train_step,  # noqa: E402
-                               opt_init)
+from repro_torch.models import (attention, common, mamba,  # noqa: E402
+                                transformer)
+from repro_torch.train import (Checkpointer, make_eval_step,  # noqa: E402
+                               make_train_step, opt_init)
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 # (operations a second, the unit a bound names) of the H100 SXM's units
@@ -295,6 +329,21 @@ FAMILY_CARD_CPU = ("granite-moe-1b-a400m", "rwkv6-7b", "whisper-medium")
 # device memory kept free beside a run's parameters (activations, the
 # forward's logits); a model that does not fit is cut in depth
 FAMILY_HEADROOM_BYTES = 16 << 30
+HYBRID_ARCH = "hymba-1.5b"     # hybrid_train: trained through ssm_scan_bwd
+BWD_REL = 1e-4                 # ssm_scan_bwd vs the float64 plain version, x max |ref|
+BWD_STATE_SIZES = (1, 3, 12, 33, 64)
+# mesh: launch.train --mesh on gloo ranks sharing the card, and the
+# sequence-sharded decode at one of gemma3-27b's global layers over the
+# long_500k cell's cache
+MESH_TRAIN_ARCH = "hymba-1.5b"
+MESH_BATCH, MESH_SEQ, MESH_STEPS = 4, 64, 2
+MESH_TRAIN_REL = 1e-5          # the mesh's checkpoint vs one process's steps
+MESH_WORLD = 2
+SEQ_ARCH, SEQ_SLOTS = "gemma3-27b", 524_288
+SEQ_POS = 300_007              # in rank 1's half, off a 1,024-slot chunk edge
+SEQ_REL = 1e-5                 # the sharded merge vs one process's decode, x max |want|
+SEQ_CALLS = 10
+MESH_DIR = ROOT / "build" / "mesh"   # git-ignored; removed at the phase's end
 
 OOC_DIR = ROOT / "build" / "ooc"   # git-ignored; removed at the phase's end
 # bytes on disk a series of 256 points: the series file (1,024), the index
@@ -325,13 +374,14 @@ PATH_KERNELS = {
     "ucr": ("batch_l2",),
     "dtw": ("lb_scan", "block_topk", "dtw_band_panel"),
     "lm": ("ssm_scan",),
+    "hybrid_train": ("ssm_scan", "ssm_scan_bwd"),
 }
 
 # the substring of each kernel's symbol the profiler's device events carry
 SYMBOL = {"isax_summarize": "isax_summarize", "lb_scan": "lb_scan",
           "block_topk": "block_topk", "fused_panel_topk": "fused_panel_topk",
           "batch_l2": "batch_l2", "dtw_band_panel": "dtw_band",
-          "ssm_scan": "ssm_scan"}
+          "ssm_scan": "ssm_scan", "ssm_scan_bwd": "ssm_scan_bwd"}
 
 FAILURES: list[str] = []
 
@@ -1078,6 +1128,282 @@ def phase_families(args) -> dict:
     return launches
 
 
+def _layer0_scan_inputs(params, tokens, cfg) -> dict:
+    """Layer 0's scan operands on ``tokens`` (the meta prefix included),
+    as ``mamba_mix`` forms them, without autograd."""
+    with torch.no_grad():
+        p0 = transformer._layer(params["layers"], 0)
+        x = transformer.embed_inputs(params, tokens, cfg)
+        h = common.rmsnorm(x, p0["ln1"])
+        xc, _, _ = mamba._mixer_in(h, p0["mamba"], cfg.q_dim, None)
+        dt, bt, ct, a_mat = mamba._dt_bc(xc, p0["mamba"])
+    return {"xc": xc.contiguous(), "dt": dt.contiguous(),
+            "bm": bt.contiguous(), "cm": ct.contiguous(),
+            "a": a_mat.contiguous()}
+
+
+def phase_hybrid_train(args) -> tuple[dict, dict]:
+    """Hymba trained at full width through the scan's two kernels, under
+    ``train``'s checks, each step's launches counted.  -> (launches over
+    the steps, layer 0's scan operands at the training shape for the
+    kernels phase)."""
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(HYBRID_ARCH, smoke=args.lm_smoke)
+    b, s = (TRAIN_BATCH, 64) if args.lm_smoke else (TRAIN_BATCH, TRAIN_SEQ)
+    t0 = time.perf_counter()
+    params = serve.build_params(cfg, args.seed)
+    opt = opt_init(cfg.optimizer, params)
+    batch = next(synthetic_token_batches(batch=b, seq_len=s, vocab=cfg.vocab,
+                                         seed=args.seed))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in common.leaves(params))
+    eval_loss = float(make_eval_step(cfg)(params, batch)["loss"])
+    step = make_train_step(cfg, base_lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                           total_steps=100)
+    secs, mets, per_step = [], [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        per_step.append(ops.launch_counts())
+        mets.append({k: float(v) for k, v in m.items()})
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: sum(c[k] for c in per_step) for k in per_step[0]}
+    label = f"hybrid_train {cfg.name}"
+    losses = [m["loss"] for m in mets]
+    check(all(np.isfinite([m["loss"], m["grad_norm"]]).all() for m in mets),
+          f"{label}: every loss and gradient norm finite ({mets})")
+    check(all(m["skipped"] == 0 for m in mets), f"{label}: no step skipped")
+    check(losses[-1] < losses[0], f"{label}: the last loss below the first "
+                                  f"({losses})")
+    eval_rel = abs(losses[0] - eval_loss) / abs(eval_loss)
+    check(eval_rel <= EVAL_REL, f"{label}: step 1's loss within {EVAL_REL} "
+                                f"of make_eval_step's, got {eval_rel:.3g}")
+    # a checkpointed layer runs its forward again in the backward
+    fwd = 2 if cfg.remat != "none" else 1
+    want = {k: 0 for k in per_step[0]}
+    want.update(ssm_scan=fwd * cfg.n_layers, ssm_scan_bwd=cfg.n_layers)
+    check(all(c == want for c in per_step),
+          f"{label}: each step launched ssm_scan {fwd} time(s) a layer and "
+          f"ssm_scan_bwd once a layer, nothing else ({per_step})")
+    scan_in = _layer0_scan_inputs(params, torch.as_tensor(
+        batch["tokens"], device=params["embed"].device), cfg)
+    del params, opt
+    torch.cuda.empty_cache()
+    step_s = float(np.median(secs[1:]))
+    flops = 6.0 * n_params * b * s
+    card_vs_cpu = _card_vs_cpu_step(args.seed, arch=HYBRID_ARCH)
+    emit({"phase": "hybrid_train", "nvidia_smi": nvidia_smi_line(),
+          "seconds": time.perf_counter() - t_phase,
+          "arch": cfg.name, "smoke_config": args.lm_smoke,
+          "optimizer": cfg.optimizer, "remat": cfg.remat, "batch": b,
+          "seq": s, "positions_with_meta": cfg.meta_tokens + s,
+          "steps": TRAIN_STEPS, "params": n_params,
+          "param_build_seconds": build_s, "step_seconds": secs,
+          "step_seconds_median_2_to_last": step_s,
+          "tokens_per_second": b * s / step_s,
+          "model_flops_per_step_6ND": flops,
+          "fp32_peak_flops": FP32[0],
+          "fp32_peak_share": flops / step_s / FP32[0],
+          "max_memory_allocated": peak, "losses": losses,
+          "grad_norms": [m["grad_norm"] for m in mets],
+          "lr": [m["lr"] for m in mets],
+          "eval_loss_initial": eval_loss, "eval_rel_err": eval_rel,
+          "launches": launches, "launches_per_step": per_step,
+          "card_vs_cpu_smoke_step": card_vs_cpu})
+    return launches, scan_in
+
+
+def _mesh_train(args) -> dict:
+    """``launch.train --mesh 2x1`` on gloo ranks sharing the card, as a
+    subprocess; its checkpoint after the last step against one process's
+    steps over the whole batch in two microbatches (the ranks' per-call
+    token counts)."""
+    ck = MESH_DIR / "ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                        "--arch", MESH_TRAIN_ARCH, "--smoke", "--batch",
+                        str(MESH_BATCH), "--seq", str(MESH_SEQ), "--steps",
+                        str(MESH_STEPS), "--lr", "1e-2", "--ckpt-dir",
+                        str(ck), "--log-every", "1", "--mesh",
+                        f"{MESH_WORLD}x1"], cwd=ROOT,
+                       env=env, capture_output=True, text=True,
+                       timeout=EXAMPLE_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    label = "mesh: launch.train --mesh 2x1"
+    if not check(r.returncode == 0, f"{label} exits 0 (rc {r.returncode}; "
+                                    f"{r.stderr[-2000:]!r})"):
+        return {"seconds": secs, "returncode": r.returncode}
+    cfg = get_config(MESH_TRAIN_ARCH, smoke=True)
+    params = serve.build_params(cfg, 0)
+    opt = opt_init(cfg.optimizer, params)
+    one = make_train_step(cfg, base_lr=1e-2, total_steps=MESH_STEPS,
+                          warmup=min(100, MESH_STEPS // 10 + 1),
+                          microbatch=MESH_WORLD)
+    next_batch = launch_train.make_batch_fn(cfg, MESH_BATCH, MESH_SEQ, 0)
+    for i in range(MESH_STEPS):
+        params, opt, m = one(params, opt, next_batch(i))
+    back = Checkpointer(str(ck), async_writes=False).restore(
+        {"params": params, "opt": opt, "meta": {"step": 0}})
+    err = max(float((g - w).abs().max())
+              for want, got in ((params, back["params"]),
+                                (opt.m, back["opt"].m))
+              for (_, w), (_, g) in zip(common.leaves(want),
+                                        common.leaves(got)))
+    check(err <= MESH_TRAIN_REL and back["meta"]["step"] == MESH_STEPS - 1,
+          f"{label}: its parameters and first moments within "
+          f"{MESH_TRAIN_REL} of one process's two-microbatch steps, got "
+          f"{err:.3g}")
+    return {"seconds": secs, "returncode": r.returncode,
+            "steps": MESH_STEPS, "batch": MESH_BATCH, "seq": MESH_SEQ,
+            "arch": cfg.name,
+            "losses_logged": _last_loss_lines(r.stdout),
+            "max_abs_err_vs_one_process": err,
+            "tolerance": MESH_TRAIN_REL}
+
+
+def _card() -> torch.device:
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _seq_cache_half(cfg, rank: int, slots: int, seed: int, dev):
+    """Rank ``rank``'s half of the decode cache (K and V, (1, slots, KVH,
+    hd) fp32), from its own seed so one process can rebuild the whole."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed * 1000 + 17 + rank)
+    shape = (1, slots, cfg.n_kv_heads, cfg.head_dim)
+    return (torch.randn(shape, generator=g, device=dev),
+            torch.randn(shape, generator=g, device=dev))
+
+
+def _seq_query(cfg, seed: int, dev):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed * 1000 + 5)
+    kvh, hd = cfg.n_kv_heads, cfg.head_dim
+    return (torch.randn((1, 1, cfg.n_heads, hd), generator=g, device=dev),
+            torch.randn((1, 1, kvh, hd), generator=g, device=dev),
+            torch.randn((1, 1, kvh, hd), generator=g, device=dev))
+
+
+def _seq_rank(rank: int, cfg_d: dict) -> None:
+    """One rank of the mesh phase's sequence-sharded decode (a spawned
+    process): its half of the cache, a warm-up call, SEQ_CALLS timed
+    calls between barriers; the answer and the written slot to
+    ``cfg_d["out"]``."""
+    import torch.distributed as tdist
+    from datetime import timedelta
+    dev = torch.device(cfg_d["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    tdist.init_process_group("gloo", init_method=cfg_d["init"],
+                             world_size=cfg_d["world"], rank=rank,
+                             timeout=timedelta(seconds=DIST_TIMEOUT_S))
+    try:
+        cfg = get_config(SEQ_ARCH)
+        sloc = cfg_d["slots"] // cfg_d["world"]
+        k, v = _seq_cache_half(cfg, rank, sloc, cfg_d["seed"], dev)
+        q, kn, vn = _seq_query(cfg, cfg_d["seed"], dev)
+        pos = cfg_d["pos"]
+        call = lambda: attention.decode_attend_seqsharded(q, kn, vn, k, v,
+                                                          pos)
+        out = call()[0]
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        tdist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(cfg_d["calls"]):
+            out = call()[0]
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        secs = (time.perf_counter() - t0) / cfg_d["calls"]
+        tdist.barrier()
+        lo = rank * sloc
+        owner = lo <= pos < lo + sloc
+        wrote = bool(torch.equal(k[:, pos - lo], kn[:, 0])
+                     and torch.equal(v[:, pos - lo], vn[:, 0])) \
+            if owner else None
+        np.save(Path(cfg_d["out"]) / f"seq_out{rank}.npy", out.cpu().numpy())
+        (Path(cfg_d["out"]) / f"seq_rank{rank}.json").write_text(json.dumps(
+            {"rank": rank, "slots": [lo, lo + sloc], "ms_per_call":
+             secs * 1e3, "owner": owner, "wrote_new_kv": wrote}))
+    finally:
+        tdist.destroy_process_group()
+
+
+def _mesh_seqsharded(args) -> dict:
+    """The sequence-sharded decode over the long_500k cache on 2 gloo
+    ranks against one process's decode_attend over the whole cache."""
+    cfg = get_config(SEQ_ARCH)
+    dev = _card()
+    cfg_d = {"world": MESH_WORLD, "slots": SEQ_SLOTS, "pos": SEQ_POS,
+             "seed": args.seed, "calls": SEQ_CALLS, "out": str(MESH_DIR),
+             "init": _group_init("mesh_seq"), "device": str(dev)}
+    t0 = time.perf_counter()
+    ok = _spawn_ranks(_seq_rank, MESH_WORLD, cfg_d, DIST_RANKS_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    if not ok:
+        return {"ranks_seconds": ranks_s}
+    infos = [json.loads((MESH_DIR / f"seq_rank{r}.json").read_text())
+             for r in range(MESH_WORLD)]
+    outs = [torch.from_numpy(np.load(MESH_DIR / f"seq_out{r}.npy"))
+            for r in range(MESH_WORLD)]
+    sloc = SEQ_SLOTS // MESH_WORLD
+    halves = [_seq_cache_half(cfg, r, sloc, args.seed, dev)
+              for r in range(MESH_WORLD)]
+    k = torch.cat([h[0] for h in halves], dim=1)
+    v = torch.cat([h[1] for h in halves], dim=1)
+    del halves
+    q, kn, vn = _seq_query(cfg, args.seed, dev)
+    attention.cache_update(k, v, kn, vn, SEQ_POS)
+    want = attention.decode_attend(q, k, v, SEQ_POS)
+    one_ms = time_cuda(lambda: attention.decode_attend(q, k, v, SEQ_POS),
+                       reps=SEQ_CALLS, warmup=1)
+    kv_bytes = 2 * k.numel() * k.element_size()
+    del k, v
+    torch.cuda.empty_cache()
+    errs = [float((o.to(dev) - want).abs().max()) for o in outs]
+    tol = SEQ_REL * float(want.abs().max())
+    check(max(errs) <= tol, f"mesh: decode_attend_seqsharded on "
+                            f"{MESH_WORLD} ranks within {SEQ_REL} x max|want| "
+                            f"= {tol:.3g} of one process's decode_attend, "
+                            f"got {errs}")
+    owners = [i for i in infos if i["owner"]]
+    check(len(owners) == 1 and owners[0]["wrote_new_kv"],
+          f"mesh: exactly one rank owns slot {SEQ_POS} and wrote the new "
+          f"K/V there ({infos})")
+    return {"arch": cfg.name, "slots": SEQ_SLOTS, "kv_bytes": kv_bytes,
+            "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+            "head_dim": cfg.head_dim, "pos": SEQ_POS, "world": MESH_WORLD,
+            "ranks": infos, "max_abs_err": max(errs), "tolerance": tol,
+            "ms_per_call": max(i["ms_per_call"] for i in infos),
+            "one_process_ms_per_call": one_ms, "ranks_seconds": ranks_s}
+
+
+def phase_mesh(args) -> None:
+    """launch.train --mesh and the sequence-sharded decode, on the card."""
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    MESH_DIR.mkdir(parents=True, exist_ok=True)
+    try:
+        train = _mesh_train(args)
+        seq = _mesh_seqsharded(args)
+    finally:
+        shutil.rmtree(MESH_DIR, ignore_errors=True)
+    emit({"phase": "mesh", "nvidia_smi": nvidia_smi_line(),
+          "seconds": time.perf_counter() - t_phase, "train_mesh": train,
+          "decode_seqsharded": seq})
+
+
 def _compare_summarize(raw: torch.Tensor, n_slice: int) -> dict:
     """Bitwise: the kernel and the plain version evaluate the same float64
     operations in the same order and round the PAA once."""
@@ -1619,9 +1945,97 @@ def _compare_ssm(scan_in: dict) -> dict:
     return out
 
 
+def _bwd_bound(b, s, d, n, with_dh: bool) -> tuple[float, str, str]:
+    """Bytes: xc, dt, dy in and dxc, ddt out (B, S, D); B, C in and dB, dC
+    out (B, S, N); A in, dA out (D, N); the checkpoints (B, ceil(S/32),
+    D, N) and dh_last in, dh0 out (B, D, N).  Per (b, t, d, n): one exp,
+    a_t = exp(dt_t A), which the recomputed state and the adjoint share,
+    on the special-function units, and 17 other fp32 operations."""
+    spans = -(-s // 32)
+    nbytes = 4 * (5 * b * s * d + 4 * b * s * n + 2 * d * n
+                  + b * spans * d * n + (2 if with_dh else 1) * b * d * n)
+    e = b * s * d * n
+    return bound(nbytes, 17 * e, FP32, (e, SFU))
+
+
+def _compare_ssm_bwd(train_in: dict, seed: int) -> dict:
+    """``ssm_scan_bwd`` against the plain reverse scan in float64 at
+    Hymba's training shape: on layer 0's operands of ``hybrid_train``'s
+    batch (N = 16; dh_last None as in training, and given), and on random
+    operands at each of BWD_STATE_SIZES; two launches bitwise equal.
+    Timed at the training case."""
+    xc = train_in["xc"]
+    b, s, d = xc.shape
+    dev = xc.device
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 7)
+    rnd = lambda *sh: torch.randn(sh, generator=g, device=dev)
+    dy = rnd(b, s, d) * 0.1
+    base = tuple(train_in[k] for k in ("xc", "dt", "bm", "cm", "a"))
+    cases = {"train": (base, None),
+             "train_dh_last": (base, rnd(b, d, base[2].shape[-1]))}
+    for n in BWD_STATE_SIZES:
+        ops_n = (rnd(b, s, d) * 0.5, rnd(b, s, d).abs() * 0.1,
+                 rnd(b, s, n) * 0.5, rnd(b, s, n) * 0.5,
+                 -rnd(d, n).abs() - 0.1)
+        cases[f"n{n}"] = (ops_n, rnd(b, d, n))
+    ok_all, line = True, {}
+    names = ("dxc", "ddt", "dbm", "dcm", "da", "dh0")
+    for label, (opnds, dhl) in cases.items():
+        _, _, ck = ssm_scan_with_checkpoints(*opnds)
+        got = ssm_scan_bwd(*opnds, ck, dy, dhl)
+        again = ssm_scan_bwd(*opnds, ck, dy, dhl)
+        f64 = lambda t: None if t is None else t.double()
+        _, _, ckr = ref.ssm_scan_with_checkpoints_ref(*map(f64, opnds))
+        want = ref.ssm_scan_bwd_ref(*map(f64, opnds), ckr, f64(dy), f64(dhl))
+        errs, rels = {}, {}
+        for name, gt, wt in zip(names, got, want):
+            top = float(wt.abs().max())
+            errs[name] = float((gt.double() - wt).abs().max())
+            rels[name] = errs[name] / max(top, 1e-30)
+            ok_all &= check(bool(torch.isfinite(gt).all())
+                            and errs[name] <= BWD_REL * top,
+                            f"ssm_scan_bwd {label} {name}: within {BWD_REL} "
+                            f"x max|ref|, got {rels[name]:.3g}")
+        same = all(torch.equal(p, q) for p, q in zip(got, again))
+        ok_all &= check(same, f"ssm_scan_bwd {label}: two launches bitwise "
+                              "equal")
+        n = opnds[2].shape[-1]
+        line[label] = {"shape": [b, s, d, n], "dh_last": dhl is not None,
+                       "max_abs_err": errs, "rel_err": rels,
+                       "deterministic": same}
+    opnds, _ = cases["train"]
+    _, _, ck = ssm_scan_with_checkpoints(*opnds)
+    call = lambda: ssm_scan_bwd(*opnds, ck, dy)
+    ck32 = ref.ssm_scan_with_checkpoints_ref(*opnds)[2]
+    b_ms, b_by, b_unit = _bwd_bound(b, s, d, opnds[2].shape[-1], False)
+    out = {"shape": line["train"]["shape"], "cases": line,
+           "max_abs_err": max(max(c["max_abs_err"].values())
+                              for c in line.values()),
+           "max_rel_err": max(max(c["rel_err"].values())
+                              for c in line.values()),
+           "match": ok_all, "ms": time_cuda(call),
+           "device_ms": device_ms_all(call),
+           "plain_ms": time_cuda(lambda: ref.ssm_scan_bwd_ref(
+               *opnds, ck32, dy), reps=1, warmup=0),
+           "bound_ms": b_ms, "bound_by": b_by, "bound_unit": b_unit,
+           "library_ms": None,
+           "library": "none: no PyTorch call computes a selective scan's "
+                      "gradient",
+           "forward_ms": {"plain_launch": time_cuda(
+               lambda: ssm_scan(*opnds)), "training_launch": time_cuda(
+               lambda: ssm_scan_with_checkpoints(*opnds))},
+           "tolerance": f"each gradient within {BWD_REL} x its max |ref| "
+                        "(float64 plain version): fp32 sums over up to "
+                        "2 x 1,152 steps and 1,600 channels, ex2.approx a "
+                        "few ulps from exp"}
+    emit({"phase": "kernels", "kernel": "ssm_scan_bwd", **out})
+    return out
+
+
 def phase_kernels(raw, index, queries, n_slice: int, n_dtw: int,
                   scan_in: dict, main_k10, sanitize_blocks: int,
-                  shard_blocks: int) -> dict:
+                  shard_blocks: int, train_in: dict, seed: int) -> dict:
     """Every kernel against its plain version at the shapes the paths give
     it.  Beside the main batch, the serving walks' batches: ``serve``'s
     tenants (SERVE_BATCH queries) and the CLI's one-query warm-up on the
@@ -1656,6 +2070,7 @@ def phase_kernels(raw, index, queries, n_slice: int, n_dtw: int,
         "batch_l2": _compare_batch_l2(qs.q, index.raw.reshape(-1, index.n)),
         "dtw_band_panel": _compare_dtw(index, queries[:n_dtw]),
         "ssm_scan": _compare_ssm(scan_in),
+        "ssm_scan_bwd": _compare_ssm_bwd(train_in, seed),
     }
 
 
@@ -2663,12 +3078,18 @@ REPLACES = {
                        "src/repro/kernels/dtw_band.py:66"),
     "ssm_scan": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
                  "src/repro/kernels/ssm_scan.py:54"),
+    "ssm_scan_bwd": ("src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
+                     "none: the reference differentiates the jnp chunked "
+                     "scan, src/repro/models/mamba.py:71 (its Pallas "
+                     "ssm_scan, src/repro/kernels/ssm_scan.py:54, has no "
+                     "backward)"),
 }
 
 # the path whose launch count the kernels line reports for each kernel
 LAUNCH_PATH = {"isax_summarize": "block_major", "lb_scan": "flat",
                "block_topk": "block_major", "fused_panel_topk": "block_major",
-               "batch_l2": "flat", "dtw_band_panel": "dtw", "ssm_scan": "lm"}
+               "batch_l2": "flat", "dtw_band_panel": "dtw", "ssm_scan": "lm",
+               "ssm_scan_bwd": "hybrid_train"}
 
 
 def main(argv=None) -> int:
@@ -2716,6 +3137,8 @@ def main(argv=None) -> int:
     launches["dense"] = phase_dense(args)
     launches["train"] = phase_train(args)
     launches["families"] = phase_families(args)
+    launches["hybrid_train"], train_in = phase_hybrid_train(args)
+    phase_mesh(args)
     # the envelope widths of the sanitize phase's index (its rows of the
     # on-disk phase's series) and of a dist4 shard
     ooc_n = min(args.ooc_series or args.n_series, args.n_series)
@@ -2724,7 +3147,8 @@ def main(argv=None) -> int:
                           min(SUMMARIZE_SLICE, args.n_series),
                           args.dtw_queries, scan_in, main_results[10][0],
                           sanitize_blocks,
-                          -(-(ooc_n // DIST_WORLD) // CAPACITY))
+                          -(-(ooc_n // DIST_WORLD) // CAPACITY), train_in,
+                          args.seed)
     phase_exact(raw, queries, {"block_major": main_results, **sched_results,
                                "ucr": ucr_results})
     try:

@@ -86,7 +86,7 @@ class ModelConfig:
     n_patches: int = 0            # vlm: image patch prefix length
 
     # distribution / memory policy
-    fsdp: bool = False            # the reference's mesh sharding (item 18e)
+    fsdp: bool = False            # the reference's mesh sharding (none here)
     remat: str = "full"           # full | dots | none (train/step.py)
     microbatch: int = 1           # grad-accumulation steps per train step
     optimizer: str = "adamw"      # adamw | adafactor

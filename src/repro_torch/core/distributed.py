@@ -101,6 +101,53 @@ def build_sharded(local_raw, offset: int, *, group=None, w: int = 16,
                  normalize=normalize, ids=ids, device=dev)
 
 
+# a BlockIndex's arrays -> the axis that runs over its blocks
+_BLOCK_AXIS = {"raw": 0, "slo": 0, "shi": 0, "elo": 1, "ehi": 1, "ids": 0}
+
+
+def gather_index(local_index: BlockIndex, *, group=None) -> dict:
+    """The whole index of a sharded build, on every rank as host arrays:
+    each rank's shard concatenated in rank order along the block axis
+    (``interop.ARRAYS``' names and layouts), and "meta" = [n, w, card,
+    capacity, n_real summed].  It holds no trace of the world size that
+    built it, so ``train.Checkpointer`` saves it on one world size and
+    ``index_shard`` cuts it for another (an elastic reshard), as the
+    reference's checkpoint of a globally sharded index restores onto a
+    mesh of another size."""
+    mine = {name: getattr(local_index, name).cpu().numpy()
+            for name in _BLOCK_AXIS}
+    parts = [None] * dist.get_world_size(group)
+    dist.all_gather_object(parts, (mine, local_index.n_real), group=group)
+    out = {name: np.concatenate([p[name] for p, _ in parts], axis=axis)
+           for name, axis in _BLOCK_AXIS.items()}
+    out["meta"] = np.array([local_index.n, local_index.w, local_index.card,
+                            local_index.capacity,
+                            sum(n_real for _, n_real in parts)], np.int64)
+    return out
+
+
+def index_shard(arrays: dict, *, group=None,
+                device: str | torch.device | None = "cuda") -> BlockIndex:
+    """This rank's shard of a whole index (``gather_index``'s arrays, e.g.
+    restored from a checkpoint) on ``group``: its blocks split evenly in
+    rank order.  The world size must divide the block count.  Ids stay
+    global, so ``search_sharded`` over the shards answers as over the
+    whole index."""
+    dev = resolve_device(device)
+    n, w, card, capacity, _ = (int(v) for v in arrays["meta"])
+    blocks = arrays["ids"].shape[0]
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    if blocks % world:
+        raise ValueError(f"{blocks} blocks do not split over {world} ranks")
+    per = blocks // world
+    part = {name: np.take(arrays[name], range(rank * per, (rank + 1) * per),
+                          axis=axis) for name, axis in _BLOCK_AXIS.items()}
+    tensors = {name: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+               for name, a in part.items()}
+    return BlockIndex(**tensors, n=n, w=w, card=card, capacity=capacity,
+                      n_real=int((part["ids"] >= 0).sum()))
+
+
 def search_sharded(local_index: BlockIndex, queries, *, group=None,
                    k: int = 1, blocks_per_iter: int = 4,
                    lb_filter: bool = True,

@@ -45,10 +45,19 @@ SIGNATURES = {
     "fused_panel_topk_tiles": (_I,),
     "batch_l2_launch": (_P, _P, _P, _I, _L, _I, _P),
     "dtw_band_panel_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "ssm_scan_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "ssm_scan_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _P),
+    "ssm_scan_bwd_launch": (_P,) * 17 + (_I, _I, _I, _I, _P),
+    "ssm_scan_bwd_channels_per_block": (),
+    "ssm_scan_ckpt_steps": (),
 }
 # C entries that return something else than an int status
 RESTYPES = {"fused_panel_topk_scratch_words": _L}
+# steps between the states ssm_scan's training launch keeps (kSsmCkpt in
+# csrc/ssm_scan.cuh; library() refuses a build that disagrees): the
+# wrappers size the checkpoint buffers by it, the plain versions lay
+# their checkpoints out by it
+SSM_CKPT_STEPS = 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,6 +147,10 @@ def library() -> Kernels:
         fn.restype = RESTYPES.get(name, ctypes.c_int)
     lib.repro_cuda_error_string.argtypes = (ctypes.c_int,)
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    if lib.ssm_scan_ckpt_steps() != SSM_CKPT_STEPS:
+        raise RuntimeError(f"the ssm kernels keep a state every "
+                           f"{lib.ssm_scan_ckpt_steps()} steps, the wrappers "
+                           f"size for {SSM_CKPT_STEPS}")
     return Kernels(lib=lib, path=path, build_seconds=seconds, ptxas_log=logs)
 
 

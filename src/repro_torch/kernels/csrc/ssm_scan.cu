@@ -8,6 +8,9 @@
 // from h_0 = h0 (B, D, N) or zeros; writes y (B, S, D) and the last state
 // h_last (B, D, N), which the served path keeps in its cache.  The TPU
 // kernel keeps the state in VMEM and never writes it (its h0 is zero).
+// The training launch also writes ckpt (B, ceil(S / 32), D, N), the state
+// before every 32 steps, from which ssm_scan_bwd.cu recomputes a span;
+// serving and decode pass a null ckpt and store nothing more.
 // Any state size N >= 1 runs here.
 //
 // Bound on the H100, at Hymba's prefill (4, 2176, 1600, 16): one exp per
@@ -45,46 +48,14 @@
 // more lanes a channel (G = 8) or more channels a lane measured slower,
 // and so did 16- and 64-step tiles and a third stage.
 #include "common.cuh"
+#include "ssm_scan.cuh"
 
 namespace {
 
 constexpr int kChan = 32;            // channels a block
-constexpr int kTile = 32;            // time steps a tile, S > 1
+constexpr int kTile = kSsmCkpt;      // time steps a tile, S > 1
 constexpr int kStages = 2;           // tiles in shared memory
 constexpr int kMaxPass = 32;         // states a pass, N > 32
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Reduce-scatter of T partial sums over the G lanes of a channel (xor
-// partners within the group): in round i a lane keeps the half of its
-// values that its bit G >> (i + 1) selects and adds its partner's copy of
-// that half, so after log2 G rounds lane g holds the sums of steps
-// g T / G ... (g + 1) T / G - 1 in p[0 ...].  Past T values a round is a
-// plain all-reduce (T = 1).  The rounds are unrolled at compile time, so p
-// stays in registers.
-template <int G, int T, int I = 0>
-__device__ __forceinline__ void reduce_scatter(float (&p)[T], int g) {
-  constexpr int o = G >> (I + 1);
-  if constexpr (o > 0) {
-    constexpr int len = (T >> I) > 1 ? (T >> I) : 1;
-    const bool up = (g & o) != 0;
-    if constexpr (len > 1) {
-#pragma unroll
-      for (int e = 0; e < len / 2; ++e) {
-        const float lo = p[e], hi = p[e + len / 2];
-        p[e] = (up ? hi : lo) + __shfl_xor_sync(0xffffffffu, up ? lo : hi, o);
-      }
-    } else {
-      p[0] += __shfl_xor_sync(0xffffffffu, p[0], o);
-    }
-    reduce_scatter<G, T, I + 1>(p, g);
-  }
-}
 
 template <int NP, int T>
 struct Tiles {
@@ -100,13 +71,14 @@ __global__ void __launch_bounds__(kChan * G)
 ssm_scan_kernel(const float* __restrict__ xc, const float* __restrict__ dt,
                 const float* __restrict__ bm, const float* __restrict__ cm,
                 const float* __restrict__ a, const float* __restrict__ h0,
-                float* __restrict__ y, float* __restrict__ h_last, int S, int D, int N,
-                int vec_x, int vec_bc) {
+                float* __restrict__ y, float* __restrict__ h_last,
+                float* __restrict__ ckpt, int S, int D, int N, int vec_x, int vec_bc) {
   constexpr int NP = R * G;
   constexpr int NT = kChan * G;
   constexpr int SPLIT = T >= G ? G : 1;     // lanes a tile's y is scattered over
   constexpr int TL = T / SPLIT;             // y values a lane stores a tile
   static_assert(G <= 8 && (G & (G - 1)) == 0 && (T == 1 || T >= G), "variant");
+  static_assert(kSsmCkpt % T == 0, "a checkpoint falls at the start of a tile");
   __shared__ __align__(16) Tiles<NP, T> s;
 
   const int b = blockIdx.y;
@@ -117,6 +89,7 @@ ssm_scan_kernel(const float* __restrict__ xc, const float* __restrict__ dt,
   const bool live = d < D;
   const long long row0 = static_cast<long long>(b) * S;  // (b, t = 0) row
   const int ntiles = (S + T - 1) / T;
+  const int nck = (S + kSsmCkpt - 1) / kSsmCkpt;          // checkpoints a row
   const int passes = (N + NP - 1) / NP;
   const bool owner = g % (G / SPLIT) == 0;
   const int start = (g / (G / SPLIT)) * TL;               // first step of the tile it stores
@@ -227,6 +200,14 @@ ssm_scan_kernel(const float* __restrict__ xc, const float* __restrict__ dt,
       if (j + kStages - 1 < ntiles) stage(j + kStages - 1);
       cp_async_commit();
 
+      // the training launch keeps the state before every kSsmCkpt steps
+      if (ckpt != nullptr && live && (j * T) % kSsmCkpt == 0) {
+        float* dst = ckpt + ((static_cast<long long>(b) * nck + j * T / kSsmCkpt) * D + d) * N;
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          if (n0 + r < N) dst[n0 + r] = h[r];
+      }
+
       const int buf = j % kStages;
       float p[T];
 #pragma unroll
@@ -283,30 +264,34 @@ ssm_scan_kernel(const float* __restrict__ xc, const float* __restrict__ dt,
 
 template <int R, int G, int T>
 cudaError_t launch(const float* xc, const float* dt, const float* bm, const float* cm,
-                   const float* a, const float* h0, float* y, float* h_last, int B, int S,
-                   int D, int N, int vec_x, int vec_bc, cudaStream_t stream) {
+                   const float* a, const float* h0, float* y, float* h_last, float* ckpt,
+                   int B, int S, int D, int N, int vec_x, int vec_bc, cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned>((D + kChan - 1) / kChan), static_cast<unsigned>(B));
-  ssm_scan_kernel<R, G, T><<<grid, kChan * G, 0, stream>>>(xc, dt, bm, cm, a, h0, y, h_last, S,
-                                                           D, N, vec_x, vec_bc);
+  ssm_scan_kernel<R, G, T><<<grid, kChan * G, 0, stream>>>(xc, dt, bm, cm, a, h0, y, h_last,
+                                                           ckpt, S, D, N, vec_x, vec_bc);
   return cudaGetLastError();
 }
 
 template <int R, int G>
 cudaError_t launch_by_s(const float* xc, const float* dt, const float* bm, const float* cm,
-                        const float* a, const float* h0, float* y, float* h_last, int B, int S,
-                        int D, int N, int vec_x, int vec_bc, cudaStream_t stream) {
+                        const float* a, const float* h0, float* y, float* h_last, float* ckpt,
+                        int B, int S, int D, int N, int vec_x, int vec_bc, cudaStream_t stream) {
   if (S == 1)
-    return launch<R, G, 1>(xc, dt, bm, cm, a, h0, y, h_last, B, S, D, N, vec_x, vec_bc, stream);
-  return launch<R, G, kTile>(xc, dt, bm, cm, a, h0, y, h_last, B, S, D, N, vec_x, vec_bc, stream);
+    return launch<R, G, 1>(xc, dt, bm, cm, a, h0, y, h_last, ckpt, B, S, D, N, vec_x, vec_bc,
+                           stream);
+  return launch<R, G, kTile>(xc, dt, bm, cm, a, h0, y, h_last, ckpt, B, S, D, N, vec_x, vec_bc,
+                             stream);
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
 }  // namespace
 
+extern "C" int ssm_scan_ckpt_steps() { return kSsmCkpt; }
+
 extern "C" int ssm_scan_launch(const void* xc, const void* dt, const void* bm, const void* cm,
-                               const void* a, const void* h0, void* y, void* h_last, int B,
-                               int S, int D, int N, void* stream) {
+                               const void* a, const void* h0, void* y, void* h_last,
+                               void* ckpt, int B, int S, int D, int N, void* stream) {
   if (B <= 0 || S <= 0 || D <= 0) return static_cast<int>(cudaGetLastError());
   if (N <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const auto* xc_ = static_cast<const float*>(xc);
@@ -317,14 +302,15 @@ extern "C" int ssm_scan_launch(const void* xc, const void* dt, const void* bm, c
   const auto* h0_ = static_cast<const float*>(h0);
   auto* y_ = static_cast<float*>(y);
   auto* hl_ = static_cast<float*>(h_last);
+  auto* ck_ = static_cast<float*>(ckpt);
   const auto st = static_cast<cudaStream_t>(stream);
   const int vec_x = D % 4 == 0 && aligned16(xc) && aligned16(dt);
   const int vec_bc = N % 4 == 0 && aligned16(bm) && aligned16(cm);
   int np = 1;                                   // states a pass: N rounded up to a power of two
   while (np < N && np < kMaxPass) np <<= 1;
   using Launch = cudaError_t (*)(const float*, const float*, const float*, const float*,
-                                 const float*, const float*, float*, float*, int, int, int, int,
-                                 int, int, cudaStream_t);
+                                 const float*, const float*, float*, float*, float*, int, int,
+                                 int, int, int, int, cudaStream_t);
   Launch run;
   switch (np) {                                 // (R, G): R states a lane, G lanes a channel
     case 1: run = launch_by_s<1, 1>; break;
@@ -334,6 +320,6 @@ extern "C" int ssm_scan_launch(const void* xc, const void* dt, const void* bm, c
     case 16: run = launch_by_s<4, 4>; break;
     default: run = launch_by_s<4, 8>; break;
   }
-  return static_cast<int>(run(xc_, dt_, bm_, cm_, a_, h0_, y_, hl_, B, S, D, N, vec_x, vec_bc,
-                              st));
+  return static_cast<int>(run(xc_, dt_, bm_, cm_, a_, h0_, y_, hl_, ck_, B, S, D, N, vec_x,
+                              vec_bc, st));
 }

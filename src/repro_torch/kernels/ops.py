@@ -22,6 +22,7 @@ from repro_torch.kernels import isax_summarize as _isax_summarize
 from repro_torch.kernels import lb_scan as _lb_scan
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssm_scan as _ssm_scan
+from repro_torch.kernels import ssm_scan_bwd as _ssm_scan_bwd
 
 _KERNELS = {
     "isax_summarize": _isax_summarize,
@@ -31,6 +32,7 @@ _KERNELS = {
     "batch_l2": _batch_l2,
     "dtw_band_panel": _dtw_band,
     "ssm_scan": _ssm_scan,
+    "ssm_scan_bwd": _ssm_scan_bwd,
 }
 
 
@@ -105,11 +107,55 @@ def dtw_panel(q: torch.Tensor, x: torch.Tensor, *, r: int) -> torch.Tensor:
     return ref.dtw_band_panel_ref(q, x, r=r)
 
 
+class _SSMScan(torch.autograd.Function):
+    """``ssm_scan`` under autograd.  Its forward is the training launch,
+    which also keeps the state before every 32 steps; its backward is the
+    reverse scan from those states (the ``ssm_scan_bwd`` kernel on the
+    card, ``ref.ssm_scan_bwd_ref`` on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, xc, dt, bm, cm, a, h0):
+        if _on_cuda(xc):
+            y, h_last, ckpt = _ssm_scan.ssm_scan_with_checkpoints(
+                xc, dt, bm, cm, a, h0)
+        else:
+            y, h_last, ckpt = ref.ssm_scan_with_checkpoints_ref(
+                xc, dt, bm, cm, a, h0)
+        ctx.save_for_backward(xc, dt, bm, cm, a, ckpt)
+        ctx.has_h0 = h0 is not None
+        ctx.set_materialize_grads(False)
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        xc, dt, bm, cm, a, ckpt = ctx.saved_tensors
+        dy = torch.zeros_like(xc) if dy is None else dy.contiguous()
+        if dh_last is not None:
+            dh_last = dh_last.contiguous()
+        if _on_cuda(xc):
+            grads = _ssm_scan_bwd.ssm_scan_bwd(xc, dt, bm, cm, a, ckpt, dy,
+                                               dh_last)
+        else:
+            grads = ref.ssm_scan_bwd_ref(xc, dt, bm, cm, a, ckpt, dy,
+                                         dh_last)
+        dxc, ddt, dbm, dcm, da, dh0 = grads
+        return dxc, ddt, dbm, dcm, da, dh0 if ctx.has_h0 else None
+
+
 def ssm_scan(xc: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
              cm: torch.Tensor, a: torch.Tensor, h0: torch.Tensor | None = None
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Selective-SSM scan. xc, dt (B, S, D); bm, cm (B, S, N); a (D, N);
-    h0 (B, D, N) or None -> (y (B, S, D), h_last (B, D, N))."""
+    h0 (B, D, N) or None -> (y (B, S, D), h_last (B, D, N)).
+
+    Differentiable: when autograd records an operand, the call goes
+    through ``_SSMScan`` (the training launch, then the reverse scan in
+    the backward).  Otherwise (serving and decode run under
+    ``torch.no_grad()``) it is the plain forward launch."""
+    operands = (xc, dt, bm, cm, a, h0)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in operands):
+        return _SSMScan.apply(*operands)
     if _on_cuda(xc):
         return _ssm_scan.ssm_scan(xc, dt, bm, cm, a, h0)
     return ref.ssm_scan_ref(xc, dt, bm, cm, a, h0)

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import isax
+from repro_torch.kernels._build import SSM_CKPT_STEPS
 
 INF = float(torch.finfo(torch.float32).max)
 PAD_ID_KEY = int(torch.iinfo(torch.int32).max)   # sort key for id < 0
@@ -224,6 +225,20 @@ def dtw_band_panel_ref(q: torch.Tensor, x: torch.Tensor, *, r: int
     return dtw_band_ref(q[:, None, :], x, r)
 
 
+def _scan_dtype(*ts) -> torch.dtype:
+    """float64 if any operand is float64 (the gradient checks), else
+    float32, the kernel's type."""
+    return torch.float64 if any(t is not None and t.dtype == torch.float64
+                                for t in ts) else torch.float32
+
+
+def _scan_step(h, xc, dt, bm, a, t):
+    """One step of the recurrence: (a_t, the state after step t)."""
+    at = torch.exp(dt[:, t, :, None] * a[None])                   # (B, D, N)
+    bt = (dt[:, t] * xc[:, t])[:, :, None] * bm[:, t, None, :]
+    return at, at * h + bt
+
+
 def ssm_scan_ref(xc: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
                  cm: torch.Tensor, a: torch.Tensor,
                  h0: torch.Tensor | None = None
@@ -233,19 +248,86 @@ def ssm_scan_ref(xc: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
     b_t = (dt_t * xc_t) * B_t, h = a_t * h + b_t, y_t = sum_n h * C_t.
 
     xc, dt (B, S, D); bm, cm (B, S, N); a (D, N) (the negative A =
-    -exp(a_log)); h0 (B, D, N) or None (zeros) -> (y (B, S, D) f32,
-    h_last (B, D, N) f32).  The coefficients are formed one step at a
-    time, so nothing of size (B, S, D, N) is held.
+    -exp(a_log)); h0 (B, D, N) or None (zeros) -> (y (B, S, D), h_last
+    (B, D, N)), f32 (f64 if an operand is f64).  The coefficients are
+    formed one step at a time, so nothing of size (B, S, D, N) is held.
     """
-    f32 = torch.float32
-    xc, dt, bm, cm, a = (t.to(f32) for t in (xc, dt, bm, cm, a))
-    bsz, s, d = xc.shape
-    h = (torch.zeros((bsz, d, bm.shape[-1]), dtype=f32, device=xc.device)
-         if h0 is None else h0.to(f32))
-    y = torch.empty((bsz, s, d), dtype=f32, device=xc.device)
-    for t in range(s):
-        at = torch.exp(dt[:, t, :, None] * a[None])                # (B, D, N)
-        bt = (dt[:, t] * xc[:, t])[:, :, None] * bm[:, t, None, :]
-        h = at * h + bt
-        y[:, t] = torch.sum(h * cm[:, t, None, :], dim=-1)
+    y, h, _ = _scan(xc, dt, bm, cm, a, h0, keep=False)
     return y, h
+
+
+def ssm_scan_with_checkpoints_ref(xc: torch.Tensor, dt: torch.Tensor,
+                                  bm: torch.Tensor, cm: torch.Tensor,
+                                  a: torch.Tensor,
+                                  h0: torch.Tensor | None = None
+                                  ) -> tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """``ssm_scan_ref`` that also keeps the state before every
+    ``SSM_CKPT_STEPS`` steps: -> (y, h_last, ckpt (B, ceil(S / 32), D,
+    N)), ckpt[:, 0] being h0 (or zeros)."""
+    return _scan(xc, dt, bm, cm, a, h0, keep=True)
+
+
+def _scan(xc, dt, bm, cm, a, h0, keep: bool):
+    ft = _scan_dtype(xc, dt, bm, cm, a, h0)
+    xc, dt, bm, cm, a = (t.to(ft) for t in (xc, dt, bm, cm, a))
+    bsz, s, d = xc.shape
+    h = (torch.zeros((bsz, d, bm.shape[-1]), dtype=ft, device=xc.device)
+         if h0 is None else h0.to(ft))
+    y = torch.empty((bsz, s, d), dtype=ft, device=xc.device)
+    starts = []
+    for t in range(s):
+        if keep and t % SSM_CKPT_STEPS == 0:
+            starts.append(h)
+        _, h = _scan_step(h, xc, dt, bm, a, t)
+        y[:, t] = torch.sum(h * cm[:, t, None, :], dim=-1)
+    return y, h, torch.stack(starts, dim=1) if keep else None
+
+
+def ssm_scan_bwd_ref(xc: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
+                     cm: torch.Tensor, a: torch.Tensor, ckpt: torch.Tensor,
+                     dy: torch.Tensor, dh_last: torch.Tensor | None = None
+                     ) -> tuple[torch.Tensor, ...]:
+    """The gradients of ``ssm_scan_ref`` given dy (B, S, D) and dh_last
+    (B, D, N) or None (zeros), from the forward's states ckpt (B,
+    ceil(S / 32), D, N) of ``ssm_scan_with_checkpoints_ref``: (dxc, ddt
+    (B, S, D), dbm, dcm (B, S, N), da (D, N), dh0 (B, D, N)), in the
+    operands' type (f32, or f64).
+
+    The adjoint recursion, from the last step to the first:
+      g_t = dy_t C_t + a_{t+1} g_{t+1}  (seeded from dh_last),
+      dC_t = sum_d dy_t h_t,   dB_t = sum_d g_t dt_t x_t,
+      dx_t = sum_n g_t dt_t B_t,
+      ddt_t = sum_n g_t (x_t B_t + A a_t h_{t-1}),
+      dA = sum_{b,t} g_t a_t dt_t h_{t-1},   dh0 = a_1 g_1.
+    As the kernel does, each span of 32 steps' states is recomputed from
+    its checkpoint on the way back: nothing of size (B, S, D, N) is held.
+    """
+    ft = _scan_dtype(xc, dt, bm, cm, a, ckpt, dy, dh_last)
+    xc, dt, bm, cm, a, dy, ckpt = (t.to(ft) for t in
+                                   (xc, dt, bm, cm, a, dy, ckpt))
+    bsz, s, d = xc.shape
+    g = (torch.zeros((bsz, d, bm.shape[-1]), dtype=ft, device=xc.device)
+         if dh_last is None else dh_last.to(ft))
+    dxc, ddt = torch.empty_like(xc), torch.empty_like(xc)
+    dbm, dcm = torch.empty_like(bm), torch.empty_like(bm)
+    da = torch.zeros_like(a)
+    for j in reversed(range(ckpt.shape[1])):
+        t0 = j * SSM_CKPT_STEPS
+        t1 = min(t0 + SSM_CKPT_STEPS, s)
+        hs = [ckpt[:, j]]
+        for t in range(t0, t1):
+            hs.append(_scan_step(hs[-1], xc, dt, bm, a, t)[1])
+        for t in reversed(range(t0, t1)):
+            h_t, h_prev = hs[t - t0 + 1], hs[t - t0]
+            at = torch.exp(dt[:, t, :, None] * a[None])
+            g = g + dy[:, t, :, None] * cm[:, t, None, :]
+            gdt = g * dt[:, t, :, None]
+            dcm[:, t] = torch.einsum("bd,bdn->bn", dy[:, t], h_t)
+            dbm[:, t] = torch.einsum("bdn,bd->bn", gdt, xc[:, t])
+            dxc[:, t] = torch.einsum("bdn,bn->bd", gdt, bm[:, t])
+            ddt[:, t] = torch.sum(g * (xc[:, t, :, None] * bm[:, t, None, :]
+                                       + a[None] * at * h_prev), dim=-1)
+            da += torch.sum(gdt * at * h_prev, dim=0)
+            g = at * g
+    return dxc, ddt, dbm, dcm, da, g

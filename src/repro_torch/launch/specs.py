@@ -1,0 +1,238 @@
+"""Stand-ins for every (arch x shape) cell, and each rank's shard of them.
+
+The counterpart of ``repro.launch.specs``.  Where the reference builds
+``jax.ShapeDtypeStruct`` stand-ins, these are tensors on the ``meta``
+device: shapes and dtypes, nothing allocated (``param_shapes`` of
+nemotron-4-340b describes 341 B parameters).  ``build_cell`` gives a
+cell's step function (``train.make_train_step``, ``make_prefill_step``
+or ``make_serve_step``) and its meta arguments.
+
+The reference's sharding rules (its DESIGN.md §7) place the batch over
+the data axes, parameters by their logical axes (tensor parallel over
+"model", FSDP over the data axes for the largest archs), and a decode
+cell's full-attention caches over "model" by heads, or, where the batch
+cannot be split (long_500k) or the KV heads do not divide "model", by
+their positions (``kv_shard_axes``).  A rank of the port holds its shard
+of what it steps on and nothing else, so in place of ``PartitionSpec``s
+``shard_shapes`` gives the per-rank shapes of a cell's batch and caches
+on a ``mesh.MeshSpec``, by those rules.  ``common.resolve_pspec(s)``,
+``axes_tree``, ``specs.param_pspecs`` and
+``optimizer.opt_state_specs`` have no counterpart beyond the whole
+shapes: the port shards no parameter or optimizer state (its data
+parallelism keeps a whole copy on every rank, ``launch.train --mesh``),
+as ``core.distributed`` has no counterpart of ``index_pspecs``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, NamedTuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, ShapeCell, SHAPES
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models import common, transformer
+from repro_torch.train import optimizer as opt_lib
+from repro_torch.train import step as step_lib
+
+META = torch.device("meta")
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device=META)
+
+
+# ---------------------------------------------------------------------------
+# Whole shapes
+# ---------------------------------------------------------------------------
+
+
+def batch_specs(cfg: ModelConfig, cell: ShapeCell, *,
+                act_dtype: torch.dtype = torch.bfloat16) -> dict:
+    """A cell's train or prefill batch, on the meta device."""
+    b, s = cell.global_batch, cell.seq_len
+    if cfg.enc_dec:
+        return {"frames": _meta((b, s, cfg.d_model), act_dtype),
+                "dec_tokens": _meta((b, cfg.decoder_len), torch.int32)}
+    if cfg.family == "vlm":
+        p = cfg.n_patches
+        return {"patches": _meta((b, p, cfg.d_model), act_dtype),
+                "tokens": _meta((b, s - p), torch.int32)}
+    return {"tokens": _meta((b, s), torch.int32)}
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """The parameter tree on the meta device: a normal-initialized leaf
+    in the config's ``param_dtype``, the others in their spec's dtype, as
+    the reference's ``params_shape_tree``."""
+    dtype = torch.bfloat16 if cfg.param_dtype == "bfloat16" \
+        else torch.float32
+
+    def leaf(spec: common.ParamSpec) -> torch.Tensor:
+        return _meta(spec.shape, dtype if spec.init == "normal"
+                     else spec.dtype)
+    return common.tree_map(leaf, transformer.param_specs(cfg))
+
+
+def opt_specs(cfg: ModelConfig):
+    """The optimizer state of ``cfg.optimizer`` on the meta device."""
+    return opt_lib.opt_init(cfg.optimizer, param_shapes(cfg))
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
+                 dtype: torch.dtype = torch.bfloat16) -> list:
+    """``transformer.init_cache``'s cache on the meta device."""
+    return transformer.init_cache(cfg, batch, max_len, dtype, device=META)
+
+
+def runnable_shapes(cfg: ModelConfig) -> list[str]:
+    """The cells this arch runs: long_500k only for sub-quadratic archs."""
+    return [s for s in SHAPES if cfg.runs_shape(s)]
+
+
+# ---------------------------------------------------------------------------
+# Each rank's shard on a mesh
+# ---------------------------------------------------------------------------
+
+
+def _divisible(n: int, sizes: dict, axis: str) -> bool:
+    return axis in sizes and n % sizes[axis] == 0
+
+
+def kv_shard_axes(cfg: ModelConfig, cell: ShapeCell, mesh,
+                  data_axes: tuple[str, ...]) -> tuple | None:
+    """The axes over which a decode cell's full-attention caches split
+    their positions: the data axes for long_500k (a batch of 1 cannot
+    split), "model" where the KV heads do not divide it (splitting
+    head_dim instead would gather the whole cache every step), else
+    None."""
+    if cell.kind != "decode":
+        return None
+    sizes = mesh_lib.axis_sizes(mesh)
+    nd = math.prod(sizes[a] for a in data_axes)
+    if cell.global_batch % nd != 0:
+        return data_axes                      # long_500k
+    if cfg.enc_dec or cfg.family == "ssm":
+        return None
+    if not _divisible(cfg.n_kv_heads, sizes, "model") \
+            and cell.seq_len % sizes["model"] == 0:
+        return ("model",)
+    return None
+
+
+def _split(shape: tuple, spec: tuple, sizes: dict) -> tuple:
+    """``shape`` cut by ``spec``: one entry a dim, None or a tuple of
+    axis names whose sizes divide it."""
+    out = []
+    for n, axes in zip(shape, spec):
+        k = math.prod(sizes[a] for a in axes) if axes else 1
+        if n % k:
+            raise ValueError(f"dim {n} does not split over {axes}")
+        out.append(n // k)
+    return tuple(out)
+
+
+def shard_shapes(cfg: ModelConfig, shape_name: str, mesh) -> dict:
+    """Each rank's shapes of a cell's batch ("batch", train and prefill
+    cells) and caches ("cache", prefill and decode cells; decode also
+    "tokens") on ``mesh`` (a ``MeshSpec`` or a ``DeviceMesh``), by the
+    reference's rules: the batch over the data axes where it divides;
+    a K/V cache's heads over "model" where they divide, its positions
+    over ``kv_shard_axes`` in a decode cell's full-attention segments
+    (then its batch is over the data axes only where the positions are
+    over "model"); Mamba states over "model" by channel and RWKV states
+    by head where those divide."""
+    cell = SHAPES[shape_name]
+    sizes = mesh_lib.axis_sizes(mesh)
+    data = mesh_lib.data_axes_of(mesh)
+    nd = math.prod(sizes[a] for a in data)
+    bp = data if cell.global_batch % nd == 0 else None
+    mdl = ("model",) if "model" in sizes else None
+    out: dict = {}
+    if cell.kind in ("train", "prefill"):
+        out["batch"] = {k: _split(tuple(t.shape), (bp,) + (None,) *
+                                  (t.ndim - 1), sizes)
+                        for k, t in batch_specs(cfg, cell).items()}
+    if cell.kind == "train":
+        return out
+    kvs = kv_shard_axes(cfg, cell, mesh, data) \
+        if cell.kind == "decode" else None
+
+    def kv_spec(full_attn: bool) -> tuple:
+        h_ax = mdl if mdl and _divisible(cfg.n_kv_heads, sizes,
+                                         "model") else None
+        if kvs and full_attn:
+            if "model" in kvs:
+                return (None, bp, kvs, None, None)
+            return (None, None, kvs, h_ax, None)
+        return (None, bp, None, h_ax, None)
+
+    caches = cache_shapes(cfg, cell.global_batch, cell.seq_len)
+    if cfg.enc_dec:
+        specs = [dict.fromkeys(("k", "v", "xk", "xv"), kv_spec(False))]
+    elif cfg.family == "ssm":
+        h = cfg.d_model // cfg.rwkv_head_dim
+        h_ax = mdl if mdl and _divisible(h, sizes, "model") else None
+        specs = [dict(s=(None, bp, h_ax, None, None),
+                      x_tm=(None, bp, None), x_cm=(None, bp, None))]
+    else:
+        specs = []
+        for seg in transformer.segments(cfg):
+            full = seg.kind == "full"
+            c = dict(k=kv_spec(full), v=kv_spec(full))
+            if cfg.family == "hybrid":
+                d_ax = mdl if mdl and _divisible(cfg.q_dim, sizes,
+                                                 "model") else None
+                c.update(m_h=(None, bp, d_ax, None),
+                         m_conv=(None, bp, None, d_ax))
+            specs.append(c)
+    out["cache"] = [{k: _split(tuple(seg[k].shape), sp[k], sizes)
+                     for k in seg} for seg, sp in zip(caches, specs)]
+    if cell.kind == "decode":
+        out["tokens"] = _split((cell.global_batch, 1), (bp, None), sizes)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Cells
+# ---------------------------------------------------------------------------
+
+
+class Cell(NamedTuple):
+    arch: str
+    shape: str
+    kind: str                       # train | prefill | decode
+    fn: Callable                    # the step function
+    args: tuple                     # its arguments, on the meta device
+    kv_shard_axes: tuple | None     # decode: the axes the caches split over
+    shards: dict | None             # shard_shapes on the mesh, if one given
+
+
+def build_cell(cfg: ModelConfig, shape_name: str, mesh=None, *,
+               act_dtype: torch.dtype = torch.bfloat16) -> Cell:
+    """One cell's step function and its meta arguments: train (params,
+    optimizer state, batch), prefill (params, batch, cache), decode
+    (params, tokens (B, 1), pos, cache of ``seq_len`` positions).  With
+    ``mesh``, also each rank's shard shapes and, for a decode cell, the
+    axes its full-attention caches split their positions over (the
+    step's ``kv_shard`` group is made from those axes by the caller)."""
+    cell = SHAPES[shape_name]
+    kvs, shards = None, None
+    if mesh is not None:
+        kvs = kv_shard_axes(cfg, cell, mesh, mesh_lib.data_axes_of(mesh))
+        shards = shard_shapes(cfg, shape_name, mesh)
+    params = param_shapes(cfg)
+    if cell.kind == "train":
+        fn = step_lib.make_train_step(cfg, device=META)
+        args = (params, opt_specs(cfg),
+                batch_specs(cfg, cell, act_dtype=act_dtype))
+    elif cell.kind == "prefill":
+        fn = step_lib.make_prefill_step(cfg, device=META)
+        args = (params, batch_specs(cfg, cell, act_dtype=act_dtype),
+                cache_shapes(cfg, cell.global_batch, cell.seq_len))
+    else:
+        fn = step_lib.make_serve_step(cfg, device=META)
+        args = (params, _meta((cell.global_batch, 1), torch.int32),
+                _meta((), torch.int32),
+                cache_shapes(cfg, cell.global_batch, cell.seq_len))
+    return Cell(cfg.name, shape_name, cell.kind, fn, args, kvs, shards)

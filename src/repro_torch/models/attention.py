@@ -18,18 +18,27 @@ structure:
     nothing, so this gives the values of the reference's rectangle sweep
     too;
   * decode attends one new token against the whole cache, in chunks, with
-    a position mask; SWA decode reads a ring buffer of width ``window``.
+    a position mask; SWA decode reads a ring buffer of width ``window``;
+  * ``decode_attend_seqsharded`` is decode over a cache whose positions
+    are split over the ranks of a ``torch.distributed`` group (the
+    reference's ``shard_map`` flash-decode): each rank attends to its
+    slice, and the partials merge with one max and one sum all-reduce.
 
 Decode differs from the reference in one place, on purpose: the
 reference's ``decode_attend`` takes ``sk // chunk`` whole chunks and so
 never reads the cache slots past the last whole chunk (a 2,208-slot
-cache with chunk 1,024 drops slots 2,048..2,207).  Here the last chunk
-is ragged and every slot is attended, as the docstring of both promises:
-keys at indices > pos are masked and nothing else is.
+cache with chunk 1,024 drops slots 2,048..2,207), and its
+``decode_attend_seqsharded`` does the same within each rank's slice.
+Here the last chunk is ragged and every slot is attended, as the
+docstrings of both promise: keys at indices > pos are masked and nothing
+else is.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
+
+from repro_torch.core.frontier import comm_device
 
 NEG = -1.0e30
 
@@ -196,6 +205,65 @@ def decode_attend(q: torch.Tensor, k_cache: torch.Tensor,
                                  mask, scale)
         m0, l0, o0 = _merge(m0, l0, o0, m2, l2, o2)
     return _finish(l0, o0, q.dtype).reshape(b, 1, h, hd)
+
+
+def decode_attend_seqsharded(q: torch.Tensor, k_new: torch.Tensor,
+                             v_new: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, pos, *, group=None,
+                             chunk: int = 1024,
+                             sm_scale: float | None = None
+                             ) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """One-token decode over a full-attention cache whose positions are
+    split over the ranks of ``group`` (None: the default group), the
+    counterpart of the reference's flash-decoding under ``shard_map``.
+    Every rank of the group calls it (SPMD).
+
+    q (B, 1, H, hd); k_new, v_new (B, 1, KVH, hd), the new token's K/V;
+    k_cache, v_cache (B, S_loc, KVH, hd), this rank's slots r·S_loc ..
+    (r+1)·S_loc - 1 of the global cache; ``pos`` (int, scalar tensor or
+    (B,)): the new token's index.  The rank that owns slot ``pos`` writes
+    the new K/V there (in place); each rank runs the online softmax over
+    its slice in chunks of ``chunk`` slots, the last one ragged, with the
+    keys past ``pos`` masked; the partials merge with one max and one sum
+    all-reduce of (B, KVH, G) scalars and (B, KVH, G, hd) accumulators,
+    on the device the group's backend takes.  -> (out (B, 1, H, hd), the
+    caches)."""
+    b, _, h, hd = q.shape
+    sloc, kvh = k_cache.shape[1], k_cache.shape[2]
+    g = h // kvh
+    scale = sm_scale if sm_scale is not None else hd ** -0.5
+    dev = q.device
+    base = dist.get_rank(group) * sloc
+    posv = _pos_vector(pos, b, dev)
+    # the owner's write; the other ranks write back what the slot holds
+    mine = ((posv >= base) & (posv < base + sloc))[:, None, None]
+    rows = torch.arange(b, device=dev)
+    slot = torch.clamp(posv - base, 0, sloc - 1)
+    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+        cache[rows, slot] = torch.where(mine, new[:, 0].to(cache.dtype),
+                                        cache[rows, slot])
+    ck = min(chunk, sloc)
+    qg = q.reshape(b, 1, kvh, g, hd)
+    m0, l0, o0 = _init_state(b, kvh, g, 1, hd, dev)
+    for lo in range(0, sloc, ck):
+        hi = min(lo + ck, sloc)
+        abs_slot = base + torch.arange(lo, hi, device=dev)
+        mask = (abs_slot[None, :] <= posv[:, None])[:, None, None, None, :]
+        m2, l2, o2 = _block_attn(qg, k_cache[:, lo:hi], v_cache[:, lo:hi],
+                                 mask, scale)
+        m0, l0, o0 = _merge(m0, l0, o0, m2, l2, o2)
+    comm = comm_device(group)
+    mg = m0.to(comm, copy=True)
+    dist.all_reduce(mg, op=dist.ReduceOp.MAX, group=group)
+    w = torch.exp(m0 - mg.to(dev))
+    parts = torch.cat([(l0 * w).reshape(-1), (o0 * w[..., None]).reshape(-1)]
+                      ).to(comm)
+    dist.all_reduce(parts, op=dist.ReduceOp.SUM, group=group)
+    parts = parts.to(dev)
+    lg = parts[:l0.numel()].reshape(l0.shape)
+    og = parts[l0.numel():].reshape(o0.shape)
+    return _finish(lg, og, q.dtype).reshape(b, 1, h, hd), k_cache, v_cache
 
 
 def cache_update(k_cache: torch.Tensor, v_cache: torch.Tensor,

@@ -28,33 +28,29 @@ positions and its cross K/V ``xk`` / ``xv`` over the frames.
 ``prefill`` and ``decode_step`` write the cache in place and return it.
 
 Entry points take ``device=`` (the card by default) and raise if the
-parameters do not lie there.  Training a hybrid model raises
-NotImplementedError naming its ROADMAP item.
+parameters do not lie there.  Every family trains: a hybrid model's
+Mamba recurrence goes through ``ops.ssm_scan``'s autograd ``Function``
+(the ``ssm_scan`` kernel forward, the ``ssm_scan_bwd`` kernel backward).
+
+``decode_step`` takes ``kv_shard``, a ``torch.distributed`` group over
+whose ranks the full-attention layers' caches split their positions
+(``cache_shard`` cuts a rank's share of a whole cache), the counterpart of
+the reference's ``Ctx.kv_shard``: those layers decode through
+``attention.decode_attend_seqsharded``; every other part of the step is
+the same on every rank.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, common, mamba, moe, rwkv
 from repro_torch.models.common import ParamSpec as PS
-
-TRAINED = ("dense", "vlm", "moe", "ssm", "audio")
-
-
-def _check_family(cfg: ModelConfig, *, train: bool = False) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item, for what the
-    port does not run yet: training a hybrid model."""
-    if train and cfg.family not in TRAINED:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family} family): training a hybrid model "
-            "needs a backward of the ssm_scan kernel, ROADMAP.md Queue 1, "
-            "item 20")
-
 
 @dataclasses.dataclass(frozen=True)
 class Segment:
@@ -190,15 +186,22 @@ def attn_train(x, p, cfg: ModelConfig, kind: str, *, causal: bool = True):
     return out.reshape(b, s, cfg.q_dim) @ p["wo"], (k, v)
 
 
-def attn_decode(x, p, cfg: ModelConfig, kind: str, cache, pos):
+def attn_decode(x, p, cfg: ModelConfig, kind: str, cache, pos,
+                kv_shard=None):
     """One-token attention against the cache, written in place.
-    ``pos`` (B,) int64.  Returns (out, cache)."""
+    ``pos`` (B,) int64; ``kv_shard`` a group over which a full-attention
+    cache splits its positions (this rank's slice in ``cache``).
+    Returns (out, cache)."""
     b = x.shape[0]
     q, k, v = _qkv(x, p, cfg, pos[:, None])
     window = cfg.window if kind == "swa" else 0
-    kc, vc = attention.cache_update(cache["k"], cache["v"], k, v, pos,
-                                    window=window)
-    out = attention.decode_attend(q, kc, vc, pos, window=window)
+    if kv_shard is not None and not window:
+        out, kc, vc = attention.decode_attend_seqsharded(
+            q, k, v, cache["k"], cache["v"], pos, group=kv_shard)
+    else:
+        kc, vc = attention.cache_update(cache["k"], cache["v"], k, v, pos,
+                                        window=window)
+        out = attention.decode_attend(q, kc, vc, pos, window=window)
     return out.reshape(b, 1, cfg.q_dim) @ p["wo"], {"k": kc, "v": vc}
 
 
@@ -259,11 +262,13 @@ def layer_train(x, p, cfg: ModelConfig, kind: str):
     return x, aux, kv
 
 
-def layer_decode(x, p, cfg: ModelConfig, kind: str, cache, pos):
+def layer_decode(x, p, cfg: ModelConfig, kind: str, cache, pos,
+                 kv_shard=None):
     """One decoder layer, one token; writes the layer's cache in place.
     Returns (x, cache)."""
     h = common.rmsnorm(x, p["ln1"])
-    attn_out, _ = attn_decode(h, p["attn"], cfg, kind, cache, pos)
+    attn_out, _ = attn_decode(h, p["attn"], cfg, kind, cache, pos,
+                              kv_shard)
     if cfg.family == "hybrid":
         mst = mamba.MambaState(h=cache["m_h"], conv=cache["m_conv"])
         m_out, mst = mamba.mamba_mix(h, p["mamba"], d_inner=cfg.q_dim,
@@ -334,7 +339,7 @@ def _train_layer(x, p_l, cfg: ModelConfig, kind: str):
 
 
 def decoder_stack(params, x, cfg: ModelConfig, mode: str, *,
-                  cache=None, pos=None):
+                  cache=None, pos=None, kv_shard=None):
     """Run all decoder layers, a host loop over each segment's layers.
     ``mode`` is "train" (no cache), "prefill" or "decode" (the cache is
     written in place).  Returns (x, MoEAux summed over the layers in
@@ -345,7 +350,8 @@ def decoder_stack(params, x, cfg: ModelConfig, mode: str, *,
     its activations are recomputed in the backward), "none" keeps them
     all.  "dots" saves nothing more than "full" here: the reference's
     policy of also keeping the matmul outputs has no counterpart.  The
-    values are the same either way."""
+    values are the same either way.  ``kv_shard`` ("decode" only): the
+    group over which the full-attention caches split their positions."""
     if cfg.family == "ssm":
         return _rwkv_stack(params, x, cfg, mode, cache=cache)
     remat = _remat(cfg, mode)
@@ -362,7 +368,8 @@ def decoder_stack(params, x, cfg: ModelConfig, mode: str, *,
             if mode == "prefill":
                 x, _ = layer_prefill(x, p_l, cfg, seg.kind, c_l)
             else:
-                x, _ = layer_decode(x, p_l, cfg, seg.kind, c_l, pos)
+                x, _ = layer_decode(x, p_l, cfg, seg.kind, c_l, pos,
+                                    kv_shard)
     return x, aux, cache
 
 
@@ -624,9 +631,7 @@ def loss_fn(params, batch: dict, cfg: ModelConfig, *,
     metrics carry their sums ``moe_lb`` and ``moe_drop`` (zeros for the
     other families).  An enc_dec model's loss is over its
     ``dec_tokens``.  Differentiable: the caller decides whether autograd
-    records it.  A hybrid model's loss is refused only under autograd:
-    its forward runs, its backward does not exist yet."""
-    _check_family(cfg, train=torch.is_grad_enabled())
+    records it."""
     x, tokens, aux = _hidden(params, batch, cfg, device)
     labels = batch.get("labels")
     if labels is None:
@@ -702,6 +707,26 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return out
 
 
+def cache_shard(cache: list, cfg: ModelConfig, kv_shard) -> list:
+    """This rank's share of a whole cache (e.g. one filled by
+    ``prefill``): each full-attention segment's slice of the positions
+    over the ranks of ``kv_shard``, copied; every other entry copied
+    whole.  The positions must split evenly."""
+    world, rank = dist.get_world_size(kv_shard), dist.get_rank(kv_shard)
+    out = []
+    for seg, c in zip(segments(cfg), cache):
+        total = c["k"].shape[2]
+        if seg.kind == "full" and total % world:
+            raise ValueError(f"{cfg.name}: {total} cache positions do not "
+                             f"split over {world} ranks")
+        n = total // world
+        mine = lambda name, t: (t[:, :, rank * n:(rank + 1) * n]
+                                if seg.kind == "full" and name in ("k", "v")
+                                else t)
+        out.append({name: mine(name, t).clone() for name, t in c.items()})
+    return out
+
+
 @torch.no_grad()
 def prefill(params, batch: dict, cache: list, cfg: ModelConfig, *,
             device: str | torch.device | None = "cuda"):
@@ -722,13 +747,19 @@ def prefill(params, batch: dict, cache: list, cfg: ModelConfig, *,
 
 @torch.no_grad()
 def decode_step(params, tokens, pos: int, cache: list, cfg: ModelConfig, *,
-                device: str | torch.device | None = "cuda"):
+                kv_shard=None, device: str | torch.device | None = "cuda"):
     """One token step. tokens (B, 1); ``pos`` = its absolute position in
     the prompt + generated stream, a vlm prompt's patches included (the
     meta prefix is added here; an enc_dec model's is its position among
-    the decoder's tokens).
+    the decoder's tokens).  ``kv_shard``: a ``torch.distributed`` group
+    over whose ranks the full-attention caches split their positions
+    (every rank of it calls this with its slice; an enc_dec or ssm model
+    has no such cache and refuses it).
 
     Returns (logits (B, 1, V), the cache, updated in place)."""
+    if kv_shard is not None and (cfg.enc_dec or cfg.family == "ssm"):
+        raise ValueError(f"{cfg.name}: no full-attention decoder cache to "
+                         "shard")
     dev, tokens = _on_device(params, tokens, device)
     if cfg.enc_dec:
         x, cache = whisper_decoder(params, tokens, None, cfg, "decode",
@@ -739,6 +770,6 @@ def decode_step(params, tokens, pos: int, cache: list, cfg: ModelConfig, *,
     posv = torch.full((tokens.shape[0],), eff_pos, dtype=torch.int64,
                       device=dev)
     x, _, cache = decoder_stack(params, x, cfg, "decode", cache=cache,
-                                pos=posv)
+                                pos=posv, kv_shard=kv_shard)
     x = common.rmsnorm(x, params["final_norm"])
     return lm_logits(params, x, cfg), cache

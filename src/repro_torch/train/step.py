@@ -7,6 +7,13 @@ PyTorch runs eagerly, so a step is a closure over the config and the
 device, not a jitted function.  The train step updates the parameters
 and the optimizer state in place and returns them, as the reference's
 trainer donates them: a caller keeps no other use of what it passed.
+
+Data parallelism: given a ``torch.distributed`` group, every rank of it
+steps on its own shard of the batch from the same parameters, and the
+gradients (with the loss and metrics) are averaged over the ranks by one
+all-reduce a step, or by ``compression.ddp_allreduce_int8`` with error
+feedback; every rank then applies the same update.  The reference's
+mesh step shards the batch over its data axes inside one jitted program.
 """
 from __future__ import annotations
 
@@ -14,11 +21,16 @@ import math
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.frontier import comm_device
 from repro_torch.device import resolve_device
 from repro_torch.models import common, transformer
+from repro_torch.train import compression as compression_lib
 from repro_torch.train import optimizer as opt_lib
+
+COMPRESSION = ("none", "int8")
 
 
 def lr_schedule(step, *, base_lr: float = 3e-4, warmup: int = 100,
@@ -47,9 +59,49 @@ def _split(batch: dict, mb: int) -> list[dict]:
     return out
 
 
+def _mean_over_ranks(loss, metrics: dict, grads: dict, group,
+                     compression: str, err: dict):
+    """Loss, metrics and gradients averaged over the ranks of ``group``:
+    one all-reduce of everything, or with ``compression="int8"`` the
+    gradients through ``ddp_allreduce_int8`` (``err`` holds each leaf's
+    error feedback across steps) and one all-reduce of the scalars.  The
+    messages travel on the device the group's backend takes."""
+    inv = 1.0 / dist.get_world_size(group)
+    comm = comm_device(group)
+    names = sorted(metrics)
+    scalars = torch.stack([loss] + [metrics[k].to(torch.float32)
+                                    for k in names]).to(comm)
+    paths = list(grads)
+    if compression == "int8":
+        on_comm = {p: grads[p].to(comm) for p in paths}
+        if not err:
+            err.update(compression_lib.init_error_state(on_comm))
+        mean, new_err = compression_lib.ddp_allreduce_int8(on_comm, err,
+                                                           group)
+        err.update(new_err)
+        dist.all_reduce(scalars, group=group)
+        scalars = scalars.mul_(inv)
+        out = {p: mean[p].to(grads[p].device) for p in paths}
+    else:
+        flat = torch.cat([scalars] + [grads[p].reshape(-1).to(comm)
+                                      for p in paths])
+        dist.all_reduce(flat, group=group)
+        flat = flat.mul_(inv)
+        scalars, off, out = flat[:scalars.numel()], scalars.numel(), {}
+        for p in paths:
+            n = grads[p].numel()
+            out[p] = flat[off:off + n].reshape(grads[p].shape).to(
+                grads[p].device)
+            off += n
+    scalars = scalars.to(loss.device)
+    return (scalars[0], {k: scalars[i + 1] for i, k in enumerate(names)},
+            out)
+
+
 def make_train_step(cfg: ModelConfig, *, base_lr: float = 3e-4,
                     total_steps: int = 10_000, warmup: int = 100,
-                    microbatch: int | None = None,
+                    microbatch: int | None = None, group=None,
+                    compression: str = "none",
                     device: str | torch.device | None = "cuda") -> Callable:
     """The train step of one architecture config:
     (params, opt_state, batch) -> (params, opt_state, metrics), the first
@@ -59,10 +111,21 @@ def make_train_step(cfg: ModelConfig, *, base_lr: float = 3e-4,
     batch (``cfg.microbatch`` by default).  If a gradient or the loss is
     not finite, every parameter and state leaf keeps its value, the step
     counter still advances and ``metrics["skipped"]`` is 1; the choice is
-    made on the device.  Metrics are 0-d tensors on the device."""
-    transformer._check_family(cfg, train=True)
+    made on the device.  Metrics are 0-d tensors on the device.
+
+    With ``group`` (a ``torch.distributed`` group), every rank of it calls
+    the step with its own shard of the batch; gradients, loss and metrics
+    are averaged over the ranks (``compression`` "none": one all-reduce;
+    "int8": ``compression.ddp_allreduce_int8`` with error feedback), so
+    the ranks take the same step: on equal shards, the step a single
+    process takes over the whole batch in ``microbatch`` x world
+    slices."""
+    if compression not in COMPRESSION:
+        raise ValueError(f"compression must be one of {COMPRESSION}, got "
+                         f"{compression!r}")
     mb = microbatch if microbatch is not None else max(1, cfg.microbatch)
     dev = resolve_device(device)
+    err: dict = {}                    # int8 error feedback, by leaf path
 
     def grads_of(params, batch):
         paths, leaves = zip(*common.leaves(params))
@@ -97,6 +160,9 @@ def make_train_step(cfg: ModelConfig, *, base_lr: float = 3e-4,
             metrics = {k: v / mb for k, v in sums.items()}
         else:
             loss, metrics, grads = grads_of(params, batch)
+        if group is not None:
+            loss, metrics, grads = _mean_over_ranks(loss, metrics, grads,
+                                                    group, compression, err)
         grads = common.with_leaves(params, grads)
 
         lr = lr_schedule(opt_state.step, base_lr=base_lr, warmup=warmup,
@@ -127,13 +193,14 @@ def make_eval_step(cfg: ModelConfig, *,
     return eval_step
 
 
-def make_serve_step(cfg: ModelConfig, *,
+def make_serve_step(cfg: ModelConfig, *, kv_shard=None,
                     device: str | torch.device | None = "cuda") -> Callable:
     """One-token decode step: (params, tokens (B, 1), pos, cache) ->
-    (logits (B, 1, V), cache)."""
+    (logits (B, 1, V), cache).  ``kv_shard``: the group over which the
+    full-attention caches split their positions (``decode_step``)."""
     def serve_step(params, tokens, pos, cache):
         return transformer.decode_step(params, tokens, pos, cache, cfg,
-                                       device=device)
+                                       kv_shard=kv_shard, device=device)
     return serve_step
 
 

@@ -106,6 +106,25 @@ def reference_run(arch: str, *, prompt: int, gen: int, frames: int = 0,
                        {k: float(v) for k, v in jm.items()}))
 
 
+def reference_train(arch: str, *, seq: int, seed: int = 1) -> dict:
+    """``repro``'s one jitted train step (lr 1e-2, no warmup) of
+    ``arch``'s smoke() config on B x ``seq`` tokens, with the port's
+    config, the crossed weights and the batch: what ``port_train_step``
+    and the train checks read of ``reference_run``."""
+    jcfg, cfg = J.get_config(arch, smoke=True), get_config(arch, smoke=True)
+    specs = JT.param_specs(jcfg)
+    pj = jax.jit(lambda key: jcommon.build_params(specs, key))(
+        jax.random.PRNGKey(0))
+    full_b, _ = _batches(cfg, seq, 0, 0, seed)
+    jstep = jax.jit(jmake_train_step(jcfg, **TRAIN_KW))
+    jp, js, jm = jstep(pj, jopt.opt_init(jcfg.optimizer, pj),
+                       {k: jnp.asarray(v) for k, v in full_b.items()})
+    return dict(cfg=cfg, pj=jax.tree.map(np.asarray, pj),
+                full_batch=full_b,
+                train=(jflat(jp), jflat(js.m),
+                       {k: float(v) for k, v in jm.items()}))
+
+
 def port_prefill(m: dict):
     cfg = m["cfg"]
     cache = T.init_cache(cfg, B, m["frames"] if cfg.enc_dec

@@ -332,7 +332,7 @@ def test_port_wrappers_pass_the_oracle_contract():
     assert contracts.check(project) == []
     wrappers = [f for f in project.files
                 if contracts.is_wrapper(f.module)]
-    assert len(wrappers) == 7
+    assert len(wrappers) == 8         # the seven ports and ssm_scan_bwd
 
 
 def test_oracle_contract_passes_and_strips_tuning_params():

@@ -1,4 +1,4 @@
-"""The seven CUDA kernels against their plain versions, on the card.
+"""The eight CUDA kernels against their plain versions, on the card.
 
 Marked ``gpu``; run on a machine with an H100 and the CUDA toolkit:
 
@@ -15,7 +15,10 @@ error of the expanded form summed in another order; batch_l2 within
 1e-5 * (|q|^2 + |x|^2) per pair; dtw_band_panel bitwise; ssm_scan
 rtol / atol 1e-4, the bar of tests/test_kernels.py's scan test (the
 kernel may contract a * h + b into an FMA, and its expf and the plain
-exp differ by an ulp or two); the Mamba mixer and Hymba serving on the
+exp differ by an ulp or two); ssm_scan's training launch bitwise the
+plain launch in y and h_last, its checkpoints 1e-4, and ssm_scan_bwd
+1e-4 of each gradient's largest magnitude against the float64 plain
+reverse scan, two launches bitwise; the Mamba mixer and Hymba serving on the
 card against the plain oracle and the CPU 1e-3 and 2e-3, the bars of
 tests/test_kernels.py's mixer test and tests/test_models.py's
 prefill/decode test; a dense, a MoE, the RWKV and the Whisper smoke()
@@ -43,7 +46,9 @@ from repro_torch.kernels.dtw_band import dtw_band_panel
 from repro_torch.kernels.fused_refine import fused_panel_topk
 from repro_torch.kernels.isax_summarize import isax_summarize
 from repro_torch.kernels.lb_scan import lb_scan
-from repro_torch.kernels.ssm_scan import ssm_scan
+from repro_torch.kernels.ssm_scan import (ssm_scan,
+                                          ssm_scan_with_checkpoints)
+from repro_torch.kernels.ssm_scan_bwd import ssm_scan_bwd
 
 pytestmark = pytest.mark.gpu
 
@@ -549,6 +554,81 @@ def test_ssm_scan_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         ssm_scan(xc.transpose(1, 2).contiguous().transpose(1, 2), dt, bm, cm,
                  a)
+
+
+@pytest.mark.parametrize("n", [1, 3, 8, 12, 16, 33, 64])
+@pytest.mark.parametrize("b,s,d", [(2, 45, 77), (1, 70, 128), (2, 1, 100),
+                                   (2, 1152, 1600)])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_ssm_scan_bwd(cuda, n, b, s, d, with_h0):
+    """The training launch and the reverse scan: N padded (1, 3, 12), in
+    passes (33, 64), a ragged D (77), S = 1, Hymba's training shape."""
+    xc, dt, bm, cm, a, h0 = _ssm_inputs(cuda, b, s, d, n, seed=b + s + d + n,
+                                        with_h0=with_h0)
+    g = torch.Generator(device=cuda).manual_seed(n)
+    dy = torch.randn((b, s, d), generator=g, device=cuda)
+    dh = torch.randn((b, d, n), generator=g, device=cuda) if with_h0 \
+        else None
+    ops.reset_launch_counts()
+    y, h_last, ckpt = ssm_scan_with_checkpoints(xc, dt, bm, cm, a, h0)
+    y1, h1 = ssm_scan(xc, dt, bm, cm, a, h0)
+    got = ssm_scan_bwd(xc, dt, bm, cm, a, ckpt, dy, dh)
+    again = ssm_scan_bwd(xc, dt, bm, cm, a, ckpt, dy, dh)
+    assert ops.launch_counts()["ssm_scan"] == 2
+    assert ops.launch_counts()["ssm_scan_bwd"] == 2
+    assert torch.equal(y, y1) and torch.equal(h_last, h1)
+    f64 = lambda t: None if t is None else t.double()
+    _, _, ck = ref.ssm_scan_with_checkpoints_ref(
+        *map(f64, (xc, dt, bm, cm, a, h0)))
+    want = ref.ssm_scan_bwd_ref(*map(f64, (xc, dt, bm, cm, a)), ck, f64(dy),
+                                f64(dh))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(ckpt.double(), ck, rtol=1e-4, atol=1e-4)
+    for gt, gt2, w in zip(got, again, want):
+        assert torch.equal(gt, gt2)
+        assert float((gt.double() - w).abs().max()) <= \
+            1e-4 * float(w.abs().max())
+
+
+def test_ssm_scan_autograd_on_the_card_matches_the_cpu(cuda):
+    xc, dt, bm, cm, a, h0 = _ssm_inputs(cuda, 2, 75, 64, 8, 5, True)
+
+    def grads(dev):
+        ins = [t.to(dev).clone().requires_grad_(True)
+               for t in (xc, dt, bm, cm, a, h0)]
+        y, h_last = ops.ssm_scan(*ins)
+        loss = torch.sum(y * y) + torch.sum(h_last)
+        return torch.autograd.grad(loss, ins)
+    ops.reset_launch_counts()
+    on_card = grads(cuda)
+    assert ops.launch_counts()["ssm_scan_bwd"] == 1
+    for g, w in zip(on_card, grads("cpu")):
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * float(
+            w.abs().max())
+
+
+def test_hymba_train_step_on_the_card_matches_the_cpu(cuda):
+    """One smoke() train step, card against CPU, from the same weights:
+    loss and gradient norm 1e-4 relative; the scan's two kernels ran."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import common
+    from repro_torch.train import make_train_step, opt_init
+    cfg = get_config("hymba-1.5b", smoke=True)
+    host = serve.build_params(cfg, 0, "cpu")
+    batch = {"tokens": np.random.default_rng(0).integers(0, cfg.vocab,
+                                                         (2, 40))}
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        p = common.tree_map(lambda t: t.to(dev, copy=True), host)
+        ops.reset_launch_counts()
+        _, _, m = make_train_step(cfg, device=dev)(
+            p, opt_init(cfg.optimizer, p), batch)
+        out[dev.type] = {k: float(m[k]) for k in ("loss", "grad_norm")}
+        if dev.type == "cuda":
+            assert ops.launch_counts()["ssm_scan_bwd"] == cfg.n_layers
+    for k, want in out["cpu"].items():
+        assert abs(out["cuda"][k] - want) <= 1e-4 * abs(want), k
 
 
 def test_mamba_mix_on_the_card_matches_the_naive_oracle(cuda):

@@ -191,7 +191,7 @@ def test_ops_on_cpu_take_the_plain_versions():
     assert ops.launch_counts() == {"isax_summarize": 0, "lb_scan": 0,
                                    "block_topk": 0, "fused_panel_topk": 0,
                                    "batch_l2": 0, "dtw_band_panel": 0,
-                                   "ssm_scan": 0}
+                                   "ssm_scan": 0, "ssm_scan_bwd": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

@@ -33,7 +33,7 @@ from repro_torch.configs import count_params, get_config
 from repro_torch.launch import serve
 from repro_torch.models import attention, common
 from repro_torch.models import transformer as T
-from repro_torch.train import make_eval_step, make_train_step
+from repro_torch.train import make_eval_step, make_train_step, opt_init
 from _torch_parity import one_intra_op_thread  # noqa: F401
 
 ARCH = "hymba-1.5b"
@@ -69,8 +69,11 @@ def test_config_matches_reference(smoke):
 def test_other_architectures_name_their_roadmap_item():
     """The MoE, RWKV and Whisper families run ``param_specs``,
     ``init_cache``, ``forward`` and ``loss_fn`` (their parity with the
-    reference is tests/test_torch_{moe,rwkv,whisper}.py); training Hymba
-    is the one thing refused, naming its item."""
+    reference is tests/test_torch_{moe,rwkv,whisper}.py); Hymba, whose
+    training was refused until its scan had a backward, now gives a
+    finite loss under autograd and a finite gradient of A through
+    ``ssm_scan`` (its train step against the reference's is
+    tests/test_torch_hymba_train.py)."""
     for arch in ("rwkv6-7b", "granite-moe-1b-a400m", "whisper-medium"):
         cfg = get_config(arch, smoke=True)
         params = serve.build_params(cfg, 0, "cpu")
@@ -88,9 +91,12 @@ def test_other_architectures_name_their_roadmap_item():
         assert bool(torch.isfinite(loss)) and float(metrics["tokens"]) == 7
     cfg = get_config(ARCH, smoke=True)
     params = serve.build_params(cfg, 0, "cpu")
-    with pytest.raises(NotImplementedError, match="item 20"):
-        T.loss_fn(params, {"tokens": np.zeros((1, 8), np.int64)}, cfg,
-                  device="cpu")
+    a_log = params["layers"]["mamba"]["a_log"].requires_grad_(True)
+    loss, _ = T.loss_fn(params, {"tokens": np.zeros((1, 8), np.int64)}, cfg,
+                        device="cpu")
+    (g,) = torch.autograd.grad(loss, [a_log])   # A is read by the scan only
+    assert bool(torch.isfinite(loss)) and bool(torch.isfinite(g).all())
+    assert bool((g != 0).any())
     with pytest.raises(SystemExit):   # argparse: --arch is required here
         serve.main(["--smoke", "--device", "cpu"])
 
@@ -355,7 +361,8 @@ def test_hymba_serving_is_consistent_with_forward(hymba):
 def test_hymba_eval_loss_matches_reference(hymba):
     """Hymba's loss without autograd (``make_eval_step`` and a no-grad
     ``loss_fn``) runs and matches the reference's at 1e-5 relative, the
-    bar of the dense archs' train steps; under autograd it is refused."""
+    bar of the dense archs' train steps; a train step from the same
+    weights has a finite loss and gradient norm and skips nothing."""
     cfg, p = hymba["cfg"], hymba["params"]
     batch = {"tokens": hymba["tokens"]}
     got = make_eval_step(cfg, device="cpu")(p, batch)
@@ -364,8 +371,15 @@ def test_hymba_eval_loss_matches_reference(hymba):
     for k, want in hymba["loss"].items():
         np.testing.assert_allclose(float(got[k]), want, rtol=1e-5, err_msg=k)
     np.testing.assert_allclose(float(loss), hymba["loss"]["loss"], rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        make_train_step(cfg, device="cpu")
+    own = common.tree_map(torch.clone, p)     # the step updates in place
+    _, state, m = make_train_step(cfg, device="cpu")(
+        own, opt_init(cfg.optimizer, own), batch)
+    assert np.isfinite(float(m["loss"])) and np.isfinite(
+        float(m["grad_norm"])) and int(m["skipped"]) == 0
+    np.testing.assert_allclose(float(m["loss"]), hymba["loss"]["loss"],
+                               rtol=1e-5)
+    a_mom = state.m["layers"]["mamba"]["a_log"]  # 0.1 x A's gradient
+    assert bool(torch.isfinite(a_mom).all()) and bool((a_mom != 0).any())
 
 
 def test_serve_cli_on_the_cpu(capsys):

@@ -1,7 +1,7 @@
 """The port's trainer alone, on the CPU: counterparts of the ten tests of
 tests/test_train.py (loss falling, a non-finite step skipped, microbatch
 accumulation, remat, the optimizers' math, int8 compression, the
-checkpointer, the learning rate's shape, what is refused), and the
+checkpointer, the learning rate's shape, the hybrid family), and the
 training CLI's resume and final checkpoint on SIGTERM.  The port against
 repro's trainer is tests/test_torch_train.py.
 
@@ -220,12 +220,26 @@ def test_lr_schedule_shape():
 
 
 def test_hybrid_training_names_its_roadmap_item():
+    """The hybrid family, refused until its scan had a backward, trains:
+    a step's loss and gradient norm are finite, nothing is skipped and
+    A (read by ``ssm_scan`` only) gets a finite, non-zero gradient; so
+    does ``loss_fn`` under autograd."""
     cfg = get_config("hymba-1.5b", smoke=True)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        make_train_step(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 20"):
-        T.loss_fn({}, {"tokens": np.zeros((1, 4), np.int64)}, cfg,
-                  device="cpu")
+    params = serve.build_params(cfg, 0, "cpu")
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab, (2, 16))
+    _, state, m = make_train_step(cfg, device="cpu")(
+        params, opt_init(cfg.optimizer, params), {"tokens": tokens})
+    assert np.isfinite(float(m["loss"])) and np.isfinite(
+        float(m["grad_norm"])) and int(m["skipped"]) == 0
+    a_mom = state.m["layers"]["mamba"]["a_log"]   # 0.1 x A's gradient
+    assert bool(torch.isfinite(a_mom).all()) and bool((a_mom != 0).any())
+    a_log = params["layers"]["mamba"]["a_log"].detach().requires_grad_(True)
+    params["layers"]["mamba"]["a_log"] = a_log
+    loss, _ = T.loss_fn(params, {"tokens": tokens[:1, :4]}, cfg,
+                        device="cpu")
+    (g,) = torch.autograd.grad(loss, [a_log])
+    assert bool(torch.isfinite(loss)) and bool(torch.isfinite(g).all())
+    assert bool((g != 0).any())
 
 
 # ---------------------------------------------------------------------------
