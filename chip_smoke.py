@@ -111,7 +111,26 @@ CUDA toolkit.  Phases, each printing one JSON line:
                  ``decode_attend`` over the whole cache (1e-5 x its
                  largest magnitude), the new
                  K/V written by its owner; ms a call of both;
- 13. kernels   — each kernel against its plain PyTorch version on the
+ 13. roofline  — ``python -m repro_torch.launch.dryrun --mesh 16x1`` as a
+                 subprocess (its fake process group kept away from
+                 ``dist1``'s NCCL one): every (arch x shape) cell, 34,
+                 counted per rank on the meta device in one process,
+                 each status ok, in under ROOFLINE_COUNT_S seconds; then
+                 ``--measure`` in a second subprocess on ROOFLINE_CELLS
+                 (hymba-1.5b decode_32k at 16x1 and train_4k at 256x1,
+                 h2o-danube-1.8b's two for comparison, bf16 weights as
+                 counted): one rank's step, median seconds of 3 after a
+                 warm-up, the peak memory beside the predicted,
+                 ``ssm_scan`` / ``ssm_scan_bwd`` launches of a step equal
+                 to the counted calls, the roofline share (max(compute,
+                 memory) over the measured seconds) at most
+                 ROOFLINE_SHARE_MAX; a cell whose predicted peak exceeds
+                 0.8 of the free memory is printed as skipped, with the
+                 free memory, and fails the phase if its count calls a
+                 kernel (hymba-1.5b prefill_32k, one step of ~50 s, is
+                 measured apart: ``launch.dryrun --cells
+                 hymba-1.5b:prefill_32k:16x1 --measure``);
+ 14. kernels   — each kernel against its plain PyTorch version on the
                  card, at its paths' shapes and on their data, with the
                  stated tolerance, and timed beside its plain version, a
                  library call where one exists, and its bound (the larger
@@ -154,10 +173,10 @@ CUDA toolkit.  Phases, each printing one JSON line:
                  batch (N = 16, with and without dh_last) and on random
                  ones at N = 1, 3, 12, 33 and 64, two launches bitwise
                  equal;
- 14. exact     — every Euclidean path's answers (block-major, query-major,
+ 15. exact     — every Euclidean path's answers (block-major, query-major,
                  flat, UCR) against a brute-force scan of every series with
                  the plain ``batch_l2_ref`` + ``topk_by_dist_id``;
- 15. ooc       — the on-disk index over the same series (``--ooc-series``,
+ 16. ooc       — the on-disk index over the same series (``--ooc-series``,
                  all by default, cut in whole millions until the files fit
                  in half the free disk, under the git-ignored
                  ``build/ooc/``, removed at the end): the series written as
@@ -176,10 +195,10 @@ CUDA toolkit.  Phases, each printing one JSON line:
                  every block (bitwise equal, 0 bytes read); DTW (r=12,
                  k=10) on the ``--dtw-queries`` through that session, ids
                  against ``dtw``'s;
- 16. dist1     — ``distributed.search_sharded`` (k=10) over the main index
+ 17. dist1     — ``distributed.search_sharded`` (k=10) over the main index
                  on a world-size-1 NCCL group: bitwise ``main``'s
                  block-major answer and counters;
- 17. serve     — on the ooc phase's index file: 4 tenant threads x 25
+ 18. serve     — on the ooc phase's index file: 4 tenant threads x 25
                  queries (members of one random block plus 0.05 noise,
                  from ``--seed``), k=10, through one coalesced
                  ``SearchSession`` drain, each tenant bitwise its isolated
@@ -189,12 +208,12 @@ CUDA toolkit.  Phases, each printing one JSON line:
                  bitwise the exact answer; and ``python -m
                  repro_torch.launch.serve --search-index`` once, as a
                  subprocess (4 queries a tenant, k=1);
- 18. analysis  — the port's static checkers (``repro_torch.analysis``:
+ 19. analysis  — the port's static checkers (``repro_torch.analysis``:
                  lock discipline, host syncs, kernel/oracle contracts) over
                  ``src/repro_torch``, in process: any finding fails; the
                  annotated ``# sync`` sites of ``core/engine.py`` grouped by
                  the frequency their comments state;
- 19. sanitize  — the first 1M series of the ooc phase's file built here by
+ 20. sanitize  — the first 1M series of the ooc phase's file built here by
                  ``storage.run_pipeline``; then a subprocess with
                  ``REPRO_SANITIZE=1``: the session's and cache's locks
                  instrumented, an off-lock write to a guarded field raising
@@ -206,7 +225,7 @@ CUDA toolkit.  Phases, each printing one JSON line:
                  series.  The script refuses to run at all
                  with ``REPRO_SANITIZE`` set in its own environment: its
                  timed phases would measure the instrumented locks;
- 20. dist4     — the main process frees its tensors, then 4 ranks spawned
+ 21. dist4     — the main process frees its tensors, then 4 ranks spawned
                  on the card over gloo (a ``file://`` store under
                  ``build/``): each reads its quarter of the series file,
                  ``distributed.build_sharded`` with global ids,
@@ -217,7 +236,7 @@ CUDA toolkit.  Phases, each printing one JSON line:
                  and peak device memory, launches summed over ranks; a
                  rank that fails or a collective past its timeout fails
                  the run;
- 21. dist_ooc  — ``distributed.search_sharded_ooc`` over 4 sessions on
+ 22. dist_ooc  — ``distributed.search_sharded_ooc`` over 4 sessions on
                  dist4's shard files from a cold disk, k=10: ids against
                  the brute-force scan, the summed ``IOStats``.
 
@@ -266,20 +285,16 @@ from repro_torch.kernels.ssm_scan_bwd import ssm_scan_bwd  # noqa: E402
 from repro_torch.configs import count_params, get_config  # noqa: E402
 from repro_torch.data.tokens import synthetic_token_batches  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import roofline  # noqa: E402
+# the H100 SXM's rates and each kernel's work and least time
+from repro_torch.launch.roofline import (FP32, SM_CLOCK_HZ,  # noqa: E402
+                                         band_cells, bound)
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import (attention, common, mamba,  # noqa: E402
                                 transformer)
 from repro_torch.train import (Checkpointer, make_eval_step,  # noqa: E402
                                make_train_step, opt_init)
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
-# (operations a second, the unit a bound names) of the H100 SXM's units
-FP32 = (67e12, "fp32 operations at 67 TFLOP/s")   # outside the tensor cores
-TF32 = (495e12, "dense TF32 tensor-core operations at 495 TFLOP/s")
-FP64 = (34e12, "fp64 operations at 34 TFLOP/s")   # outside the tensor cores
-SM_CLOCK_HZ = 1.98e9           # assumed for the SFU rate: the maximum SM clock
-SFU = (16 * 132 * SM_CLOCK_HZ,  # 16 exps a clock on each of 132 SMs
-       "exps on the special-function units, 16 a clock an SM at 1.98 GHz")
 LB_RTOL = 1e-5                 # 16 non-negative terms summed in another order
 LB_PLAIN_CHUNK = 131_072       # columns of a chunk of the plain lb_scan
 # lb_scan's issue floor: the fp32 arithmetic a (q, j, s) term of the
@@ -344,6 +359,17 @@ SEQ_POS = 300_007              # in rank 1's half, off a 1,024-slot chunk edge
 SEQ_REL = 1e-5                 # the sharded merge vs one process's decode, x max |want|
 SEQ_CALLS = 10
 MESH_DIR = ROOT / "build" / "mesh"   # git-ignored; removed at the phase's end
+ROOFLINE_DIR = ROOT / "build" / "roofline"   # git-ignored; the records
+ROOFLINE_COUNT_S = 120         # all 34 cells must be counted within this
+ROOFLINE_SHARE_MAX = 1.05      # a larger share: the count or the peaks wrong
+ROOFLINE_STEPS = 3             # timed steps after the warm-up (dryrun's)
+# (arch, shape, mesh) measured on the card against their counts, in one
+# process
+ROOFLINE_CELLS = (("hymba-1.5b", "decode_32k", "16x1"),
+                  ("hymba-1.5b", "train_4k", "256x1"),
+                  ("h2o-danube-1.8b", "decode_32k", "16x1"),
+                  ("h2o-danube-1.8b", "train_4k", "256x1"))
+ROOFLINE_TIMEOUT_S = 900
 
 OOC_DIR = ROOT / "build" / "ooc"   # git-ignored; removed at the phase's end
 # bytes on disk a series of 256 points: the series file (1,024), the index
@@ -462,20 +488,6 @@ def device_ms_all(fn, reps: int = 20, warmup: int = 3) -> float:
                 for e in _profiled(fn, reps, warmup))
     check(total > 0, "the profiler saw device time of a library call")
     return total / reps / 1e3
-
-
-def bound(nbytes: float, ops: float, rate: tuple = FP32, *more
-          ) -> tuple[float, str, str]:
-    """The least time for the work: ``nbytes`` at the memory rate against
-    ``ops`` at ``rate`` (fp32 outside the tensor cores by default) and any
-    further (ops, rate) pairs, each on its own unit.  -> (ms, "bytes" or
-    "operations", the unit that bounds it)."""
-    best = (nbytes / HBM_BYTES_PER_S * 1e3, "bytes", "bytes at 3.35 TB/s")
-    for n_ops, (per_s, unit) in ((ops, rate), *more):
-        t = n_ops / per_s * 1e3
-        if t > best[0]:
-            best = (t, "operations", unit)
-    return best
 
 
 def random_walk_cuda(n_series: int, length: int, seed: int,
@@ -1404,6 +1416,95 @@ def phase_mesh(args) -> None:
           "decode_seqsharded": seq})
 
 
+def _dryrun(args: list[str], out: Path) -> tuple[list, float, object]:
+    """``python -m repro_torch.launch.dryrun ARGS --out OUT`` as a
+    subprocess -> (its records, seconds, the completed process)."""
+    out.unlink(missing_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                        *args, "--out", str(out)], cwd=ROOT, env=env,
+                       capture_output=True, text=True,
+                       timeout=ROOFLINE_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    recs = ([json.loads(line) for line in out.read_text().splitlines()]
+            if out.exists() else [])
+    return recs, secs, r
+
+
+def _measured_line(m: dict, counted: dict) -> dict:
+    """One measured cell held to its count; a skipped cell passes only
+    if its count (``counted``: kernel calls by name) calls no kernel."""
+    label = f"roofline: {m['arch']} {m['shape']} {m['mesh']} {m['dtype']}"
+    line = {k: m.get(k) for k in (
+        "arch", "shape", "mesh", "dtype", "status", "seconds", "steps_s",
+        "first_step_s", "compute_s", "memory_s", "roofline_s", "bottleneck",
+        "roofline_share", "predicted_peak_bytes", "measured_peak_bytes",
+        "free_bytes", "launches", "counted_calls", "count_s")}
+    if not m["status"].startswith("ok"):
+        print(f"{label}: {m['status']} ({m['free_bytes'] / 2**30:.2f} GiB "
+              f"free)", flush=True)
+        check(not counted, f"{label}: measured, since its count calls "
+                           f"{sorted(counted)} ({m['status']})")
+        return line
+    for name in ("ssm_scan", "ssm_scan_bwd"):
+        check(m["launches"].get(name, 0) == m["counted_calls"].get(name, 0),
+              f"{label}: {name} launches of a step "
+              f"{m['launches'].get(name, 0)} equal the counted calls "
+              f"{m['counted_calls'].get(name, 0)}")
+    check(len(m["steps_s"]) == ROOFLINE_STEPS,
+          f"{label}: {ROOFLINE_STEPS} steps timed after the warm-up, got "
+          f"{m['steps_s']} (first {m['first_step_s']:.4g} s)")
+    check(0 < m["roofline_share"] <= ROOFLINE_SHARE_MAX,
+          f"{label}: roofline share {m['roofline_share']:.4g} within "
+          f"(0, {ROOFLINE_SHARE_MAX}]")
+    return line
+
+
+def phase_roofline(args) -> dict:
+    """Every cell counted per rank of 16x1; ROOFLINE_CELLS measured on
+    the card against their counts."""
+    t_phase = time.perf_counter()
+    ROOFLINE_DIR.mkdir(parents=True, exist_ok=True)
+    recs, count_s, r = _dryrun(["--mesh", "16x1"],
+                               ROOFLINE_DIR / "roofline.jsonl")
+    ok = [x for x in recs if x.get("status") == "ok"]
+    check(r.returncode == 0 and len(recs) == 34 and len(ok) == 34,
+          f"roofline: dryrun counts 34 cells, status ok (rc {r.returncode}, "
+          f"{len(ok)}/{len(recs)} ok; {r.stdout[-1500:]!r} "
+          f"{r.stderr[-1500:]!r})")
+    check(count_s < ROOFLINE_COUNT_S,
+          f"roofline: 34 cells counted in {count_s:.1f} s, under "
+          f"{ROOFLINE_COUNT_S}")
+    top = lambda key: [[x["arch"], x["shape"], x[key]] for x in sorted(
+        ok, key=lambda x: -x[key])[:3]]
+    count_line = {"cells": len(recs), "ok": len(ok), "seconds": count_s,
+                  "top_compute_s": top("compute_s"),
+                  "top_memory_s": top("memory_s")}
+    print(json.dumps({"roofline_count": count_line}), flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    spec = ",".join(":".join(c) for c in ROOFLINE_CELLS)
+    mrecs, measure_s, r = _dryrun(["--cells", spec, "--measure", "--seed",
+                                   str(args.seed)],
+                                  ROOFLINE_DIR / "measured.jsonl")
+    cells = []
+    for (arch, shape, mesh), rec in zip(ROOFLINE_CELLS, mrecs):
+        if check(rec.get("status") == "ok" and "measured" in rec,
+                 f"roofline: {arch} {shape} {mesh} measured "
+                 f"({rec.get('status')!r}; {r.stdout[-1500:]!r})"):
+            cells.append(_measured_line(rec["measured"],
+                                        rec["kernel_calls"]))
+    check(len(mrecs) == len(ROOFLINE_CELLS),
+          f"roofline: {len(ROOFLINE_CELLS)} cells measured, got "
+          f"{len(mrecs)} records (rc {r.returncode})")
+    line = {"phase": "roofline", "nvidia_smi": nvidia_smi_line(),
+            "seconds": time.perf_counter() - t_phase, "count": count_line,
+            "measure_seconds": measure_s, "cells": cells}
+    emit(line)
+    return line
+
+
 def _compare_summarize(raw: torch.Tensor, n_slice: int) -> dict:
     """Bitwise: the kernel and the plain version evaluate the same float64
     operations in the same order and round the PAA once."""
@@ -1428,13 +1529,8 @@ def _compare_summarize(raw: torch.Tensor, n_slice: int) -> dict:
         plain_ms = time_cuda(lambda: ref.isax_summarize_ref(
             x, w=isax.W, card=isax.CARD, normalize=normalize), reps=5)
         n, w = x.shape[1], isax.W
-        nbytes = n_slice * n * 4 + n_slice * w * 8 + bps.numel() * 4
-        # float64: per point one add, and with z-norm the variance's
-        # subtract, multiply and add and the z-norm's subtract and divide;
-        # per window its divide; the symbol search in fp32
-        f64 = n_slice * (n * (6 if normalize else 1) + w)
-        search = n_slice * w * int(np.ceil(np.log2(bps.numel() + 1)))
-        b_ms, b_by, b_unit = bound(nbytes, f64, FP64, (search, FP32))
+        b_ms, b_by, b_unit = roofline.isax_summarize_work(
+            n_slice, n, w, bps.numel() + 1, normalize).bound()
         out[normalize] = {"shape": [n_slice, n], "normalize": normalize,
                           "max_abs_err": float(err.max()),
                           "symbol_flips": n_flips, "match": paa_ok and flips_ok,
@@ -1474,8 +1570,7 @@ def _lb_case(q_paa, lo, hi, n: int) -> dict:
     ok, max_err, max_rel = _lb_check(q_paa, lo, hi, n)
     qn, w = q_paa.shape
     nb = lo.shape[1]
-    b_ms, b_by, b_unit = bound(qn * w * 4 + 2 * w * nb * 4 + qn * nb * 4,
-                               qn * nb * (6 * w + 1))
+    b_ms, b_by, b_unit = roofline.lb_scan_work(qn, w, nb).bound()
     run = lambda: lb_scan(q_paa, lo, hi, n=n)
     chunked = nb > LB_PLAIN_CHUNK
 
@@ -1622,7 +1717,7 @@ def _compare_block_topk(panels: dict) -> dict:
         for k in (1, 10):
             run = lambda d=d, ids=ids, k=k: block_topk(d, ids, k=k)
             lib = lambda d=d, k=k: torch.topk(d, k, dim=1, largest=False)
-            b_ms, b_by, b_unit = bound(qn * c * 8 + qn * k * 8, qn * c)
+            b_ms, b_by, b_unit = roofline.block_topk_work(qn, c, k).bound()
             shapes[f"{label}_k{k}"] = {
                 "shape": [qn, c], "k": k,
                 "live_lanes": int((ids >= 0).sum()),
@@ -1806,7 +1901,7 @@ def _compare_batch_l2(q, flat_raw) -> dict:
         m = x.shape[0]
         nbytes = 4 * (qn * n + m * n + qn * m)
         # the design that runs: three TF32 products on the tensor cores
-        b_ms, b_by, b_unit = bound(nbytes, 3 * 2 * qn * m * n, TF32)
+        b_ms, b_by, b_unit = roofline.batch_l2_work(qn, m, n).bound()
         run = lambda qq=qq, x=x: batch_l2(qq, x)
         lib = lambda qq=qq, x=x: torch.cdist(
             qq, x, compute_mode="use_mm_for_euclid_dist")
@@ -1826,12 +1921,6 @@ def _compare_batch_l2(q, flat_raw) -> dict:
             "tolerance": f"within {DIST_REL}*(|q|^2+|x|^2) per pair"}
     emit({"phase": "kernels", "kernel": "batch_l2", **line})
     return line
-
-
-def band_cells(n: int, r: int) -> int:
-    """Cells (i, j) of an n x n matrix with |i - j| <= r."""
-    r = min(r, n - 1)
-    return n * (2 * r + 1) - r * (r + 1)
 
 
 def _compare_dtw(index, q) -> dict:
@@ -1855,7 +1944,7 @@ def _compare_dtw(index, q) -> dict:
                             f"r={r}: bitwise")
     m = gathered.shape[1]
     cells = qn * m * band_cells(n, DTW_R)
-    b_ms, b_by, b_unit = bound(4 * (qn * n + qn * m * n + qn * m), 6 * cells)
+    b_ms, b_by, b_unit = roofline.dtw_band_panel_work(qn, m, n, DTW_R).bound()
     line = {"shape": [qn, m, n], "r": DTW_R, "form": "gathered",
             "band_cells": cells,
             "max_abs_err": 0.0 if ok_all else None, "match": ok_all,
@@ -1875,17 +1964,6 @@ def _compare_dtw(index, q) -> dict:
                          f"{{0, {DTW_R}, {n - 1}}}"}
     emit({"phase": "kernels", "kernel": "dtw_band_panel", **line})
     return line
-
-
-def _ssm_bound(b, s, d, n, with_h0: bool) -> tuple[float, str, str]:
-    """Bytes: xc, dt, y (B, S, D), B, C (B, S, N), A (D, N), h_last and h0
-    (B, D, N).  fp32 operations: per (b, t, d, n) dt*A, (dt*x)*B, a*h + b
-    (two), h*C and one reduction add; per (b, t, d) dt*x.  Exps: one per
-    (b, t, d, n), on the special-function units."""
-    nbytes = 4 * (3 * b * s * d + 2 * b * s * n + d * n
-                  + (2 if with_h0 else 1) * b * d * n)
-    return bound(nbytes, 6 * b * s * d * n + b * s * d, FP32,
-                 (b * s * d * n, SFU))
 
 
 def _compare_ssm(scan_in: dict) -> dict:
@@ -1919,7 +1997,8 @@ def _compare_ssm(scan_in: dict) -> dict:
             errs.append(float(err.max()))
         b, s_len, d = args[0].shape
         n = args[2].shape[-1]
-        b_ms, b_by, b_unit = _ssm_bound(b, s_len, d, n, args[5] is not None)
+        b_ms, b_by, b_unit = roofline.ssm_bound(b, s_len, d, n,
+                                                args[5] is not None)
         line[label] = {"shape": [b, s_len, d, n],
                        "max_abs_err_y": errs[0], "max_abs_err_h_last": errs[1],
                        "ms": time_cuda(lambda: ssm_scan(*args)),
@@ -1943,19 +2022,6 @@ def _compare_ssm(scan_in: dict) -> dict:
                         "from torch.exp, over a recurrence that decays"}
     emit({"phase": "kernels", "kernel": "ssm_scan", **out})
     return out
-
-
-def _bwd_bound(b, s, d, n, with_dh: bool) -> tuple[float, str, str]:
-    """Bytes: xc, dt, dy in and dxc, ddt out (B, S, D); B, C in and dB, dC
-    out (B, S, N); A in, dA out (D, N); the checkpoints (B, ceil(S/32),
-    D, N) and dh_last in, dh0 out (B, D, N).  Per (b, t, d, n): one exp,
-    a_t = exp(dt_t A), which the recomputed state and the adjoint share,
-    on the special-function units, and 17 other fp32 operations."""
-    spans = -(-s // 32)
-    nbytes = 4 * (5 * b * s * d + 4 * b * s * n + 2 * d * n
-                  + b * spans * d * n + (2 if with_dh else 1) * b * d * n)
-    e = b * s * d * n
-    return bound(nbytes, 17 * e, FP32, (e, SFU))
 
 
 def _compare_ssm_bwd(train_in: dict, seed: int) -> dict:
@@ -2008,7 +2074,8 @@ def _compare_ssm_bwd(train_in: dict, seed: int) -> dict:
     _, _, ck = ssm_scan_with_checkpoints(*opnds)
     call = lambda: ssm_scan_bwd(*opnds, ck, dy)
     ck32 = ref.ssm_scan_with_checkpoints_ref(*opnds)[2]
-    b_ms, b_by, b_unit = _bwd_bound(b, s, d, opnds[2].shape[-1], False)
+    b_ms, b_by, b_unit = roofline.ssm_bwd_bound(b, s, d, opnds[2].shape[-1],
+                                                False)
     out = {"shape": line["train"]["shape"], "cases": line,
            "max_abs_err": max(max(c["max_abs_err"].values())
                               for c in line.values()),
@@ -3139,6 +3206,7 @@ def main(argv=None) -> int:
     launches["families"] = phase_families(args)
     launches["hybrid_train"], train_in = phase_hybrid_train(args)
     phase_mesh(args)
+    phase_roofline(args)
     # the envelope widths of the sanitize phase's index (its rows of the
     # on-disk phase's series) and of a dist4 shard
     ooc_n = min(args.ooc_series or args.n_series, args.n_series)

@@ -1,0 +1,341 @@
+"""Dry run: count every (arch x shape) cell per rank of the port's own
+layout, with its roofline on an H100; or measure one cell on the card.
+
+The counterpart of ``repro.launch.dryrun``, which lowers and compiles
+each cell for a (16, 16) or (2, 16, 16) TPU mesh on 512 placeholder CPU
+devices and reads the partitioned HLO.  The port shards no parameter: a
+cell runs data-parallel over D ranks (``launch.train --mesh Dx1``), each
+holding the whole model and its share of the batch and caches
+(``specs.shard_shapes`` on a ``MeshSpec((D,), ("data",))``), and a
+decode batch that does not split over the ranks (long_500k's one
+sequence) splits its full-attention caches' positions over them
+(``decode_step(kv_shard=)``).  So a cell is counted as one rank's step,
+on the meta device (no card, no memory), by ``launch.op_analysis``, the
+gradient all-reduce and the sharded decode's two all-reduces on a fake
+process group of D ranks.  ``--mesh 16x1`` (the default) is one data row
+of the reference's 16 x 16 production mesh, whose "model" axis the port
+has nothing to fill; ``32x1`` stands in for its two-pod layout.  A
+decode cell is counted at its last position (Whisper: its decoder's).
+
+Usage:
+    PYTHONPATH=src python -m repro_torch.launch.dryrun            # all cells
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch hymba-1.5b \\
+        --shape decode_32k [--mesh 16x1] [--out f.jsonl]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch hymba-1.5b \\
+        --shape decode_32k --measure [--seed 0]     # on the card
+
+``--measure`` runs the cell for real on the card (and raises without
+one): one rank's step at its per-rank shapes, in the dtypes the count
+assumed, random weights from ``--seed``; one warm-up step, then the
+median of three timed by CUDA events (a warm-up of 30 s or more is the
+measurement itself, once), the peak memory beside the
+predicted one, ``ops.launch_counts()`` of one step beside the counted
+kernel calls, and the roofline share, max(compute, memory) over the
+measured seconds (one rank moves no collective).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import statistics
+import sys
+import time
+import traceback
+
+import torch
+
+from repro_torch.configs import get_config, list_archs
+from repro_torch.configs.base import SHAPES
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import op_analysis
+from repro_torch.launch import roofline as rl
+from repro_torch.launch import specs
+from repro_torch.train import step as step_lib
+
+META = torch.device("meta")
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+MEASURE_STEPS = 3
+# a first step this long is the measurement: Hymba's prefill_32k (~50 s),
+# not a warm-up (a train_4k step's first: 8–14 s)
+ONCE_S = 30.0
+CARD = "cuda"                 # where --measure runs
+FREE_SHARE = 0.8              # a measured cell's predicted peak, of free
+
+
+def parse_mesh(text: str) -> mesh_lib.MeshSpec:
+    """"DxM" -> the data axis of D ranks.  M must be 1: the port shards
+    no parameter, so it has no "model" axis to fill."""
+    try:
+        d, m = (int(v) for v in text.lower().split("x"))
+    except ValueError:
+        raise ValueError(f"--mesh takes DxM, got {text!r}") from None
+    if m != 1 or d < 1:
+        raise ValueError(f"mesh {text}: the port runs D x 1 (data-parallel "
+                         "ranks, every parameter whole on each)")
+    return mesh_lib.MeshSpec((d,), ("data",))
+
+
+@dataclasses.dataclass
+class RankCell:
+    """One rank's step of a cell and its arguments."""
+    cfg: object
+    kind: str
+    fn: object
+    args: tuple
+    ranks: int
+    shards: dict
+    dtype: torch.dtype
+
+
+def rank_cell(arch: str, shape: str, mesh: str = "16x1", *,
+              alone: bool = False) -> RankCell:
+    """The meta-device step and arguments of one rank of ``shape`` on
+    ``mesh``, its collectives on a fake group of the mesh's ranks; with
+    ``alone``, the step one rank takes by itself (no gradient
+    all-reduce), which a cell whose caches split over the ranks has
+    not."""
+    cfg = get_config(arch)
+    spec = parse_mesh(mesh)
+    d = spec.size
+    act = DTYPES[cfg.param_dtype]
+    cell = specs.build_cell(cfg, shape, spec, act_dtype=act)
+    sh = cell.shards
+    # an ssm or enc_dec model has no full-attention cache to split: a
+    # batch that does not split over the ranks runs whole on each
+    kv_split = bool(cell.kv_shard_axes) and not (cfg.enc_dec
+                                                 or cfg.family == "ssm")
+    if alone and kv_split:
+        raise ValueError(f"{arch} {shape}: its caches split their positions "
+                         "over the ranks; one rank cannot step alone")
+    group = op_analysis.fake_group(d) if d > 1 and not alone else None
+    meta = lambda shp, like: torch.empty(shp, dtype=like.dtype, device=META)
+    if cell.kind == "train":
+        params, opt, batch = cell.args
+        fn = step_lib.make_train_step(cfg, group=group, device=META)
+        args = (params, opt, {k: meta(sh["batch"][k], v)
+                              for k, v in batch.items()})
+    else:
+        caches = [{k: meta(s_c[k], v) for k, v in seg.items()}
+                  for seg, s_c in zip(specs.cache_shapes(
+                      cfg, 1, SHAPES[shape].seq_len, act), sh["cache"])]
+        if cell.kind == "prefill":
+            params, batch, _ = cell.args
+            fn = step_lib.make_prefill_step(cfg, device=META)
+            args = (params, {k: meta(sh["batch"][k], v)
+                             for k, v in batch.items()}, caches)
+        else:
+            params, tokens, _, _ = cell.args
+            kv = group if kv_split else None
+            fn = step_lib.make_serve_step(cfg, kv_shard=kv, device=META)
+            last = (cfg.decoder_len if cfg.enc_dec
+                    else SHAPES[shape].seq_len) - 1
+            args = (params, meta(sh["tokens"], tokens), last, caches)
+    return RankCell(cfg, cell.kind, fn, args, d, sh, act)
+
+
+def run_cell(arch: str, shape: str, mesh: str = "16x1", *,
+             alone: bool = False, verbose: bool = True) -> dict:
+    """Count one rank's step of a cell (``alone``: as it steps by
+    itself); return its dry-run record."""
+    t0 = time.perf_counter()
+    rc = rank_cell(arch, shape, mesh, alone=alone)
+    totals = op_analysis.count(rc.fn, *rc.args)
+    count_s = time.perf_counter() - t0
+    roof = rl.analyze(totals, n_ranks=rc.ranks,
+                      model_flops=rl.model_flops_for(rc.cfg, shape))
+    rec = {
+        "arch": arch, "shape": shape, "kind": rc.kind, "mesh": mesh,
+        "chips": rc.ranks, "status": "ok",
+        "dtype": str(rc.dtype).removeprefix("torch."),
+        "count_s": count_s, "shards": rc.shards,
+        "bytes_per_device": {"argument": totals.arg_bytes,
+                             "peak": totals.peak_bytes},
+        "dot_flops_by_dtype": totals.dot_by_dtype,
+        "kernel_calls": totals.kernel_calls,
+        "kernels": totals.kernels, "ops": totals.n_ops,
+        **roof.table_row(),
+    }
+    if verbose:
+        print(f"[ok] {arch:22s} {shape:12s} mesh={mesh:5s} "
+              f"peak={totals.peak_bytes / 2**30:.2f}GiB "
+              f"flops/dev={roof.flops:.3e} "
+              f"compute={roof.compute_s * 1e3:.2f}ms "
+              f"memory={roof.memory_s * 1e3:.2f}ms "
+              f"coll={roof.collective_s * 1e3:.2f}ms "
+              f"-> {roof.bottleneck} useful={roof.useful_ratio:.2f} "
+              f"kernels={totals.kernel_calls} ({count_s:.1f}s)", flush=True)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# Measuring a cell on the card
+# ---------------------------------------------------------------------------
+
+
+def _real(t: torch.Tensor, gen: torch.Generator, vocab: int) -> torch.Tensor:
+    """A tensor on the card like the meta ``t``: tokens drawn below
+    ``vocab``, activations normal, caches zero."""
+    dev = gen.device
+    if t.dtype in (torch.int32, torch.int64):
+        return torch.randint(0, vocab, tuple(t.shape), generator=gen,
+                             device=dev, dtype=t.dtype)
+    return torch.randn(tuple(t.shape), generator=gen, device=dev
+                       ).to(t.dtype)
+
+
+def _real_args(rc: RankCell, seed: int):
+    """The step's arguments on the card: the parameters from ``seed``
+    (``launch.serve.build_params``, its normal leaves cast as
+    ``specs.param_shapes`` casts them), the optimizer's state, random
+    tokens and activations, zero caches."""
+    from repro_torch.launch.serve import build_params
+    from repro_torch.models import common
+    from repro_torch.train import optimizer as opt_lib
+    dev = torch.device(CARD)
+    params = build_params(rc.cfg, seed, dev)
+    shapes = dict(common.leaves(rc.args[0]))
+    params = common.with_leaves(params, {
+        p: t.to(shapes[p].dtype) for p, t in common.leaves(params)})
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    vocab = rc.cfg.vocab
+    real = lambda tree: {k: _real(v, gen, vocab) for k, v in tree.items()}
+    zeros = lambda caches: [{k: torch.zeros(tuple(v.shape), dtype=v.dtype,
+                                            device=dev)
+                             for k, v in seg.items()} for seg in caches]
+    if rc.kind == "train":
+        return (params, opt_lib.opt_init(rc.cfg.optimizer, params),
+                real(rc.args[2]))
+    if rc.kind == "prefill":
+        return params, real(rc.args[1]), zeros(rc.args[2])
+    return (params, _real(rc.args[1], gen, vocab), rc.args[2],
+            zeros(rc.args[3]))
+
+
+def measure_cell(arch: str, shape: str, mesh: str = "16x1", *,
+                 seed: int = 0) -> dict:
+    """Run one rank's step of a cell on the card against the count of
+    the same step (``run_cell(..., alone=True)``): median seconds of
+    MEASURE_STEPS after a warm-up (or the warm-up alone, if it takes
+    ONCE_S or more), peak memory, launches, the roofline
+    share.  A cell whose predicted peak exceeds FREE_SHARE of the card's
+    free memory is returned as skipped, with that figure."""
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import ops
+    dev = resolve_device(CARD)                   # raises without a card
+    rec = run_cell(arch, shape, mesh, alone=True, verbose=False)
+    rc = rank_cell(arch, shape, mesh, alone=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    predicted = rec["bytes_per_device"]["peak"]
+    out = {"arch": arch, "shape": shape, "mesh": mesh, "dtype": rec["dtype"],
+           "predicted_peak_bytes": predicted, "free_bytes": free,
+           "device": torch.cuda.get_device_name(0)}
+    if predicted > FREE_SHARE * free:
+        return {**out, "status": f"skipped: predicted peak {predicted} B > "
+                                 f"{FREE_SHARE} x {free} B free"}
+    if rc.kind == "train":
+        fn = step_lib.make_train_step(rc.cfg, device=dev)
+    elif rc.kind == "prefill":
+        fn = step_lib.make_prefill_step(rc.cfg, device=dev)
+    else:
+        fn = step_lib.make_serve_step(rc.cfg, device=dev)
+    args = _real_args(rc, seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+
+    def timed() -> float:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(*args)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / 1e3
+
+    first_s = timed()
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    # a step of ONCE_S or more (Hymba's prefill_32k: 2.76M launches) is
+    # timed once: what a warm-up pays once is lost in it
+    times = [first_s] if first_s >= ONCE_S else \
+        [timed() for _ in range(MEASURE_STEPS)]
+    seconds = statistics.median(times)
+    least = max(rec["compute_s"], rec["memory_s"])
+    counted = rec["kernel_calls"]
+    del args
+    torch.cuda.empty_cache()
+    return {**out, "status": "ok", "count_s": rec["count_s"],
+            "seconds": seconds, "steps_s": times,
+            "first_step_s": first_s, "measured_peak_bytes": peak,
+            "launches": launches, "counted_calls": counted,
+            "launches_match": launches == counted,
+            "compute_s": rec["compute_s"], "memory_s": rec["memory_s"],
+            "roofline_s": least, "bottleneck": rec["bottleneck"],
+            "roofline_share": least / seconds}
+
+
+# ---------------------------------------------------------------------------
+# CLI
+# ---------------------------------------------------------------------------
+
+
+def _cell_record(cell: tuple, measure: bool, seed: int) -> dict:
+    """One cell's record (``measure``: with its run on the card), or its
+    failure."""
+    arch, shape, mesh = cell
+    try:
+        rec = run_cell(arch, shape, mesh)
+        if measure:
+            rec["measured"] = measure_cell(arch, shape, mesh, seed=seed)
+            print(json.dumps({"measured": rec["measured"]}), flush=True)
+        return rec
+    except Exception as e:                       # noqa: BLE001
+        print(f"[FAIL] {arch} {shape} mesh={mesh}: {e}\n"
+              f"{traceback.format_exc()}", flush=True)
+        return {"arch": arch, "shape": shape, "mesh": mesh,
+                "status": f"FAIL: {type(e).__name__}: {e}"}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default=None, help="one arch (default: all)")
+    ap.add_argument("--shape", default=None, help="one shape (default: all)")
+    ap.add_argument("--mesh", default="16x1",
+                    help="DxM, M = 1: D data-parallel ranks (default 16x1)")
+    ap.add_argument("--out", default=None, help="append JSONL records here")
+    ap.add_argument("--measure", action="store_true",
+                    help="also run each cell on the card (one rank's step)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--cells", default=None,
+                    help="arch:shape:DxM,... in place of --arch, --shape "
+                         "and --mesh")
+    args = ap.parse_args(argv)
+
+    if args.cells:
+        cells = [tuple(c.split(":")) for c in args.cells.split(",")]
+    else:
+        cells = [(arch, shape, args.mesh)
+                 for arch in ([args.arch] if args.arch else list_archs())
+                 for shape in ([args.shape] if args.shape else
+                               specs.runnable_shapes(get_config(arch)))]
+    records, failures = [], []
+    t0 = time.perf_counter()
+    for cell in cells:
+        rec = _cell_record(cell, args.measure, args.seed)
+        if rec["status"] != "ok":
+            failures.append(rec)
+        records.append(rec)
+        if args.out:
+            with open(args.out, "a") as f:
+                f.write(json.dumps(rec) + "\n")
+    print(f"\n{len(records) - len(failures)}/{len(records)} cells passed "
+          f"in {time.perf_counter() - t0:.1f}s")
+    return 1 if failures else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

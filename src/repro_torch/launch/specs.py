@@ -114,7 +114,7 @@ def kv_shard_axes(cfg: ModelConfig, cell: ShapeCell, mesh,
         return data_axes                      # long_500k
     if cfg.enc_dec or cfg.family == "ssm":
         return None
-    if not _divisible(cfg.n_kv_heads, sizes, "model") \
+    if "model" in sizes and not _divisible(cfg.n_kv_heads, sizes, "model") \
             and cell.seq_len % sizes["model"] == 0:
         return ("model",)
     return None

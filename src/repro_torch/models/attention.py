@@ -39,6 +39,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.frontier import comm_device
+from repro_torch.models import common
 
 NEG = -1.0e30
 
@@ -118,9 +119,11 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         qi = qg[:, iq * cq:(iq + 1) * cq]
         qpos = q_offset + iq * cq + torch.arange(cq, device=dev)
         m0, l0, o0 = _init_state(b, kvh, g, cq, hd, dev)
-        for ik in range(nk):
-            if causal and ik * ck >= q_offset + (iq + 1) * cq:
-                break                   # this and later chunks: all masked
+        # the live KV chunks: from the first that no query of the chunk
+        # can see on, all are masked
+        live = min(nk, max(0, -(-(q_offset + (iq + 1) * cq) // ck))) \
+            if causal else nk
+        for ik in common.identical(range(live)):
             ki = k[:, ik * ck:(ik + 1) * ck]
             vi = v[:, ik * ck:(ik + 1) * ck]
             if causal:

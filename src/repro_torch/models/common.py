@@ -130,3 +130,27 @@ def softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
     if not cap:
         return logits
     return cap * torch.tanh(logits / cap)
+
+
+# ---------------------------------------------------------------------------
+# Loops of identical bodies, as a count sees them
+# ---------------------------------------------------------------------------
+
+# ``launch.op_analysis``'s counter while it counts a call, else None
+loop_counter = None
+
+
+def identical(items, key: str | None = None, *,
+              first_differs: bool = False):
+    """``items``, the inputs of a loop whose bodies do the same work (a
+    run of identical layers, a query chunk's KV chunks, the microbatches
+    of a step).  Outside a count it returns ``items`` unchanged.  In a
+    count, the counter runs a few of the bodies and multiplies their
+    work, as the reference's HLO analysis multiplies a ``while`` body by
+    its trip count (``launch.op_analysis``): with ``first_differs`` the
+    first body runs alone and the second stands for the rest; loops
+    given the same ``key`` in one enclosing body (a stack's runs of one
+    layer kind) share their bodies."""
+    if loop_counter is None:
+        return items
+    return loop_counter.loop(list(items), key, first_differs)

@@ -78,7 +78,10 @@ def _dispatch_indices(ids: torch.Tensor, n_experts: int, cap: int
     eids = ids.reshape(a)
     tok = torch.arange(a, device=dev) // k
     order = torch.argsort(eids, stable=True)                   # by expert
-    counts = torch.bincount(eids, minlength=n_experts)
+    # a fixed-shape count (bincount's length depends on the data, and the
+    # meta device has no bincount)
+    counts = torch.zeros(n_experts, dtype=eids.dtype, device=dev
+                         ).scatter_add_(0, eids, torch.ones_like(eids))
     starts = torch.cumsum(counts, dim=0) - counts
     pos_sorted = torch.arange(a, device=dev) - starts[eids[order]]
     pos = torch.empty_like(pos_sorted).index_put_((order,), pos_sorted)

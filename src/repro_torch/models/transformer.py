@@ -358,7 +358,7 @@ def decoder_stack(params, x, cfg: ModelConfig, mode: str, *,
     aux = _zero_aux(x.device)
     layers = _unstack(params["layers"], cfg.n_layers)
     for si, seg in enumerate(segments(cfg)):
-        for i in range(seg.start, seg.end):
+        for i in common.identical(range(seg.start, seg.end), seg.kind):
             p_l = layers[i]
             if mode == "train":
                 x, *a = _run(_train_layer, remat, x, p_l, cfg, seg.kind)
@@ -388,7 +388,8 @@ def _rwkv_stack(params, x, cfg: ModelConfig, mode: str, *, cache=None):
     each layer's state from ``cache`` and write the new one in place.
     Returns (x, zero MoEAux, cache)."""
     remat = _remat(cfg, mode)
-    for i, p_l in enumerate(_unstack(params["layers"], cfg.n_layers)):
+    layers = _unstack(params["layers"], cfg.n_layers)
+    for i, p_l in common.identical(enumerate(layers)):
         if mode == "train":
             x = _run(_rwkv_train_layer, remat, x, p_l, cfg)
             continue
@@ -433,7 +434,7 @@ def encoder_stack(params, frames: torch.Tensor, cfg: ModelConfig):
     x = frames + _sinusoid(frames.shape[1], cfg.d_model,
                            frames.device).to(frames.dtype)[None]
     remat = _remat(cfg, "train")
-    for p_l in _unstack(params["layers"], cfg.n_layers):
+    for p_l in common.identical(_unstack(params["layers"], cfg.n_layers)):
         x = _run(_encoder_layer, remat, x, p_l, cfg)
     return common.rmsnorm(x, params["enc_final_norm"])
 
@@ -503,7 +504,8 @@ def whisper_decoder(params, tokens: torch.Tensor, enc_out, cfg: ModelConfig,
         raise ValueError(f"the cache holds {cache[0]['xk'].shape[2]} frames,"
                          f" the encoder gave {enc_out.shape[1]}")
     remat = _remat(cfg, mode)
-    for i, p_l in enumerate(_unstack(params["dec"], cfg.n_dec_layers)):
+    layers = _unstack(params["dec"], cfg.n_dec_layers)
+    for i, p_l in common.identical(enumerate(layers)):
         if mode == "train":
             x = _run(_decoder_layer, remat, x, p_l, enc_out, cfg)
         elif mode == "prefill":

@@ -148,7 +148,8 @@ def make_train_step(cfg: ModelConfig, *, base_lr: float = 3e-4,
                                      device=t.device)
                    for path, t in common.leaves(params)}
             sums: dict = {}
-            for part in _split(batch, mb):
+            for part in common.identical(_split(batch, mb),
+                                         first_differs=True):
                 l_i, m_i, g_i = grads_of(params, part)
                 for path, g in g_i.items():
                     acc[path] += g.to(torch.float32)
