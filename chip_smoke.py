@@ -170,9 +170,13 @@ CUDA toolkit.  Phases, each printing one JSON line:
                  plain reverse scan in float64 (1e-4 of each gradient's
                  largest magnitude) at Hymba's training shape (2, 1,152,
                  1,600) on layer 0's coefficients of ``hybrid_train``'s
-                 batch (N = 16, with and without dh_last) and on random
-                 ones at N = 1, 3, 12, 33 and 64, two launches bitwise
-                 equal;
+                 batch (N = 16, with and without dh_last), on random
+                 ones at N = 1, 3, 12, 33 and 64, and at train_4k's
+                 per-rank shape (1, 4,224, 1,600, 16), two launches
+                 bitwise equal; timed at the training shape and at
+                 train_4k's (``timed``: device time by each kernel a
+                 call launches, the issue floor, the bytes beyond the
+                 work's own);
  15. exact     — every Euclidean path's answers (block-major, query-major,
                  flat, UCR) against a brute-force scan of every series with
                  the plain ``batch_l2_ref`` + ``topk_by_dist_id``;
@@ -253,7 +257,9 @@ import argparse
 import dataclasses
 import filecmp
 import json
+import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -347,6 +353,13 @@ FAMILY_HEADROOM_BYTES = 16 << 30
 HYBRID_ARCH = "hymba-1.5b"     # hybrid_train: trained through ssm_scan_bwd
 BWD_REL = 1e-4                 # ssm_scan_bwd vs the float64 plain version, x max |ref|
 BWD_STATE_SIZES = (1, 3, 12, 33, 64)
+BWD_TRAIN_4K = (1, 4224, 1600, 16)   # train_4k's per-rank scan (roofline's cell)
+# ssm_scan_bwd's issue floor: the instructions a (b, t, d, n) of the
+# kernel at N = 16 (csrc/ssm_scan_bwd.cu): the recompute's 7 fp32 and one
+# MUFU.EX2, the adjoint's 7 fp32, the reduce-scatters of dx and ddt over
+# 16 lanes (3.75 each: shuffle, add and two selects a pair) and of dB and
+# dC over a warp's 2 channels (2 each), and 2.5 float4 shared loads
+BWD_INSTR_PER_ELEMENT = 29
 # mesh: launch.train --mesh on gloo ranks sharing the card, and the
 # sequence-sharded decode at one of gemma3-27b's global layers over the
 # long_500k cell's cache
@@ -2024,12 +2037,62 @@ def _compare_ssm(scan_in: dict) -> dict:
     return out
 
 
+def device_ms_by_kernel(fn, reps: int = 20, warmup: int = 3) -> dict:
+    """Device milliseconds per call of ``fn`` by each device event it
+    launches (kernel, memset), over the same back-to-back calls."""
+    by = {}
+    for e in _profiled(fn, reps, warmup):
+        by[e.key] = by.get(e.key, 0.0) + e.self_device_time_total / reps / 1e3
+    check(bool(by), "the profiler saw device time of ssm_scan_bwd")
+    return by
+
+
+def _sass_count(fragment: str) -> int | None:
+    """Instructions in the SASS of the built library's kernel whose mangled
+    name holds ``fragment`` (``cuobjdump -sass``), predicated ones included;
+    None where the toolkit has no cuobjdump or the kernel is not found."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    try:
+        out = subprocess.run([tool, "-sass", str(_build.library().path)],
+                             capture_output=True, text=True, timeout=300)
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    if out.returncode != 0:
+        return None
+    for fn in re.split(r"\n\s+Function : ", out.stdout)[1:]:
+        if fragment in fn.split("\n", 1)[0]:
+            return len(re.findall(
+                r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?[A-Z]", fn))
+    return None
+
+
+def _bwd_traffic(b: int, s: int, d: int, n: int) -> dict:
+    """``ssm_scan_bwd``'s bytes beyond the work's own, from its scratch:
+    the clusters' dB, dC partials and the dA chain's (B, D, N) buffer,
+    each written once and read once (at most what reaches device memory);
+    apart, the two chains' hops through their (B, D, N) buffers, a read
+    and a write a span each, which stay in L2."""
+    lib = _build.library().lib
+    work = roofline.ssm_scan_bwd_work(b, s, d, n, False).nbytes
+    beyond = 2 * 4 * (lib.ssm_scan_bwd_scratch(b, s, d, n, 0) + b * d * n)
+    spans = -(-s // _build.SSM_CKPT_STEPS)
+    return {"work_bytes": work, "beyond_bytes": beyond,
+            "beyond_share": beyond / work,
+            "l2_chain_bytes": 2 * 2 * spans * 4 * b * d * n}
+
+
 def _compare_ssm_bwd(train_in: dict, seed: int) -> dict:
     """``ssm_scan_bwd`` against the plain reverse scan in float64 at
     Hymba's training shape: on layer 0's operands of ``hybrid_train``'s
     batch (N = 16; dh_last None as in training, and given), and on random
-    operands at each of BWD_STATE_SIZES; two launches bitwise equal.
-    Timed at the training case."""
+    operands at each of BWD_STATE_SIZES; and on random operands at
+    train_4k's per-rank shape (BWD_TRAIN_4K); two launches bitwise equal.
+    Timed at the training case and at train_4k's, each with its device
+    time split by the CUDA kernels (and memset) a call launches, its issue
+    floor (BWD_INSTR_PER_ELEMENT, worked out, not measured) and its bytes
+    beyond the work's own."""
     xc = train_in["xc"]
     b, s, d = xc.shape
     dev = xc.device
@@ -2038,22 +2101,31 @@ def _compare_ssm_bwd(train_in: dict, seed: int) -> dict:
     rnd = lambda *sh: torch.randn(sh, generator=g, device=dev)
     dy = rnd(b, s, d) * 0.1
     base = tuple(train_in[k] for k in ("xc", "dt", "bm", "cm", "a"))
-    cases = {"train": (base, None),
-             "train_dh_last": (base, rnd(b, d, base[2].shape[-1]))}
+    rand_ops = lambda b, s, d, n: (rnd(b, s, d) * 0.5,
+                                   rnd(b, s, d).abs() * 0.1,
+                                   rnd(b, s, n) * 0.5, rnd(b, s, n) * 0.5,
+                                   -rnd(d, n).abs() - 0.1)
+    cases = {"train": (base, dy, None),
+             "train_dh_last": (base, dy, rnd(b, d, base[2].shape[-1]))}
     for n in BWD_STATE_SIZES:
-        ops_n = (rnd(b, s, d) * 0.5, rnd(b, s, d).abs() * 0.1,
-                 rnd(b, s, n) * 0.5, rnd(b, s, n) * 0.5,
-                 -rnd(d, n).abs() - 0.1)
-        cases[f"n{n}"] = (ops_n, rnd(b, d, n))
-    ok_all, line = True, {}
+        cases[f"n{n}"] = (rand_ops(b, s, d, n), dy, rnd(b, d, n))
+    b4, s4, d4, n4 = BWD_TRAIN_4K
+    cases["train_4k"] = (rand_ops(b4, s4, d4, n4), rnd(b4, s4, d4) * 0.1,
+                         None)
+    ok_all, line, timed = True, {}, {}
     names = ("dxc", "ddt", "dbm", "dcm", "da", "dh0")
-    for label, (opnds, dhl) in cases.items():
+    # the N = 16 kernel runs each of its instructions about once a span in
+    # each thread, and a thread holds one (d, n) of a 32-step span
+    sass = _sass_count("ssm_scan_bwd_kernelILi16E")
+    sass_per_element = None if sass is None else sass / _build.SSM_CKPT_STEPS
+    for label, (opnds, dyc, dhl) in cases.items():
         _, _, ck = ssm_scan_with_checkpoints(*opnds)
-        got = ssm_scan_bwd(*opnds, ck, dy, dhl)
-        again = ssm_scan_bwd(*opnds, ck, dy, dhl)
+        got = ssm_scan_bwd(*opnds, ck, dyc, dhl)
+        again = ssm_scan_bwd(*opnds, ck, dyc, dhl)
         f64 = lambda t: None if t is None else t.double()
         _, _, ckr = ref.ssm_scan_with_checkpoints_ref(*map(f64, opnds))
-        want = ref.ssm_scan_bwd_ref(*map(f64, opnds), ckr, f64(dy), f64(dhl))
+        want = ref.ssm_scan_bwd_ref(*map(f64, opnds), ckr, f64(dyc),
+                                    f64(dhl))
         errs, rels = {}, {}
         for name, gt, wt in zip(names, got, want):
             top = float(wt.abs().max())
@@ -2066,35 +2138,60 @@ def _compare_ssm_bwd(train_in: dict, seed: int) -> dict:
         same = all(torch.equal(p, q) for p, q in zip(got, again))
         ok_all &= check(same, f"ssm_scan_bwd {label}: two launches bitwise "
                               "equal")
-        n = opnds[2].shape[-1]
-        line[label] = {"shape": [b, s, d, n], "dh_last": dhl is not None,
+        shape = [*opnds[0].shape, opnds[2].shape[-1]]
+        line[label] = {"shape": shape, "dh_last": dhl is not None,
                        "max_abs_err": errs, "rel_err": rels,
                        "deterministic": same}
-    opnds, _ = cases["train"]
-    _, _, ck = ssm_scan_with_checkpoints(*opnds)
-    call = lambda: ssm_scan_bwd(*opnds, ck, dy)
+        del got, again, want, ckr
+        if label not in ("train", "train_4k"):
+            continue
+        call = lambda: ssm_scan_bwd(*opnds, ck, dyc)
+        b_ms, b_by, b_unit = roofline.ssm_bwd_bound(*shape, False)
+        by_kernel = device_ms_by_kernel(call)
+        timed[label] = {
+            "shape": shape, "ms": time_cuda(call),
+            "device_ms": sum(by_kernel.values()),
+            "device_ms_by_kernel": by_kernel,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_unit": b_unit,
+            "issue_floor_ms": math.prod(shape) * BWD_INSTR_PER_ELEMENT
+            / INSTR_RATE * 1e3,
+            "sass_issue_floor_ms": None if sass is None else
+            math.prod(shape) * sass_per_element / INSTR_RATE * 1e3,
+            **_bwd_traffic(*shape),
+            "forward_ms": {"plain_launch": time_cuda(
+                lambda: ssm_scan(*opnds)), "training_launch": time_cuda(
+                lambda: ssm_scan_with_checkpoints(*opnds))}}
+        timed[label]["ns_per_element"] = (timed[label]["device_ms"] * 1e6
+                                          / math.prod(shape))
+    opnds, dyc, _ = cases["train"]
     ck32 = ref.ssm_scan_with_checkpoints_ref(*opnds)[2]
-    b_ms, b_by, b_unit = roofline.ssm_bwd_bound(b, s, d, opnds[2].shape[-1],
-                                                False)
-    out = {"shape": line["train"]["shape"], "cases": line,
+    train = timed["train"]
+    out = {"shape": line["train"]["shape"], "cases": line, "timed": timed,
            "max_abs_err": max(max(c["max_abs_err"].values())
                               for c in line.values()),
            "max_rel_err": max(max(c["rel_err"].values())
                               for c in line.values()),
-           "match": ok_all, "ms": time_cuda(call),
-           "device_ms": device_ms_all(call),
+           "match": ok_all, "ms": train["ms"],
+           "device_ms": train["device_ms"],
            "plain_ms": time_cuda(lambda: ref.ssm_scan_bwd_ref(
-               *opnds, ck32, dy), reps=1, warmup=0),
-           "bound_ms": b_ms, "bound_by": b_by, "bound_unit": b_unit,
+               *opnds, ck32, dyc), reps=1, warmup=0),
+           "bound_ms": train["bound_ms"], "bound_by": train["bound_by"],
+           "bound_unit": train["bound_unit"],
            "library_ms": None,
            "library": "none: no PyTorch call computes a selective scan's "
                       "gradient",
-           "forward_ms": {"plain_launch": time_cuda(
-               lambda: ssm_scan(*opnds)), "training_launch": time_cuda(
-               lambda: ssm_scan_with_checkpoints(*opnds))},
+           "issue_floor_unit": f"{BWD_INSTR_PER_ELEMENT} instructions a "
+                               "(b, t, d, n) (the kernel's arithmetic, "
+                               "shuffles and shared loads) at one warp "
+                               "instruction a clock on each of 528 "
+                               "schedulers at an assumed 1.98 GHz",
+           "sass_instructions": sass, "sass_per_element": sass_per_element,
+           "sass_issue_floor_unit": "the N = 16 kernel's SASS instructions "
+                                    "(cuobjdump) over its 32 elements a "
+                                    "thread, at the same rate",
            "tolerance": f"each gradient within {BWD_REL} x its max |ref| "
                         "(float64 plain version): fp32 sums over up to "
-                        "2 x 1,152 steps and 1,600 channels, ex2.approx a "
+                        "4,224 steps and 1,600 channels, ex2.approx a "
                         "few ulps from exp"}
     emit({"phase": "kernels", "kernel": "ssm_scan_bwd", **out})
     return out

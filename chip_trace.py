@@ -6,6 +6,7 @@ profiled Hymba prefill and a few decode steps.
     python3 chip_trace.py --path flat [--seed 0] [--queries 100] [--k 10]
     python3 chip_trace.py --path dtw [--seed 0] [--dtw-queries 10] [--k 10]
     python3 chip_trace.py --path lm [--seed 0]
+    python3 chip_trace.py --path ssm_bwd [--seed 0]
 
 ``--path block_major`` (the default) builds the same index as
 ``chip_smoke.py`` (random-walk series generated on the card from
@@ -24,7 +25,14 @@ wall time (host clock, synchronized) without and with the profiler, the
 device's busy time (the sum of the device events' times in the trace)
 and its share of the profiled wall time, the device events a step, and
 the kernels that took the most device time, and each port kernel's
-launches and summed device time (``port_kernels``).
+launches and summed device time (``port_kernels``).  ``--path ssm_bwd``
+times ``ssm_scan_bwd`` alone on random operands from ``--seed`` at
+Hymba's training shape (2, 1,152, 1,600, 16) and train_4k's per-rank
+shape (1, 4,224, 1,600, 16): CUDA events over 20 back-to-back calls and
+the profiler's device time by each kernel a call launches, one JSON line
+a shape.  Copied beside another tree's ``src/`` (a parent unpacked by
+``git archive``, with this tree's ``chip_smoke.py``), it times that
+tree's kernel in the same call.
 Needs one CUDA card.
 """
 from __future__ import annotations
@@ -35,21 +43,27 @@ import sys
 import time
 from pathlib import Path
 
-sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from chip_smoke import (CAPACITY, DTW_R, FLAT_CHUNK, LENGTH,  # noqa: E402
-                        LM_BATCH, LM_PROMPT, SYMBOL, lm_setup,
-                        random_walk_cuda)
+from chip_smoke import (BWD_TRAIN_4K, CAPACITY, DTW_R,  # noqa: E402
+                        FLAT_CHUNK, LENGTH, LM_BATCH, LM_PROMPT, SYMBOL,
+                        device_ms_by_kernel, lm_setup, random_walk_cuda,
+                        time_cuda)
 from repro_torch import core  # noqa: E402
 from repro_torch.core import dtw  # noqa: E402
+from repro_torch.kernels.ssm_scan import (  # noqa: E402
+    ssm_scan_with_checkpoints)
+from repro_torch.kernels.ssm_scan_bwd import ssm_scan_bwd  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 
 LM_STEPS = 8          # decode steps traced
+BWD_TRAIN = (2, 1152, 1600, 16)   # Hymba's training shape (hybrid_train)
 
 
 def _device_events(prof):
@@ -176,6 +190,26 @@ def trace_search(args) -> int:
     return 0 if busy_us > 0 else 1
 
 
+def time_ssm_bwd(args) -> int:
+    """``ssm_scan_bwd`` alone at BWD_TRAIN and BWD_TRAIN_4K."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(args.seed)
+    rnd = lambda *sh: torch.randn(sh, generator=g, device="cuda")
+    for b, s, d, n in (BWD_TRAIN, BWD_TRAIN_4K):
+        ops = (rnd(b, s, d) * 0.5, rnd(b, s, d).abs() * 0.1,
+               rnd(b, s, n) * 0.5, rnd(b, s, n) * 0.5, -rnd(d, n).abs() - 0.1)
+        _, _, ckpt = ssm_scan_with_checkpoints(*ops)
+        dy = rnd(b, s, d) * 0.1
+        call = lambda: ssm_scan_bwd(*ops, ckpt, dy)
+        by_kernel = device_ms_by_kernel(call)
+        print(json.dumps({
+            "phase": "time", "path": "ssm_bwd", "tree": str(ROOT),
+            "device": torch.cuda.get_device_name(0), "shape": [b, s, d, n],
+            "ms": time_cuda(call), "device_ms": sum(by_kernel.values()),
+            "device_ms_by_kernel": by_kernel}), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -183,7 +217,8 @@ def main(argv=None) -> int:
     ap.add_argument("--queries", type=int, default=100)
     ap.add_argument("--dtw-queries", type=int, default=10)
     ap.add_argument("--k", type=int, default=10)
-    ap.add_argument("--path", choices=("block_major", "flat", "dtw", "lm"),
+    ap.add_argument("--path", choices=("block_major", "flat", "dtw", "lm",
+                                       "ssm_bwd"),
                     default="block_major")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -192,6 +227,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.path == "lm":
         return trace_lm(args)
+    if args.path == "ssm_bwd":
+        return time_ssm_bwd(args)
     return trace_search(args)
 
 

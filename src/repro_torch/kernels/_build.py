@@ -48,11 +48,11 @@ SIGNATURES = {
     "ssm_scan_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _P),
     "ssm_scan_bwd_launch": (_P,) * 17 + (_I, _I, _I, _I, _P),
-    "ssm_scan_bwd_channels_per_block": (),
+    "ssm_scan_bwd_scratch": (_I, _I, _I, _I, _I),
     "ssm_scan_ckpt_steps": (),
 }
 # C entries that return something else than an int status
-RESTYPES = {"fused_panel_topk_scratch_words": _L}
+RESTYPES = {"fused_panel_topk_scratch_words": _L, "ssm_scan_bwd_scratch": _L}
 # steps between the states ssm_scan's training launch keeps (kSsmCkpt in
 # csrc/ssm_scan.cuh; library() refuses a build that disagrees): the
 # wrappers size the checkpoint buffers by it, the plain versions lay

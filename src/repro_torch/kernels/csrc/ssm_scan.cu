@@ -240,7 +240,7 @@ ssm_scan_kernel(const float* __restrict__ xc, const float* __restrict__ dt,
         p[tt] = acc;
       }
 
-      reduce_scatter<G, T>(p, g);
+      reduce_scatter<1, G, T>(p, g);
       if (owner && live) {
         const int t0 = j * T + start;
 #pragma unroll

@@ -14,260 +14,517 @@
 //   dB_t  = sum_d g_t dt_t x_t             dC_t  = sum_d dy_t h_t
 //   dA    = sum_{b,t} g_t a_t dt_t h_{t-1} dh0   = a_1 g_1.
 //
-// Design, simple first: the forward's training launch stored the state
-// before every kSsmCkpt (32) steps, ckpt (B, ceil(S / 32), D, N).  A block
-// holds kChanB = 16 channels of one batch row, G lanes a channel and R
-// states a lane as the forward does (N padded in registers to a power of
-// two, N > 32 in passes of 32 states), and walks the tiles of 32 steps
-// from the last to the first.  For each tile it stages x, dt, dy, B and C
-// in shared memory, recomputes the tile's 32 states from the checkpoint
-// (each lane keeps its own in shared memory), then runs the adjoint
-// backwards through the tile with g in registers:
-//   * dx and ddt are summed over the lane's states, reduce-scattered over
-//     the channel's G lanes as the forward's y is, and stored by their
-//     owners (the passes of N > 32 add to what the earlier passes stored);
-//   * dB and dC reduce over d: each lane writes its terms into shared
-//     memory, and after the tile the block sums its 16 channels in order
-//     into partials (B, D / 16, S, N), which a second kernel sums over the
-//     blocks in order;
-//   * dA is kept a lane in registers over the whole walk, stored as
-//     partials (B, D, N), and summed over b in order by the same second
-//     kernel.
-// No atomics: every sum has one fixed order, so two runs give the same
-// bits.  Work: two exps per (b, t, d, n) (the recompute and the adjoint),
-// about 18 other fp32 instructions; the bound is the exps on the
-// special-function units at Hymba's training shape (PERF.md).  Steps past
+// Bound on the H100: the bytes it must move (xc, dt, dy in and dxc, ddt out,
+// B, C in and dB, dC out, the checkpoints; 82.1 MB at Hymba's training shape
+// (2, 1152, 1600, 16): 0.0245 ms at 3.35 TB/s), above its one exp a
+// (b, t, d, n) on the special-function units (0.0141 ms).
+//
+// Design: span-parallel.  The forward's training launch stored the state
+// before every kSsmCkpt (32) steps, ckpt (B, ceil(S / 32), D, N), so every
+// span of 32 steps can recompute its states on its own, and the adjoint is
+// a linear recurrence: the adjoint e_{j-1} leaving span j downwards is an
+// affine function of the adjoint e_j entering it from above,
+//   e_{j-1} = P_j e_j + L_j,   P_j = prod_span a_t,
+//   L_j = sum_{t in span} (prod_{s = t0 .. t} a_s) dy_t C_t,
+// both of which the span's own forward recompute gives.  One block is one
+// span of K channels of one batch row (K = 16 at N = 16), each thread one
+// (channel, state); a cluster is kCluster blocks, neighbours along d:
+//   1. the cluster takes a ticket, atomically, which names its span, from
+//      the last; a block only ever waits for a block of an earlier ticket,
+//      which has started, so no wait can deadlock.  The ticket orders the
+//      starts only: no value depends on it;
+//   2. the block stages its span by cp.async: x, dt, dy (per channel) and
+//      B, C (per state), transposed so a thread reads four steps as one
+//      float4, the checkpoint row and A; meanwhile it looks at the two
+//      chains below, and where span j + 1 is already done it loads their
+//      values under the recompute;
+//   3. it recomputes the 32 states from the checkpoint, keeping a_t and
+//      a_t h_{t-1} in registers (one exp a (b, t, d, n): the adjoint
+//      reuses a_t), with the dC terms dy_t h_t, P_j and L_j;
+//   4. the e chain: once span j + 1 has published e_j, the block publishes
+//      e_{j-1} = P_j e_j + L_j in its place (one buffer, the dh0 output,
+//      which holds e_{-1} = dh0 at the end); a hop is a flag through L2;
+//   5. the adjoint runs down the span from e_j in registers, in chunks of 8
+//      steps: dx and ddt are reduced over a channel's states by a
+//      reduce-scatter of shuffles and staged for a coalesced store; dB and
+//      dC are reduced over the warp's channels by shuffles, over the block's
+//      warps in shared memory, over the cluster's blocks through distributed
+//      shared memory (each block sums a slice in rank order), and written as
+//      one partial a cluster, (2, B, ceil(D / (K kCluster)), S, N);
+//   6. the dA chain, while the cluster's barrier gathers: the span adds its
+//      dA terms to the running sum of the spans above it, in one (B, D, N)
+//      buffer;
+//   7. a second kernel sums the clusters' dB, dC partials and dA over b.
+// N that is no power of two is padded to the next (A = B = C = 0 there);
+// N > 32 runs in passes of 32 states, each with its own chains.  Steps past
 // S are padded with x = dt = dy = B = C = 0, which leaves h and g as they
-// are; their ddt terms are never stored.
+// are.  No atomics in any sum: every value comes from one fixed order of
+// operations, so two launches give the same bits.  Traffic beyond the work's
+// bytes: the partials (written and read once) and the dA chain's (B, D, N)
+// buffer; the chains' hops stay in L2.
+//
+// What sets its time (PERF.md): instructions and latency, not bytes.  The
+// N = 16 kernel is ~3,000 SASS instructions a thread a span, 93 an element
+// (15 of them arithmetic; the rest the reduce-scatters' selects and
+// shuffles, addressing, staging and the chains), and 64 of a thread's 128
+// registers hold a_t and a_t h_{t-1}, so an SM holds two blocks (16
+// warps), too few to hide each span's staging, chain hops and cluster
+// barriers.  Larger clusters, smaller blocks with a_t in shared memory and
+// resident clusters that walk many spans measured no faster on the card.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 #include "ssm_scan.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kChanB = 16;           // channels a block
-constexpr int kTileB = kSsmCkpt;     // steps a tile: one checkpoint's span
+constexpr int kSpan = kSsmCkpt;      // steps a block: one checkpoint's span
+constexpr int kChunk = 8;            // steps reduced together
+constexpr int kCluster = 4;          // blocks a cluster, neighbours along d
 constexpr int kMaxPassB = 32;        // states a pass, N > 32
+constexpr int kStride = kSpan + 4;   // a staged row: float4-aligned, banks shifted
 constexpr int kSumThreads = 256;
+constexpr unsigned kMaxSpins = 1u << 24;   // a chain that never comes: trap, not hang
 
-template <int R, int G>
-constexpr int smem_floats() {
-  // x, dt, dy [T][kChanB]; B, C [T][NP]; the states and the dB terms,
-  // each [T][R][threads]
-  return 3 * kTileB * kChanB + 2 * kTileB * R * G + 2 * kTileB * R * kChanB * G;
+constexpr int block_channels(int np) { return 256 / np < 64 ? 256 / np : 64; }
+
+// NP states a pass (a power of two), one thread a (channel, state)
+template <int NP>
+struct Shape {
+  static constexpr int K = block_channels(NP);              // channels a block
+  static constexpr int NT = K * NP;                         // threads a block
+  static constexpr int NW = NT / 32;                        // warps a block
+  static constexpr int CW = 32 / NP;                        // channels a warp
+  // the staged span: dt, x, dt x, dy [K][kStride]; B, C [NP][kStride];
+  // the checkpoint row and A, a thread each
+  static constexpr int STG = 4 * K * kStride + 2 * NP * kStride + 2 * NT;
+  // shared floats: the staged span; the warps' dB, dC partials
+  // [2][NW][kSpan][NP]; the block's sums [2][kSpan][NP]; dx, ddt
+  // [2][kSpan][K]; the ticket and the chains' early looks
+  static constexpr int floats =
+      STG + 2 * NW * kSpan * NP + 2 * kSpan * NP + 2 * kSpan * K + 4;
+};
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
 }
 
-template <int R, int G>
-__global__ void __launch_bounds__(kChanB * G)
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+// The cluster barrier in two halves: work between them overlaps the wait.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Block-wide: wait until *cnt >= want, then every thread may read what the
+// publishing block stored before it raised *cnt (read it with __ldcg).
+__device__ __forceinline__ void wait_for(const unsigned* cnt, unsigned want) {
+  if (threadIdx.x == 0) {
+    unsigned spins = 0;
+    while (ld_acquire(cnt) < want) {
+      __nanosleep(64);
+      if (++spins == kMaxSpins) __trap();
+    }
+  }
+  __syncthreads();
+}
+
+// Block-wide: every thread's stores so far are visible before *cnt = v.
+__device__ __forceinline__ void publish(unsigned* cnt, unsigned v) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    st_release(cnt, v);
+  }
+}
+
+// After reduce_scatter<LO, HI, kChunk>: a lane of group index u (of M =
+// HI / LO) holds max(1, kChunk / M) sums, of the chunk's steps
+// (u / max(1, M / kChunk)) * max(1, kChunk / M) + e; one lane of each
+// duplicate set owns them.
+template <int M>
+struct Scatter {
+  static constexpr int per = kChunk / M > 1 ? kChunk / M : 1;
+  static constexpr int grp = M / kChunk > 1 ? M / kChunk : 1;
+  __device__ static bool owner(int u) { return u % grp == 0; }
+  __device__ static int step(int u, int e) { return (u / grp) * per + e; }
+};
+
+// A ticket's place: span j (from the last), batch row b, the cluster's
+// place along d.
+struct Place {
+  int j, b, cdg;
+};
+
+__device__ __forceinline__ Place place_of(int ticket, int B, int nspan, int ncd) {
+  const int per_span = B * ncd;
+  return {nspan - 1 - ticket / per_span, ticket % per_span / ncd, ticket % ncd};
+}
+
+template <int NP>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(Shape<NP>::NT, 2)
 ssm_scan_bwd_kernel(const float* __restrict__ xc, const float* __restrict__ dt,
                     const float* __restrict__ bm, const float* __restrict__ cm,
                     const float* __restrict__ a, const float* __restrict__ ckpt,
                     const float* __restrict__ dy, const float* __restrict__ dh_last,
-                    float* __restrict__ dxc, float* __restrict__ ddt, float* __restrict__ dh0,
-                    float* __restrict__ part_b, float* __restrict__ part_c,
-                    float* __restrict__ part_a, int S, int D, int N) {
-  constexpr int NP = R * G;
-  constexpr int NT = kChanB * G;
-  constexpr int T = kTileB;
-  constexpr int TL = T / G;                 // dx, ddt values a lane stores a tile
-  static_assert(G <= 8 && (G & (G - 1)) == 0 && T >= G, "variant");
+                    float* __restrict__ dxc, float* __restrict__ ddt, float* dh0,
+                    float* __restrict__ part, float* ra, unsigned* ctrl, int B, int S, int D,
+                    int N, int nspan, int ncd) {
+  using Sh = Shape<NP>;
+  constexpr int K = Sh::K, NT = Sh::NT, NW = Sh::NW, CW = Sh::CW, STG = Sh::STG;
+  constexpr int T = kSpan, TS = kStride;
+  using OverN = Scatter<NP>;    // dx, ddt: summed over a channel's NP lanes
+  using OverD = Scatter<CW>;    // dB, dC: summed over a warp's CW channels
   extern __shared__ __align__(16) float smem[];
-  float* s_x = smem;                        // [T][kChanB]
-  float* s_dt = s_x + T * kChanB;
-  float* s_dy = s_dt + T * kChanB;
-  float* s_b = s_dy + T * kChanB;           // [T][NP]
-  float* s_c = s_b + T * NP;
-  float* s_h = s_c + T * NP;                // [T][R][NT]: h_t, then dy_t h_t
-  float* s_g = s_h + T * R * NT;            // [T][R][NT]: g_t dt_t x_t
+  float* s_w = smem + STG;                  // [2][NW][T][NP]: dB, dC of each warp
+  float* s_blk = s_w + 2 * NW * T * NP;     // [2][T][NP]: the block's sums
+  float* s_out = s_blk + 2 * T * NP;        // [2][T][K]: dx, ddt
+  unsigned* s_tk = reinterpret_cast<unsigned*>(s_out + 2 * T * K);
+  unsigned* s_ready = s_tk + 2;             // the chains' early looks
 
-  const int tid = threadIdx.x;
-  const int b = blockIdx.y;
-  const int c = tid / G;                    // channel within the block
-  const int g = tid % G;                    // lane within the channel
-  const int d0 = blockIdx.x * kChanB;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nl = lane % NP, cw = lane / NP;
+  const int c = warp * CW + cw;                      // channel within the block
+  const int passes = (N + NP - 1) / NP;
+
+  if (rank == 0 && tid == 0) *s_tk = atomicAdd(ctrl, 1u);
+  cluster.sync();
+  const int ticket = static_cast<int>(*cluster.map_shared_rank(s_tk, 0));
+  const Place p = place_of(ticket, B, nspan, ncd);
+  const int j = p.j, b = p.b, cdg = p.cdg;
+  const int dg = cdg * kCluster + rank;
+  const int d0 = dg * K;
+  const bool blk_live = d0 < D;                      // past D: zeros to the cluster
   const int d = d0 + c;
   const bool live = d < D;
+  const int t0 = j * T;
+  const int tn = min(T, S - t0);
   const long long row0 = static_cast<long long>(b) * S;
-  const int nck = (S + T - 1) / T;
-  const int passes = (N + NP - 1) / NP;
-  const int start = g * TL;                 // first step of the tile it stores
+  const bool top = j == nspan - 1;
+  const unsigned want = static_cast<unsigned>(nspan - 1 - j);   // spans above
+  // per pass: the e chain's and the dA chain's count of spans done
+  unsigned* cnt = ctrl + 1 + 2LL * (static_cast<long long>(b) * ncd * kCluster + dg) * passes;
+  float* s_dt = smem;                        // [K][TS]
+  float* s_x = s_dt + K * TS;
+  float* s_dtx = s_x + K * TS;
+  float* s_dy = s_dtx + K * TS;
+  float* s_b = s_dy + K * TS;                // [NP][TS]
+  float* s_c = s_b + NP * TS;
+  float* s_h0 = s_c + NP * TS;               // [NT]
+  float* s_a = s_h0 + NT;
+
+  // Stage pass `pass` of the span by cp.async: the channel rows (pass 0
+  // only), B, C, the checkpoint row and A; zeros past S, D and N.
+  auto stage = [&](int pass) {
+    auto put = [](float* dst, const float* src, bool in) {
+      if (in) cp_async4(dst, src);
+      else *dst = 0.f;
+    };
+    if (pass == 0) {
+      for (int i = tid; i < T * K; i += NT) {
+        const int tt = i / K, cc = i % K, dd = d0 + cc;
+        const bool in = tt < tn && dd < D;
+        const long long off = in ? (row0 + t0 + tt) * D + dd : 0;
+        put(s_dt + cc * TS + tt, dt + off, in);
+        put(s_x + cc * TS + tt, xc + off, in);
+        put(s_dy + cc * TS + tt, dy + off, in);
+      }
+    }
+    for (int i = tid; i < T * NP; i += NT) {
+      const int tt = i / NP, q = i % NP, n = pass * NP + q;
+      const bool in = tt < tn && n < N;
+      const long long off = in ? (row0 + t0 + tt) * N + n : 0;
+      put(s_b + q * TS + tt, bm + off, in);
+      put(s_c + q * TS + tt, cm + off, in);
+    }
+    const int n = pass * NP + nl;
+    const bool on = live && n < N;
+    put(s_h0 + tid,
+        ckpt + (on ? ((static_cast<long long>(b) * nspan + j) * D + d) * N + n : 0), on);
+    put(s_a + tid, a + (on ? static_cast<long long>(d) * N + n : 0), on);
+  };
 
   for (int pass = 0; pass < passes; ++pass) {
-    const int n0 = pass * NP + g * R;
-    float av[R], a2[R], gr[R], da[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int n = n0 + r;
-      const bool on = live && n < N;
-      av[r] = on ? a[static_cast<long long>(d) * N + n] : 0.f;
-      a2[r] = av[r] * kLog2e;
-      gr[r] = on && dh_last != nullptr ? dh_last[(static_cast<long long>(b) * D + d) * N + n]
-                                       : 0.f;
-      da[r] = 0.f;
-    }
-
-    for (int j = nck - 1; j >= 0; --j) {
-      const int t0 = j * T;
-      const int tn = min(T, S - t0);
-      __syncthreads();                      // everyone is done with the last tile
-      for (int i = tid; i < T * kChanB; i += NT) {
-        const int tt = i / kChanB, dd = d0 + i % kChanB;
-        const bool in = tt < tn && dd < D;
-        const long long off = (row0 + t0 + tt) * D + dd;
-        s_x[i] = in ? xc[off] : 0.f;
-        s_dt[i] = in ? dt[off] : 0.f;
-        s_dy[i] = in ? dy[off] : 0.f;
+    const int n = pass * NP + nl;
+    const bool on = live && n < N;
+    const long long dn = (static_cast<long long>(b) * D + d) * N + n;
+    unsigned* cnt_e = cnt + 2 * pass;
+    unsigned* cnt_a = cnt_e + 1;
+    float da = 0.f, run = 0.f;
+    bool a_ready = true;
+    if (blk_live) {
+      if (pass > 0) __syncthreads();        // the last pass is done with B, C
+      stage(pass);
+      cp_async_commit();
+      // a look at the chains while the span loads: a span above that is
+      // done lets its values load under the recompute
+      if (tid == 0) {
+        s_ready[0] = top || ld_acquire(cnt_e) >= want;
+        s_ready[1] = top || ld_acquire(cnt_a) >= want;
       }
-      for (int i = tid; i < T * NP; i += NT) {
-        const int tt = i / NP, n = pass * NP + i % NP;
-        const bool in = tt < tn && n < N;
-        const long long off = (row0 + t0 + tt) * N + n;
-        s_b[i] = in ? bm[off] : 0.f;
-        s_c[i] = in ? cm[off] : 0.f;
+      cp_async_wait<0>();
+      __syncthreads();
+      if (pass == 0)
+        for (int i = tid; i < T * K; i += NT) {
+          const int cc = i / T, tt = i % T;
+          s_dtx[cc * TS + tt] = s_dt[cc * TS + tt] * s_x[cc * TS + tt];
+        }
+      const bool e_ready = s_ready[0] != 0;
+      a_ready = s_ready[1] != 0;
+      float g = 0.f;
+      if (top) {
+        if (on && dh_last != nullptr) g = dh_last[dn];
+      } else {
+        if (e_ready && on) g = __ldcg(dh0 + dn);
+        if (a_ready && on) run = __ldcg(ra + dn);
+      }
+      const float av = s_a[tid];
+      const float a2 = av * kLog2e;
+      const float* r_dt = s_dt + c * TS;
+      const float* r_dtx = s_dtx + c * TS;
+      const float* r_dy = s_dy + c * TS;
+      const float* r_b = s_b + nl * TS;
+      const float* r_c = s_c + nl * TS;
+      __syncthreads();                      // dt x staged
+
+      // the span's states from its checkpoint; P and L of the chain
+      float h = s_h0[tid];
+      float pr = 1.f, lsum = 0.f;
+      float at_r[T], ah_r[T];
+#pragma unroll
+      for (int k = 0; k < T / kChunk; ++k) {
+        float pc[kChunk];
+#pragma unroll
+        for (int q4 = 0; q4 < kChunk / 4; ++q4) {
+          const int tb = k * kChunk + q4 * 4;
+          const float4 dt4 = ld4(r_dt + tb), dx4 = ld4(r_dtx + tb), dy4 = ld4(r_dy + tb);
+          const float4 b4 = ld4(r_b + tb), c4 = ld4(r_c + tb);
+          const float dtv[4] = {dt4.x, dt4.y, dt4.z, dt4.w};
+          const float dxv[4] = {dx4.x, dx4.y, dx4.z, dx4.w};
+          const float dyv[4] = {dy4.x, dy4.y, dy4.z, dy4.w};
+          const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
+          const float cv[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int t = tb + u;
+            const float at = ex2(dtv[u] * a2);
+            const float ah = at * h;
+            at_r[t] = at;
+            ah_r[t] = ah;
+            h = fmaf(dxv[u], bv[u], ah);
+            pc[q4 * 4 + u] = dyv[u] * h;
+            pr *= at;
+            lsum = fmaf(pr, dyv[u] * cv[u], lsum);
+          }
+        }
+        reduce_scatter<NP, 32, kChunk>(pc, lane);
+        if (OverD::owner(cw)) {
+          float* w = s_w + ((NW + warp) * T + k * kChunk) * NP + nl;
+#pragma unroll
+          for (int e = 0; e < OverD::per; ++e) w[OverD::step(cw, e) * NP] = pc[e];
+        }
+      }
+
+      // the chain: e_j from span j + 1, e_{j-1} = P e_j + L in its place
+      if (!e_ready) {
+        wait_for(cnt_e, want);
+        if (on) g = __ldcg(dh0 + dn);
+      }
+      if (on) __stcg(dh0 + dn, fmaf(pr, g, lsum));
+      publish(cnt_e, want + 1);
+
+      // the adjoint, from the span's last step to its first
+#pragma unroll
+      for (int k = T / kChunk - 1; k >= 0; --k) {
+        float p1[kChunk], p2[kChunk], pb[kChunk];
+#pragma unroll
+        for (int q4 = kChunk / 4 - 1; q4 >= 0; --q4) {
+          const int tb = k * kChunk + q4 * 4;
+          const float4 dt4 = ld4(r_dt + tb), dx4 = ld4(r_dtx + tb), dy4 = ld4(r_dy + tb);
+          const float4 b4 = ld4(r_b + tb), c4 = ld4(r_c + tb);
+          const float dtv[4] = {dt4.x, dt4.y, dt4.z, dt4.w};
+          const float dxv[4] = {dx4.x, dx4.y, dx4.z, dx4.w};
+          const float dyv[4] = {dy4.x, dy4.y, dy4.z, dy4.w};
+          const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
+          const float cv[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+          for (int u = 3; u >= 0; --u) {
+            const int t = tb + u, e = q4 * 4 + u;
+            g = fmaf(dyv[u], cv[u], g);
+            p1[e] = g * bv[u];
+            const float q = g * ah_r[t];
+            p2[e] = av * q;
+            da = fmaf(dtv[u], q, da);
+            pb[e] = g * dxv[u];
+            g = at_r[t] * g;
+          }
+        }
+        // dx = dt sum_n g B, ddt = x sum_n g B + sum_n A g a h
+        reduce_scatter<1, NP, kChunk>(p1, lane);
+        reduce_scatter<1, NP, kChunk>(p2, lane);
+        if (OverN::owner(nl)) {
+#pragma unroll
+          for (int e = 0; e < OverN::per; ++e) {
+            const int tt = k * kChunk + OverN::step(nl, e);
+            const float vx = r_dt[tt] * p1[e];
+            const float vd = fmaf(s_x[c * TS + tt], p1[e], p2[e]);
+            float* ox = s_out + tt * K + c;
+            float* od = s_out + (T + tt) * K + c;
+            *ox = pass == 0 ? vx : *ox + vx;
+            *od = pass == 0 ? vd : *od + vd;
+          }
+        }
+        reduce_scatter<NP, 32, kChunk>(pb, lane);
+        if (OverD::owner(cw)) {
+          float* w = s_w + (warp * T + k * kChunk) * NP + nl;
+#pragma unroll
+          for (int e = 0; e < OverD::per; ++e) w[OverD::step(cw, e) * NP] = pb[e];
+        }
       }
       __syncthreads();
 
-      // the tile's states, recomputed from the state before it
-      float h[R], hst[R];
+      // the block's dB, dC: its warps summed in order
+      for (int i = tid; i < 2 * T * NP; i += NT) {
+        const int arr = i / (T * NP), r = i % (T * NP);
+        float s = 0.f;
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int n = n0 + r;
-        h[r] = live && n < N ? ckpt[((static_cast<long long>(b) * nck + j) * D + d) * N + n]
-                             : 0.f;
-        hst[r] = h[r];
+        for (int w = 0; w < NW; ++w) s += s_w[(arr * NW + w) * T * NP + r];
+        s_blk[i] = s;
       }
-#pragma unroll 4
-      for (int tt = 0; tt < T; ++tt) {
-        const float dtv = s_dt[tt * kChanB + c];
-        const float dx = dtv * s_x[tt * kChanB + c];
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const float at = ex2(dtv * a2[r]);
-          h[r] = at * h[r] + dx * s_b[tt * NP + g * R + r];
-          s_h[(tt * R + r) * NT + tid] = h[r];
-        }
+    } else {
+      for (int i = tid; i < 2 * T * NP; i += NT) s_blk[i] = 0.f;
+    }
+    cluster_arrive();
+    // dA, while the cluster gathers: the spans above summed first
+    if (blk_live) {
+      if (!a_ready) {
+        wait_for(cnt_a, want);
+        if (on) run = __ldcg(ra + dn);
       }
+      if (on) __stcg(ra + dn, top ? da : run + da);
+      publish(cnt_a, want + 1);
+    }
+    cluster_wait();
 
-      // the adjoint, from the tile's last step to its first
-      float px[T], pd[T];
+    // the cluster's dB, dC: each block sums a slice over the ranks in order
+    constexpr int kSlice = 2 * T * NP / kCluster;
+    for (int i = tid; i < kSlice; i += NT) {
+      const int o = rank * kSlice + i;
+      float s = 0.f;
 #pragma unroll
-      for (int tt = T - 1; tt >= 0; --tt) {
-        const float dtv = s_dt[tt * kChanB + c];
-        const float xv = s_x[tt * kChanB + c];
-        const float dyv = s_dy[tt * kChanB + c];
-        float sx = 0.f, sd = 0.f;
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const float bv = s_b[tt * NP + g * R + r];
-          const float cv = s_c[tt * NP + g * R + r];
-          const float ht = s_h[(tt * R + r) * NT + tid];
-          const float hp = tt > 0 ? s_h[((tt - 1) * R + r) * NT + tid] : hst[r];
-          const float at = ex2(dtv * a2[r]);
-          gr[r] += dyv * cv;
-          sx += gr[r] * bv;
-          sd += gr[r] * (xv * bv + av[r] * at * hp);
-          da[r] += gr[r] * at * dtv * hp;
-          s_h[(tt * R + r) * NT + tid] = dyv * ht;       // step tt's state is read no more
-          s_g[(tt * R + r) * NT + tid] = gr[r] * dtv * xv;
-          gr[r] *= at;
-        }
-        px[tt] = sx * dtv;
-        pd[tt] = sd;
-      }
-      reduce_scatter<G, T>(px, g);
-      reduce_scatter<G, T>(pd, g);
-      if (live) {
-#pragma unroll
-        for (int e = 0; e < TL; ++e) {
-          const int t = t0 + start + e;
-          if (t < S) {
-            const long long off = (row0 + t) * D + d;
-            dxc[off] = pass == 0 ? px[e] : dxc[off] + px[e];
-            ddt[off] = pass == 0 ? pd[e] : ddt[off] + pd[e];
-          }
-        }
-      }
-      __syncthreads();
-
-      // this block's dB and dC terms: its channels summed in order
-      for (int i = tid; i < T * NP; i += NT) {
-        const int tt = i / NP, q = i % NP, n = pass * NP + q;
-        if (tt < tn && n < N) {
-          const int gq = q / R, rq = q % R;
-          float sb = 0.f, sc = 0.f;
-          for (int cc = 0; cc < kChanB; ++cc) {
-            const int th = cc * G + gq;
-            sb += s_g[(tt * R + rq) * NT + th];
-            sc += s_h[(tt * R + rq) * NT + th];
-          }
-          const long long off =
-              ((static_cast<long long>(b) * gridDim.x + blockIdx.x) * S + t0 + tt) * N + n;
-          part_b[off] = sb;
-          part_c[off] = sc;
+      for (int q = 0; q < kCluster; ++q) s += cluster.map_shared_rank(s_blk, q)[o];
+      const int arr = o / (T * NP), r = o % (T * NP), tt = r / NP, nn = pass * NP + r % NP;
+      if (tt < tn && nn < N)
+        part[((static_cast<long long>(arr) * B + b) * ncd + cdg) * S * N +
+             static_cast<long long>(t0 + tt) * N + nn] = s;
+    }
+    cluster_arrive();                       // no block leaves while another reads it
+    if (pass == passes - 1 && blk_live) {
+      for (int i = tid; i < T * K; i += NT) {
+        const int tt = i / K, cc = i % K, dd = d0 + cc;
+        if (tt < tn && dd < D) {
+          const long long off = (row0 + t0 + tt) * D + dd;
+          dxc[off] = s_out[tt * K + cc];
+          ddt[off] = s_out[(T + tt) * K + cc];
         }
       }
     }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int n = n0 + r;
-      if (live && n < N) {
-        const long long off = (static_cast<long long>(b) * D + d) * N + n;
-        dh0[off] = gr[r];
-        part_a[off] = da[r];
-      }
-    }
+    cluster_wait();
   }
 }
 
-// out[o, m] = sum_p part[o, p, m], p in order
+// dB, dC: the clusters' partials summed in order; dA: the rows' sums over b
 __global__ void __launch_bounds__(kSumThreads)
-ssm_scan_bwd_sum_kernel(const float* __restrict__ part, float* __restrict__ out, int O, int P,
-                        long long M) {
-  const long long total = static_cast<long long>(O) * M;
+ssm_scan_bwd_sum_kernel(const float* __restrict__ part, const float* __restrict__ ra,
+                        float* __restrict__ dbm, float* __restrict__ dcm,
+                        float* __restrict__ da, int B, int S, int D, int N, int ncd) {
+  const long long sn = static_cast<long long>(S) * N;
+  const long long bsn = B * sn, dn = static_cast<long long>(D) * N;
+  const long long total = 2 * bsn + dn;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < total;
        i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const long long o = i / M, m = i % M;
-    const float* p = part + o * P * M + m;
     float s = 0.f;
-    for (int k = 0; k < P; ++k) s += p[k * M];
-    out[i] = s;
+    if (i < 2 * bsn) {
+      const long long arr = i / bsn, r = i % bsn, bb = r / sn, m = r % sn;
+      const float* p = part + (arr * B + bb) * ncd * sn + m;
+      for (int k = 0; k < ncd; ++k) s += p[k * sn];
+      (arr == 0 ? dbm : dcm)[r] = s;
+    } else {
+      const long long m = i - 2 * bsn;
+      for (int bb = 0; bb < B; ++bb) s += ra[bb * dn + m];
+      da[m] = s;
+    }
   }
 }
 
-cudaError_t sum_partials(const float* part, float* out, int O, int P, long long M,
-                         cudaStream_t stream) {
-  const long long total = static_cast<long long>(O) * M;
-  const long long want = (total + kSumThreads - 1) / kSumThreads;
-  const unsigned grid = static_cast<unsigned>(want < 132 * 16 ? want : 132 * 16);
-  ssm_scan_bwd_sum_kernel<<<grid, kSumThreads, 0, stream>>>(part, out, O, P, M);
-  return cudaGetLastError();
+int pass_states(int N) {                       // as the forward picks them
+  int np = 1;
+  while (np < N && np < kMaxPassB) np <<= 1;
+  return np;
 }
 
-template <int R, int G>
+struct Grid {
+  int nspan, ncd, passes;
+};
+
+Grid grid_of(int S, int D, int N) {
+  const int np = pass_states(N);
+  const int ndg = (D + block_channels(np) - 1) / block_channels(np);
+  return {(S + kSpan - 1) / kSpan, (ndg + kCluster - 1) / kCluster, (N + np - 1) / np};
+}
+
+template <int NP>
 cudaError_t launch_bwd(const float* xc, const float* dt, const float* bm, const float* cm,
                        const float* a, const float* ckpt, const float* dy, const float* dh_last,
-                       float* dxc, float* ddt, float* dh0, float* part_b, float* part_c,
-                       float* part_a, int B, int S, int D, int N, cudaStream_t stream) {
-  constexpr int bytes = smem_floats<R, G>() * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(ssm_scan_bwd_kernel<R, G>,
+                       float* dxc, float* ddt, float* dh0, float* part, float* ra,
+                       unsigned* ctrl, int B, int S, int D, int N, cudaStream_t stream) {
+  constexpr int bytes = Shape<NP>::floats * static_cast<int>(sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(ssm_scan_bwd_kernel<NP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>((D + kChanB - 1) / kChanB), static_cast<unsigned>(B));
-  ssm_scan_bwd_kernel<R, G><<<grid, kChanB * G, bytes, stream>>>(
-      xc, dt, bm, cm, a, ckpt, dy, dh_last, dxc, ddt, dh0, part_b, part_c, part_a, S, D, N);
+  const Grid g = grid_of(S, D, N);
+  const dim3 grid(static_cast<unsigned>(g.ncd * kCluster), static_cast<unsigned>(B * g.nspan));
+  ssm_scan_bwd_kernel<NP><<<grid, Shape<NP>::NT, bytes, stream>>>(
+      xc, dt, bm, cm, a, ckpt, dy, dh_last, dxc, ddt, dh0, part, ra, ctrl, B, S, D, N,
+      g.nspan, g.ncd);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int ssm_scan_bwd_channels_per_block() { return kChanB; }
+// Scratch of a launch at (B, S, D, N): which 0, the floats of the dB, dC
+// partials (2, B, clusters along d, S, N); 1, the 32-bit words of the
+// ticket and the chains' counts, zeroed by the launch.  The dA chain's
+// buffer is (B, D, N) floats.
+extern "C" long long ssm_scan_bwd_scratch(int B, int S, int D, int N, int which) {
+  if (B <= 0 || S <= 0 || D <= 0 || N <= 0) return 1;
+  const Grid g = grid_of(S, D, N);
+  if (which == 0) return 2LL * B * g.ncd * S * N;
+  return 1 + 2LL * B * g.ncd * kCluster * g.passes;
+}
 
 // ckpt (B, ceil(S / 32), D, N) from ssm_scan_launch; dh_last may be null;
-// part_b, part_c (B, ceil(D / 16), S, N) and part_a (B, D, N) are scratch.
+// part, ra (B, D, N) and ctrl are scratch of ssm_scan_bwd_scratch's sizes.
 extern "C" int ssm_scan_bwd_launch(const void* xc, const void* dt, const void* bm,
                                    const void* cm, const void* a, const void* ckpt,
                                    const void* dy, const void* dh_last, void* dxc, void* ddt,
-                                   void* dbm, void* dcm, void* da, void* dh0, void* part_b,
-                                   void* part_c, void* part_a, int B, int S, int D, int N,
+                                   void* dbm, void* dcm, void* da, void* dh0, void* part,
+                                   void* ra, void* ctrl, int B, int S, int D, int N,
                                    void* stream) {
   if (B <= 0 || S <= 0 || D <= 0) return static_cast<int>(cudaGetLastError());
   if (N <= 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -283,33 +540,35 @@ extern "C" int ssm_scan_bwd_launch(const void* xc, const void* dt, const void* b
   auto* dxc_ = static_cast<float*>(dxc);
   auto* ddt_ = static_cast<float*>(ddt);
   auto* dh0_ = static_cast<float*>(dh0);
-  auto* pb_ = static_cast<float*>(part_b);
-  auto* pc_ = static_cast<float*>(part_c);
-  auto* pa_ = static_cast<float*>(part_a);
-  int np = 1;                                   // states a pass, as the forward picks it
-  while (np < N && np < kMaxPassB) np <<= 1;
+  auto* part_ = static_cast<float*>(part);
+  auto* ra_ = static_cast<float*>(ra);
+  auto* ctrl_ = static_cast<unsigned*>(ctrl);
+  cudaError_t err = cudaMemsetAsync(
+      ctrl_, 0, static_cast<size_t>(ssm_scan_bwd_scratch(B, S, D, N, 1)) * sizeof(unsigned), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
   using Launch = cudaError_t (*)(const float*, const float*, const float*, const float*,
                                  const float*, const float*, const float*, const float*, float*,
-                                 float*, float*, float*, float*, float*, int, int, int, int,
+                                 float*, float*, float*, float*, unsigned*, int, int, int, int,
                                  cudaStream_t);
   Launch run;
-  switch (np) {                                 // (R, G): R states a lane, G lanes a channel
-    case 1: run = launch_bwd<1, 1>; break;
-    case 2: run = launch_bwd<2, 1>; break;
-    case 4: run = launch_bwd<4, 1>; break;
-    case 8: run = launch_bwd<4, 2>; break;
-    case 16: run = launch_bwd<4, 4>; break;
-    default: run = launch_bwd<4, 8>; break;
+  switch (pass_states(N)) {
+    case 1: run = launch_bwd<1>; break;
+    case 2: run = launch_bwd<2>; break;
+    case 4: run = launch_bwd<4>; break;
+    case 8: run = launch_bwd<8>; break;
+    case 16: run = launch_bwd<16>; break;
+    default: run = launch_bwd<32>; break;
   }
-  cudaError_t err = run(xc_, dt_, bm_, cm_, a_, ck_, dy_, dhl_, dxc_, ddt_, dh0_, pb_, pc_, pa_,
-                        B, S, D, N, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int nblk = (D + kChanB - 1) / kChanB;
-  const long long sn = static_cast<long long>(S) * N;
-  if ((err = sum_partials(pb_, static_cast<float*>(dbm), B, nblk, sn, st)) != cudaSuccess)
+  if ((err = run(xc_, dt_, bm_, cm_, a_, ck_, dy_, dhl_, dxc_, ddt_, dh0_, part_, ra_, ctrl_, B,
+                 S, D, N, st)) != cudaSuccess)
     return static_cast<int>(err);
-  if ((err = sum_partials(pc_, static_cast<float*>(dcm), B, nblk, sn, st)) != cudaSuccess)
-    return static_cast<int>(err);
-  return static_cast<int>(
-      sum_partials(pa_, static_cast<float*>(da), 1, B, static_cast<long long>(D) * N, st));
+  const Grid g = grid_of(S, D, N);
+  const long long total = 2LL * B * S * N + static_cast<long long>(D) * N;
+  const long long want = (total + kSumThreads - 1) / kSumThreads;
+  const unsigned grid = static_cast<unsigned>(want < 132 * 16 ? want : 132 * 16);
+  ssm_scan_bwd_sum_kernel<<<grid, kSumThreads, 0, st>>>(part_, ra_, static_cast<float*>(dbm),
+                                                        static_cast<float*>(dcm),
+                                                        static_cast<float*>(da), B, S, D, N,
+                                                        g.ncd);
+  return static_cast<int>(cudaGetLastError());
 }

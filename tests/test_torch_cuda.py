@@ -590,6 +590,39 @@ def test_ssm_scan_bwd(cuda, n, b, s, d, with_h0):
             1e-4 * float(w.abs().max())
 
 
+@pytest.mark.parametrize("b,s,d", [(1, 32, 200), (2, 33, 200),
+                                   (1, 4101, 96), (1, 4224, 1600)])
+@pytest.mark.parametrize("with_dh", [False, True])
+def test_ssm_scan_bwd_span_carry(cuda, b, s, d, with_dh):
+    """The adjoint carried from span to span at N = 16: one whole span (S
+    = 32), a one-step last span (33), 129 spans with a ragged last one
+    (4,101) and train_4k's per-rank shape (1, 4,224, 1,600), against the
+    float64 plain version, two launches bitwise."""
+    n = 16
+    xc, dt, bm, cm, a, _ = _ssm_inputs(cuda, b, s, d, n, seed=s + d,
+                                       with_h0=False)
+    g = torch.Generator(device=cuda).manual_seed(s)
+    dy = torch.randn((b, s, d), generator=g, device=cuda)
+    dh = torch.randn((b, d, n), generator=g, device=cuda) if with_dh \
+        else None
+    _, _, ckpt = ssm_scan_with_checkpoints(xc, dt, bm, cm, a)
+    ops.reset_launch_counts()
+    got = ssm_scan_bwd(xc, dt, bm, cm, a, ckpt, dy, dh)
+    again = ssm_scan_bwd(xc, dt, bm, cm, a, ckpt, dy, dh)
+    assert ops.launch_counts()["ssm_scan_bwd"] == 2
+    f64 = lambda t: None if t is None else t.double()
+    _, _, ck = ref.ssm_scan_with_checkpoints_ref(
+        *map(f64, (xc, dt, bm, cm, a)))
+    want = ref.ssm_scan_bwd_ref(*map(f64, (xc, dt, bm, cm, a)), ck, f64(dy),
+                                f64(dh))
+    torch.cuda.synchronize()
+    for gt, gt2, w in zip(got, again, want):
+        assert torch.equal(gt, gt2)
+        assert bool(torch.isfinite(gt).all())
+        assert float((gt.double() - w).abs().max()) <= \
+            1e-4 * float(w.abs().max())
+
+
 def test_ssm_scan_autograd_on_the_card_matches_the_cpu(cuda):
     xc, dt, bm, cm, a, h0 = _ssm_inputs(cuda, 2, 75, 64, 8, 5, True)
 
