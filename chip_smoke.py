@@ -102,7 +102,23 @@ CUDA toolkit.  Phases, each printing one JSON line:
                  --mesh 2x1`` (hymba smoke(), 2 steps of 4 x 64 tokens;
                  gloo, as two ranks share the card) as a subprocess, its checkpoint against
                  one process's steps over the whole batch in two
-                 microbatches (1e-5); ``attention.decode_attend_seqsharded``
+                 microbatches (1e-5); the model axis, ``launch.train
+                 --mesh 2x2`` (4 gloo ranks; MODEL_AXIS_RUNS:
+                 h2o-danube-1.8b smoke() with tensor-parallel attention
+                 and FFN, granite-moe-1b-a400m smoke() with
+                 expert-parallel MoE, hymba-1.5b at full width and 4
+                 layers, 2 x 1,024 tokens, ``ssm_scan`` and
+                 ``ssm_scan_bwd`` on every rank), 2 steps and a
+                 checkpoint each, each step against one process's same
+                 step (2 microbatches) from the mesh's checkpoint before
+                 it: each rank's parameter elements the specs', the last
+                 step's loss and gradient norm (1e-5 relative), each
+                 checkpoint's moments (1e-5 relative, absolute near 0)
+                 and its parameters against AdamW applied to those
+                 moments (1e-5), the scan kernels'
+                 launches a step (2 and 1 a layer); a line a rank with its
+                 peak memory, step seconds and tensor-parallel and
+                 gathered leaves; ``attention.decode_attend_seqsharded``
                  on 2 spawned gloo ranks at one of ``gemma3-27b``'s global
                  layers (32 query and 16 KV heads of 128) over the
                  ``long_500k`` cache of 524,288 slots (8.6 GB of fp32
@@ -295,11 +311,14 @@ from repro_torch.launch import roofline  # noqa: E402
 # the H100 SXM's rates and each kernel's work and least time
 from repro_torch.launch.roofline import (FP32, SM_CLOCK_HZ,  # noqa: E402
                                          band_cells, bound)
+from repro_torch.launch import specs as launch_specs  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.launch.mesh import MeshSpec  # noqa: E402
 from repro_torch.models import (attention, common, mamba,  # noqa: E402
                                 transformer)
 from repro_torch.train import (Checkpointer, make_eval_step,  # noqa: E402
                                make_train_step, opt_init)
+from repro_torch.train.step import lr_schedule  # noqa: E402
 
 LB_RTOL = 1e-5                 # 16 non-negative terms summed in another order
 LB_PLAIN_CHUNK = 131_072       # columns of a chunk of the plain lb_scan
@@ -367,6 +386,15 @@ MESH_TRAIN_ARCH = "hymba-1.5b"
 MESH_BATCH, MESH_SEQ, MESH_STEPS = 4, 64, 2
 MESH_TRAIN_REL = 1e-5          # the mesh's checkpoint vs one process's steps
 MESH_WORLD = 2
+# the model axis: launch.train --mesh 2x2 (4 gloo ranks on the card):
+# (arch, smoke, layers, batch, seq); Hymba at full width and a cut depth
+# (two checkpoints of the whole tree go through gloo and the disk)
+MODEL_AXIS_MESH = (2, 2)
+MODEL_AXIS_RUNS = (("h2o-danube-1.8b", True, None, 4, 64),
+                   ("granite-moe-1b-a400m", True, None, 4, 64),
+                   ("hymba-1.5b", False, 4, 2, 1024))
+MODEL_AXIS_STEPS = 2
+MODEL_AXIS_TIMEOUT_S = 600
 SEQ_ARCH, SEQ_SLOTS = "gemma3-27b", 524_288
 SEQ_POS = 300_007              # in rank 1's half, off a 1,024-slot chunk edge
 SEQ_REL = 1e-5                 # the sharded merge vs one process's decode, x max |want|
@@ -1269,11 +1297,13 @@ def _mesh_train(args) -> dict:
                                     f"{r.stderr[-2000:]!r})"):
         return {"seconds": secs, "returncode": r.returncode}
     cfg = get_config(MESH_TRAIN_ARCH, smoke=True)
-    params = serve.build_params(cfg, 0)
+    # the weights built on the host, as the CLI builds them
+    params = common.tree_map(lambda t: t.to(_card()),
+                             serve.build_params(cfg, 0, "cpu"))
     opt = opt_init(cfg.optimizer, params)
     one = make_train_step(cfg, base_lr=1e-2, total_steps=MESH_STEPS,
                           warmup=min(100, MESH_STEPS // 10 + 1),
-                          microbatch=MESH_WORLD)
+                          microbatch=MESH_WORLD, device=_card())
     next_batch = launch_train.make_batch_fn(cfg, MESH_BATCH, MESH_SEQ, 0)
     for i in range(MESH_STEPS):
         params, opt, m = one(params, opt, next_batch(i))
@@ -1298,6 +1328,205 @@ def _mesh_train(args) -> dict:
 
 def _card() -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def _adamw_replay(prev: dict, opt, base_lr: float, steps: int) -> dict:
+    """AdamW's update of ``prev`` by the moments in ``opt`` (the state
+    after the step), in ``train.optimizer``'s arithmetic: a mesh's
+    parameters are held to the update of its own moments, since with eps
+    1e-8 an element whose gradient lies within a few eps of 0 moves its
+    update by O(1) under any other summation order."""
+    b1, b2, eps, wd = 0.9, 0.95, 1e-8, 0.01
+    t = opt.step.to(torch.float32)
+    bc1, bc2 = 1.0 - b1 ** t, 1.0 - b2 ** t
+    lr = lr_schedule(opt.step - 1, base_lr=base_lr,
+                     warmup=min(100, steps // 10 + 1), total=steps)
+    m, v = dict(common.leaves(opt.m)), dict(common.leaves(opt.v))
+    out = {}
+    for path, p in common.leaves(prev):
+        u = (m[path] / bc1) / (torch.sqrt(v[path] / bc2) + eps)
+        if p.ndim >= 2:
+            u = u + wd * p.to(torch.float32)
+        out[path] = (p.to(torch.float32) - lr * u).to(p.dtype)
+    return common.with_leaves(prev, out)
+
+
+def _within(got: dict, want: dict, tol: float) -> tuple[float, float]:
+    """(the largest |got - want| over the leaves, the largest of
+    |got - want| / (tol (1 + |want|))): within ``tol`` relative, and
+    absolute near 0, where the second is at most 1."""
+    worst, ratio = 0.0, 0.0
+    for (_, w), (_, g) in zip(common.leaves(want), common.leaves(got)):
+        if w.numel():
+            d = (g - w).abs()
+            worst = max(worst, float(d.max()))
+            ratio = max(ratio, float((d / (tol * (1 + w.abs()))).max()))
+    return worst, ratio
+
+
+def _model_axis_start(arch, smoke, layers, batch, seq) -> dict:
+    """``launch.train --mesh 2x2`` started as a subprocess, a checkpoint
+    every step, its output to files."""
+    d, m = MODEL_AXIS_MESH
+    cfg = get_config(arch, smoke=smoke)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    label = f"mesh: launch.train --mesh {d}x{m} {arch}" + (
+        " smoke" if smoke else f" full width, {cfg.n_layers} layers")
+    steps, lr = MODEL_AXIS_STEPS, 1e-2
+    ck = MESH_DIR / f"ckpt_{arch}"
+    shutil.rmtree(ck, ignore_errors=True)
+    argv = ["--arch", arch, "--batch", str(batch), "--seq", str(seq),
+            "--steps", str(steps), "--lr", str(lr), "--ckpt-dir", str(ck),
+            "--ckpt-every", "1", "--log-every", "1", "--mesh", f"{d}x{m}"]
+    argv += ["--smoke"] if smoke else []
+    argv += ["--layers", str(layers)] if layers else []
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out, err = (open(MESH_DIR / f"{arch}.{k}", "w+") for k in ("out", "err"))
+    proc = subprocess.Popen([sys.executable, "-m",
+                             "repro_torch.launch.train", *argv], cwd=ROOT,
+                            env=env, stdout=out, stderr=err, text=True)
+    return {"cfg": cfg, "label": label, "ck": ck, "proc": proc, "out": out,
+            "err": err, "lr": lr, "steps": steps, "smoke": smoke,
+            "batch": batch, "seq": seq, "t0": time.perf_counter(),
+            "line": {"arch": arch, "smoke": smoke, "layers": cfg.n_layers,
+                     "batch": batch, "seq": seq, "steps": steps}}
+
+
+def _one_process_step(run: dict, params, opt, i: int):
+    """Step ``i`` of one process from ``params`` and ``opt`` (host
+    trees), over the whole batch in 2 microbatches, on the card ->
+    (params, state, metrics) on the host."""
+    cfg, card = run["cfg"], _card()
+    to = lambda tree: common.tree_map(lambda t: t.to(card, copy=True),
+                                      tree)
+    params = to(params)
+    opt = type(opt)(opt.step.to(card, copy=True), *map(to, opt[1:]))
+    step = make_train_step(
+        cfg, base_lr=run["lr"], total_steps=run["steps"],
+        warmup=min(100, run["steps"] // 10 + 1),
+        microbatch=MODEL_AXIS_MESH[0] * (1 if run["smoke"]
+                                         else cfg.microbatch), device=card)
+    next_batch = launch_train.make_batch_fn(cfg, run["batch"], run["seq"], 0)
+    for _ in range(i):                # the stream up to step i's batch
+        next_batch(0)
+    params, opt, mets = step(params, opt, next_batch(i))
+    host = lambda tree: common.tree_map(lambda t: t.cpu(), tree)
+    out = (host(params), type(opt)(opt.step.cpu(), *map(host, opt[1:])),
+           {k: float(v) for k, v in mets.items()})
+    del params, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _model_axis_finish(run: dict) -> tuple[dict, dict]:
+    """The started run held to one process: each rank's parameter
+    elements against the port's specs (held equal to the reference's by
+    tests/test_torch_model_axis.py) and, for Hymba, the scan kernels'
+    launches a step; then each step against one process's same step
+    from the mesh's checkpoint of the step before (step 0: from the
+    weights both build on the host): the checkpoint's moments against
+    one process's, its parameters against AdamW applied to those moments
+    from the step before's, the ranks' loss and gradient norm against
+    one process's at the last step.  One process's whole trajectory is
+    not the reference: at full width the first update of random weights
+    at lr 1e-2 leaves a model whose next gradients move by ~1e-5 under
+    the last bits of the first (one process against itself on 1 and 4
+    CPU threads).  -> (its line, the kernel launches summed over the
+    ranks)."""
+    cfg, label, steps, line = run["cfg"], run["label"], run["steps"], \
+        run["line"]
+    proc = run["proc"]
+    try:
+        rc = proc.wait(timeout=MODEL_AXIS_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = proc.wait()
+    for f in (run["out"], run["err"]):
+        f.seek(0)
+    stdout, stderr = run["out"].read(), run["err"].read()
+    line.update(seconds=time.perf_counter() - run["t0"], returncode=rc)
+    if not check(rc == 0, f"{label} exits 0 (rc {rc}; {stderr[-2000:]!r})"):
+        return line, {}
+    d, m = MODEL_AXIS_MESH
+    reps = sorted((json.loads(x[len("[rank] "):]) for x in
+                   stdout.splitlines() if x.startswith("[rank] ")),
+                  key=lambda x: x["rank"])
+    held = launch_specs.held_elements(launch_specs.state_shard_shapes(
+        cfg, MeshSpec(MODEL_AXIS_MESH, ("data", "model")))["params"])
+    p0 = serve.build_params(cfg, 0, "cpu")
+    whole = sum(t.numel() for _, t in common.leaves(p0))
+    check(len(reps) == d * m, f"{label}: {d * m} rank reports, got "
+                              f"{len(reps)}")
+    launches: dict = {}
+    for rep in reps:
+        tag = f"{label} rank {rep['rank']}"
+        check(rep["params_held"] == held,
+              f"{tag}: holds {rep['params_held']} parameter elements, the "
+              f"specs' {held} of {whole}")
+        per_step = {k: v / steps for k, v in rep["launches"].items() if v}
+        if cfg.family == "hybrid":     # a checkpointed layer scans twice
+            fwd = 2 if cfg.remat != "none" else 1
+            for name, n in (("ssm_scan", fwd * cfg.n_layers),
+                            ("ssm_scan_bwd", cfg.n_layers)):
+                check(per_step.get(name) == n,
+                      f"{tag}: {name} launched {per_step.get(name)} times "
+                      f"a step, {n} expected")
+        for k, v in rep["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        print(json.dumps({"model_axis_rank": {
+            "arch": cfg.name, "rank": rep["rank"], "coords": rep["coords"],
+            "params_held": rep["params_held"], "params_whole": whole,
+            "opt_held": rep["opt_held"],
+            "peak_bytes": rep["peak_bytes"], "step_s": rep["step_s"],
+            "tp_leaves": rep["tp_leaves"],
+            "gathered_leaves": rep["gathered_leaves"],
+            "launches_per_step": per_step}, "nvidia_smi": nvidia_smi_line()}),
+            flush=True)
+    params, opt = p0, opt_init(cfg.optimizer, p0)
+    errs = []
+    for i in range(steps):
+        want_p, want, mets = _one_process_step(run, params, opt, i)
+        tree = Checkpointer(str(run["ck"]), async_writes=False).restore(
+            {"params": p0, "opt": opt_init(cfg.optimizer, p0),
+             "meta": {"step": 0}}, step=i)
+        got = tree["opt"]
+        m_abs, m_ratio = max(_within(got.m, want.m, MESH_TRAIN_REL),
+                             _within(got.v, want.v, MESH_TRAIN_REL),
+                             key=lambda x: x[1])
+        p_abs, _ = _within(tree["params"],
+                           _adamw_replay(params, got, run["lr"], steps),
+                           MESH_TRAIN_REL)
+        check(m_ratio <= 1 and p_abs <= MESH_TRAIN_REL,
+              f"{label}: step {i}'s checkpoint: moments within "
+              f"{MESH_TRAIN_REL} relative (absolute near 0) of one "
+              f"process's step from the step before's, got {m_ratio:.3g} "
+              f"of it ({m_abs:.3g} at most); parameters within "
+              f"{MESH_TRAIN_REL} of AdamW from its moments, got {p_abs:.3g}")
+        errs.append({"moments_abs": m_abs, "moments_of_tolerance": m_ratio,
+                     "params_abs": p_abs,
+                     "params_abs_vs_one_process": _within(
+                         tree["params"], want_p, MESH_TRAIN_REL)[0]})
+        params, opt = tree["params"], got
+    for rep in reps:
+        for key in ("loss", "grad_norm"):
+            rel = abs(rep[key] / mets[key] - 1)
+            check(rel <= MESH_TRAIN_REL,
+                  f"{label} rank {rep['rank']}: last step's {key} "
+                  f"{rep[key]!r} within {MESH_TRAIN_REL} of one process's "
+                  f"{mets[key]!r} (rel {rel:.3g})")
+    shutil.rmtree(run["ck"], ignore_errors=True)
+    line.update(
+        params_whole=whole, params_held_per_rank=held,
+        tp_leaves=reps[0]["tp_leaves"],
+        gathered_leaves=reps[0]["gathered_leaves"],
+        peak_bytes=[x["peak_bytes"] for x in reps],
+        step_s=[x["step_s"] for x in reps],
+        loss=[x["loss"] for x in reps], one_process_loss=mets["loss"],
+        grad_norm=[x["grad_norm"] for x in reps],
+        one_process_grad_norm=mets["grad_norm"], checkpoints=errs,
+        tolerance=MESH_TRAIN_REL, launches=launches)
+    return line, launches
 
 
 def _seq_cache_half(cfg, rank: int, slots: int, seed: int, dev):
@@ -1413,20 +1642,34 @@ def _mesh_seqsharded(args) -> dict:
             "one_process_ms_per_call": one_ms, "ranks_seconds": ranks_s}
 
 
-def phase_mesh(args) -> None:
-    """launch.train --mesh and the sequence-sharded decode, on the card."""
+def phase_mesh(args) -> dict:
+    """launch.train --mesh Dx1 and 2x2 and the sequence-sharded decode,
+    on the card.  -> the kernel launches of the 2x2 runs, summed over
+    their ranks."""
     t_phase = time.perf_counter()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     MESH_DIR.mkdir(parents=True, exist_ok=True)
+    launches: dict = {}
+    model_axis = []
     try:
+        # the smoke() runs' ranks start while the 2x1 run goes on
+        started = [_model_axis_start(*r) for r in MODEL_AXIS_RUNS if r[1]]
         train = _mesh_train(args)
+        done = [_model_axis_finish(r) for r in started]
+        done += [_model_axis_finish(_model_axis_start(*r))
+                 for r in MODEL_AXIS_RUNS if not r[1]]
+        for line, counts in done:
+            model_axis.append(line)
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
         seq = _mesh_seqsharded(args)
     finally:
         shutil.rmtree(MESH_DIR, ignore_errors=True)
     emit({"phase": "mesh", "nvidia_smi": nvidia_smi_line(),
           "seconds": time.perf_counter() - t_phase, "train_mesh": train,
-          "decode_seqsharded": seq})
+          "model_axis": model_axis, "decode_seqsharded": seq})
+    return launches
 
 
 def _dryrun(args: list[str], out: Path) -> tuple[list, float, object]:
@@ -3302,7 +3545,7 @@ def main(argv=None) -> int:
     launches["train"] = phase_train(args)
     launches["families"] = phase_families(args)
     launches["hybrid_train"], train_in = phase_hybrid_train(args)
-    phase_mesh(args)
+    launches["mesh"] = phase_mesh(args)
     phase_roofline(args)
     # the envelope widths of the sanitize phase's index (its rows of the
     # on-disk phase's series) and of a dist4 shard

@@ -20,7 +20,6 @@ import functools
 
 import numpy as np
 import torch
-from scipy.stats import norm
 
 # Paper-fixed defaults.
 W = 16          # number of PAA segments
@@ -31,6 +30,7 @@ SENTINEL = 1.0e9  # finite stand-in for +/- infinity region edges
 @functools.lru_cache(maxsize=None)
 def breakpoints(card: int = CARD) -> np.ndarray:
     """The card-1 equiprobable N(0,1) breakpoints, ascending. float32."""
+    from scipy.stats import norm   # here: its import takes seconds
     qs = np.arange(1, card) / card
     return norm.ppf(qs).astype(np.float32)
 

@@ -3,29 +3,39 @@ layout, with its roofline on an H100; or measure one cell on the card.
 
 The counterpart of ``repro.launch.dryrun``, which lowers and compiles
 each cell for a (16, 16) or (2, 16, 16) TPU mesh on 512 placeholder CPU
-devices and reads the partitioned HLO.  The port shards no parameter: a
-cell runs data-parallel over D ranks (``launch.train --mesh Dx1``), each
-holding the whole model and its share of the batch and caches
-(``specs.shard_shapes`` on a ``MeshSpec((D,), ("data",))``), and a
-decode batch that does not split over the ranks (long_500k's one
-sequence) splits its full-attention caches' positions over them
-(``decode_step(kv_shard=)``).  So a cell is counted as one rank's step,
-on the meta device (no card, no memory), by ``launch.op_analysis``, the
-gradient all-reduce and the sharded decode's two all-reduces on a fake
-process group of D ranks.  ``--mesh 16x1`` (the default) is one data row
-of the reference's 16 x 16 production mesh, whose "model" axis the port
-has nothing to fill; ``32x1`` stands in for its two-pod layout.  A
-decode cell is counted at its last position (Whisper: its decoder's).
+devices and reads the partitioned HLO.  Here a cell is counted as one
+rank's step, on the meta device (no card, no memory), by
+``launch.op_analysis``, its collectives on fake process groups of the
+mesh's axes (``op_analysis.fake_group``).
+
+``--mesh 16x16`` (the default) and ``2x16x16`` are the reference's
+production meshes.  A train cell runs as ``launch.train --mesh DxM``
+trains: the rank holds the shards of the parameters and the optimizer
+state that the reference's specs give it (``specs.param_pspecs``),
+runs its tensor- and expert-parallel blocks over a fake model group of
+M and gathers its other sharded leaves over the model and data groups
+(``models.parallel``).  The port's serving steps take no model axis, so
+a prefill or decode cell on a mesh with M > 1 is recorded as skipped,
+with its per-rank parameter elements.  ``--mesh Dx1`` (``16x1``, and
+``32x1`` for the two-pod row) is the data-parallel layout: each rank
+holds the whole model (an ``fsdp`` config's train cell its FSDP shards)
+and its share of the batch and caches, and a decode batch that does not
+split over the ranks (long_500k's one sequence) splits its
+full-attention caches' positions over them (``decode_step(kv_shard=)``),
+the gradient all-reduce and the sharded decode's two all-reduces on a
+fake group of D ranks.  A decode cell is counted at its last position
+(Whisper: its decoder's).  Every record carries ``params_per_rank``,
+the parameter elements one rank holds.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun            # all cells
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch hymba-1.5b \\
-        --shape decode_32k [--mesh 16x1] [--out f.jsonl]
+        --shape decode_32k [--mesh 16x16] [--out f.jsonl]
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch hymba-1.5b \\
         --shape decode_32k --measure [--seed 0]     # on the card
 
 ``--measure`` runs the cell for real on the card (and raises without
-one): one rank's step at its per-rank shapes, in the dtypes the count
+one; it takes a ``Dx1`` mesh, one rank of which one card can run): one rank's step at its per-rank shapes, in the dtypes the count
 assumed, random weights from ``--seed``; one warm-up step, then the
 median of three timed by CUDA events (a warm-up of 30 s or more is the
 measurement itself, once), the peak memory beside the
@@ -51,6 +61,8 @@ from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import op_analysis
 from repro_torch.launch import roofline as rl
 from repro_torch.launch import specs
+from repro_torch.models import common, parallel
+from repro_torch.train import optimizer as opt_lib
 from repro_torch.train import step as step_lib
 
 META = torch.device("meta")
@@ -64,16 +76,21 @@ FREE_SHARE = 0.8              # a measured cell's predicted peak, of free
 
 
 def parse_mesh(text: str) -> mesh_lib.MeshSpec:
-    """"DxM" -> the data axis of D ranks.  M must be 1: the port shards
-    no parameter, so it has no "model" axis to fill."""
+    """"DxM" -> a ("data", "model") mesh, "PxDxM" -> ("pod", "data",
+    "model"); every size at least 1.  "Dx1" is the data axis alone."""
     try:
-        d, m = (int(v) for v in text.lower().split("x"))
+        sizes = tuple(int(v) for v in text.lower().split("x"))
     except ValueError:
-        raise ValueError(f"--mesh takes DxM, got {text!r}") from None
-    if m != 1 or d < 1:
-        raise ValueError(f"mesh {text}: the port runs D x 1 (data-parallel "
-                         "ranks, every parameter whole on each)")
-    return mesh_lib.MeshSpec((d,), ("data",))
+        sizes = ()
+    if len(sizes) not in (2, 3) or min(sizes) < 1:
+        raise ValueError(f"--mesh takes DxM or PxDxM, got {text!r}")
+    if sizes[-1] == 1 and len(sizes) == 2:
+        return mesh_lib.MeshSpec(sizes[:1], ("data",))
+    return mesh_lib.MeshSpec(sizes, ("pod", "data", "model")[-len(sizes):])
+
+
+def _model_size(spec: mesh_lib.MeshSpec) -> int:
+    return mesh_lib.axis_sizes(spec).get("model", 1)
 
 
 @dataclasses.dataclass
@@ -86,6 +103,8 @@ class RankCell:
     ranks: int
     shards: dict
     dtype: torch.dtype
+    params_per_rank: int
+    plan: object = None
 
 
 def rank_cell(arch: str, shape: str, mesh: str = "16x1", *,
@@ -101,6 +120,12 @@ def rank_cell(arch: str, shape: str, mesh: str = "16x1", *,
     act = DTYPES[cfg.param_dtype]
     cell = specs.build_cell(cfg, shape, spec, act_dtype=act)
     sh = cell.shards
+    state = specs.state_shard_shapes(cfg, spec)
+    held = specs.held_elements(state["params"])
+    m = _model_size(spec)
+    if m > 1 and cell.kind != "train":
+        raise _Skip(f"{cell.kind} over a model axis: the port's serving "
+                    "steps shard no parameter", held)
     # an ssm or enc_dec model has no full-attention cache to split: a
     # batch that does not split over the ranks runs whole on each
     kv_split = bool(cell.kv_shard_axes) and not (cfg.enc_dec
@@ -110,9 +135,26 @@ def rank_cell(arch: str, shape: str, mesh: str = "16x1", *,
                          "over the ranks; one rank cannot step alone")
     group = op_analysis.fake_group(d) if d > 1 and not alone else None
     meta = lambda shp, like: torch.empty(shp, dtype=like.dtype, device=META)
+    plan = None
     if cell.kind == "train":
         params, opt, batch = cell.args
-        fn = step_lib.make_train_step(cfg, group=group, device=META)
+        p_specs = specs.param_pspecs(cfg, spec)
+        if not alone and any(e is not None
+                             for _, sp in common.leaves(p_specs) for e in sp):
+            # this rank's shards, on fake groups of the model axis and of
+            # the data axes together
+            nd = d // m
+            plan = parallel.Plan(
+                cfg, p_specs,
+                model=op_analysis.fake_group(m, "model") if m > 1 else None,
+                data=op_analysis.fake_group(nd, "data") if nd > 1 else None)
+            whole = dict(common.leaves(params))
+            params = common.with_leaves(params, {
+                p: meta(s, whole[p])
+                for p, s in common.leaves(state["params"])})
+            opt = opt_lib.opt_init(cfg.optimizer, params)
+        fn = step_lib.make_train_step(cfg, group=group, plan=plan,
+                                      device=META)
         args = (params, opt, {k: meta(sh["batch"][k], v)
                               for k, v in batch.items()})
     else:
@@ -131,7 +173,16 @@ def rank_cell(arch: str, shape: str, mesh: str = "16x1", *,
             last = (cfg.decoder_len if cfg.enc_dec
                     else SHAPES[shape].seq_len) - 1
             args = (params, meta(sh["tokens"], tokens), last, caches)
-    return RankCell(cfg, cell.kind, fn, args, d, sh, act)
+    return RankCell(cfg, cell.kind, fn, args, d, sh, act, held, plan)
+
+
+class _Skip(Exception):
+    """A cell this mesh does not count, with its per-rank parameter
+    elements."""
+
+    def __init__(self, why: str, params_per_rank: int):
+        super().__init__(why)
+        self.params_per_rank = params_per_rank
 
 
 def run_cell(arch: str, shape: str, mesh: str = "16x1", *,
@@ -139,7 +190,15 @@ def run_cell(arch: str, shape: str, mesh: str = "16x1", *,
     """Count one rank's step of a cell (``alone``: as it steps by
     itself); return its dry-run record."""
     t0 = time.perf_counter()
-    rc = rank_cell(arch, shape, mesh, alone=alone)
+    try:
+        rc = rank_cell(arch, shape, mesh, alone=alone)
+    except _Skip as e:
+        if verbose:
+            print(f"[skip] {arch:22s} {shape:12s} mesh={mesh}: {e}",
+                  flush=True)
+        return {"arch": arch, "shape": shape, "mesh": mesh,
+                "chips": parse_mesh(mesh).size, "status": f"skipped: {e}",
+                "params_per_rank": e.params_per_rank}
     totals = op_analysis.count(rc.fn, *rc.args)
     count_s = time.perf_counter() - t0
     roof = rl.analyze(totals, n_ranks=rc.ranks,
@@ -147,6 +206,8 @@ def run_cell(arch: str, shape: str, mesh: str = "16x1", *,
     rec = {
         "arch": arch, "shape": shape, "kind": rc.kind, "mesh": mesh,
         "chips": rc.ranks, "status": "ok",
+        "params_per_rank": rc.params_per_rank,
+        **(rc.plan.counts() if rc.plan is not None else {}),
         "dtype": str(rc.dtype).removeprefix("torch."),
         "count_s": count_s, "shards": rc.shards,
         "bytes_per_device": {"argument": totals.arg_bytes,
@@ -223,6 +284,10 @@ def measure_cell(arch: str, shape: str, mesh: str = "16x1", *,
     free memory is returned as skipped, with that figure."""
     from repro_torch.device import resolve_device
     from repro_torch.kernels import ops
+    if _model_size(parse_mesh(mesh)) > 1:
+        raise ValueError(f"--measure runs one rank of a Dx1 mesh, got "
+                         f"{mesh}: a rank of a mesh with a model axis needs "
+                         "its M - 1 partners")
     dev = resolve_device(CARD)                   # raises without a card
     rec = run_cell(arch, shape, mesh, alone=True, verbose=False)
     rc = rank_cell(arch, shape, mesh, alone=True)
@@ -304,8 +369,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default=None, help="one arch (default: all)")
     ap.add_argument("--shape", default=None, help="one shape (default: all)")
-    ap.add_argument("--mesh", default="16x1",
-                    help="DxM, M = 1: D data-parallel ranks (default 16x1)")
+    ap.add_argument("--mesh", default="16x16",
+                    help="DxM or PxDxM (default 16x16, the reference's "
+                         "production mesh); Dx1: D data-parallel ranks")
     ap.add_argument("--out", default=None, help="append JSONL records here")
     ap.add_argument("--measure", action="store_true",
                     help="also run each cell on the card (one rank's step)")
@@ -326,14 +392,16 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     for cell in cells:
         rec = _cell_record(cell, args.measure, args.seed)
-        if rec["status"] != "ok":
+        if rec["status"].startswith("FAIL"):
             failures.append(rec)
         records.append(rec)
         if args.out:
             with open(args.out, "a") as f:
                 f.write(json.dumps(rec) + "\n")
-    print(f"\n{len(records) - len(failures)}/{len(records)} cells passed "
-          f"in {time.perf_counter() - t0:.1f}s")
+    counted = sum(r["status"] == "ok" for r in records)
+    print(f"\n{counted}/{len(records)} cells counted, "
+          f"{len(records) - counted - len(failures)} skipped, "
+          f"{len(failures)} failed in {time.perf_counter() - t0:.1f}s")
     return 1 if failures else 0
 
 

@@ -528,14 +528,16 @@ def count(fn, *args, loop_aware: bool = True, **kwargs) -> CostTotals:
 # ---------------------------------------------------------------------------
 
 _WORLD = 512                     # the reference's dry run: 512 placeholders
-_GROUPS: dict[int, object] = {}
+_GROUPS: dict[tuple, object] = {}
 
 
-def fake_group(size: int):
+def fake_group(size: int, axis: str = "data"):
     """A group of ``size`` ranks on torch's fake backend, which accepts
-    every collective and moves nothing; this process is rank 0.  It
-    initializes the default group (a world of 512) on first use, so call
-    it in a process that runs no real group (``launch.dryrun`` does)."""
+    every collective and moves nothing; this process is rank 0.  Groups
+    are kept by mesh axis and size, so a mesh's "data" and "model" axes
+    of one size get a group each.  It initializes the default group (a
+    world of 512) on first use, so call it in a process that runs no
+    real group (``launch.dryrun`` does)."""
     if size > _WORLD:
         raise ValueError(f"a fake group holds at most {_WORLD} ranks")
     if not dist.is_initialized():
@@ -543,9 +545,9 @@ def fake_group(size: int):
         from torch.testing._internal.distributed.fake_pg import FakeStore
         dist.init_process_group("fake", store=FakeStore(), rank=0,
                                 world_size=_WORLD)
-    if size not in _GROUPS:
-        _GROUPS[size] = dist.new_group(list(range(size)))
-    return _GROUPS[size]
+    if (axis, size) not in _GROUPS:
+        _GROUPS[axis, size] = dist.new_group(list(range(size)))
+    return _GROUPS[axis, size]
 
 
 def close_fake_groups() -> None:

@@ -9,18 +9,19 @@ or ``make_serve_step``) and its meta arguments.
 
 The reference's sharding rules (its DESIGN.md §7) place the batch over
 the data axes, parameters by their logical axes (tensor parallel over
-"model", FSDP over the data axes for the largest archs), and a decode
-cell's full-attention caches over "model" by heads, or, where the batch
-cannot be split (long_500k) or the KV heads do not divide "model", by
-their positions (``kv_shard_axes``).  A rank of the port holds its shard
-of what it steps on and nothing else, so in place of ``PartitionSpec``s
-``shard_shapes`` gives the per-rank shapes of a cell's batch and caches
-on a ``mesh.MeshSpec``, by those rules.  ``common.resolve_pspec(s)``,
-``axes_tree``, ``specs.param_pspecs`` and
-``optimizer.opt_state_specs`` have no counterpart beyond the whole
-shapes: the port shards no parameter or optimizer state (its data
-parallelism keeps a whole copy on every rank, ``launch.train --mesh``),
-as ``core.distributed`` has no counterpart of ``index_pspecs``.
+"model", FSDP over the data axes for the largest archs), the optimizer
+state as its parameters, and a decode cell's full-attention caches over
+"model" by heads, or, where the batch cannot be split (long_500k) or
+the KV heads do not divide "model", by their positions
+(``kv_shard_axes``).  ``param_pspecs`` and ``opt_specs`` give the
+parameters' and the optimizer state's specs by the reference's resolver
+(``common.resolve_pspecs``, ``optimizer.opt_state_specs``): a spec is a
+tuple with one entry a dim, as a ``PartitionSpec`` holds them.  A rank
+of the port holds its shard of what it steps on and nothing else
+(``launch.train --mesh DxM``), so ``shard_shapes`` gives the per-rank
+shapes of a cell's batch, caches, parameters and optimizer state on a
+``mesh.MeshSpec``, by those rules.  ``core.distributed`` has no
+counterpart of ``index_pspecs``.
 """
 from __future__ import annotations
 
@@ -74,9 +75,30 @@ def param_shapes(cfg: ModelConfig) -> dict:
     return common.tree_map(leaf, transformer.param_specs(cfg))
 
 
-def opt_specs(cfg: ModelConfig):
+def opt_shapes(cfg: ModelConfig):
     """The optimizer state of ``cfg.optimizer`` on the meta device."""
     return opt_lib.opt_init(cfg.optimizer, param_shapes(cfg))
+
+
+def param_pspecs(cfg: ModelConfig, mesh, data_axes: tuple | None = None
+                 ) -> dict:
+    """The spec tree of the parameters on ``mesh`` (a ``MeshSpec`` or a
+    ``DeviceMesh``): tensor parallel over "model", then, for an
+    ``fsdp`` config, over ``data_axes`` (all but "model" by default)."""
+    if data_axes is None:
+        data_axes = mesh_lib.data_axes_of(mesh)
+    specs = transformer.param_specs(cfg)
+    return common.resolve_pspecs(common.axes_tree(specs), param_shapes(cfg),
+                                 mesh_lib.axis_sizes(mesh), fsdp=cfg.fsdp,
+                                 data_axes=tuple(data_axes))
+
+
+def opt_specs(cfg: ModelConfig, mesh, data_axes: tuple | None = None):
+    """(the optimizer state on the meta device, its spec tree)."""
+    return (opt_shapes(cfg),
+            opt_lib.opt_state_specs(cfg.optimizer,
+                                    param_pspecs(cfg, mesh, data_axes),
+                                    param_shapes(cfg)))
 
 
 def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
@@ -132,11 +154,36 @@ def _split(shape: tuple, spec: tuple, sizes: dict) -> tuple:
     return tuple(out)
 
 
+def state_shard_shapes(cfg: ModelConfig, mesh) -> dict:
+    """Each rank's shapes of the parameters ("params") and of the
+    optimizer state ("opt", the state's NamedTuple of shape trees; its
+    step ()) on ``mesh``, by ``param_pspecs`` and ``opt_specs``."""
+    sizes = mesh_lib.axis_sizes(mesh)
+    p_specs = param_pspecs(cfg, mesh)
+    o_shapes, o_specs = opt_specs(cfg, mesh)
+
+    def cut(shapes, specs):
+        sp = dict(common.leaves(specs))
+        return common.with_leaves(shapes, {
+            path: common.shard_shape(tuple(t.shape), sp[path], sizes)
+            for path, t in common.leaves(shapes)})
+    opt = type(o_shapes)((), *(cut(getattr(o_shapes, f), getattr(o_specs, f))
+                               for f in o_shapes._fields[1:]))
+    return {"params": cut(param_shapes(cfg), p_specs), "opt": opt}
+
+
+def held_elements(shapes: dict) -> int:
+    """Elements a tree of shapes holds."""
+    return sum(math.prod(s) for _, s in common.leaves(shapes))
+
+
 def shard_shapes(cfg: ModelConfig, shape_name: str, mesh) -> dict:
     """Each rank's shapes of a cell's batch ("batch", train and prefill
     cells) and caches ("cache", prefill and decode cells; decode also
-    "tokens") on ``mesh`` (a ``MeshSpec`` or a ``DeviceMesh``), by the
-    reference's rules: the batch over the data axes where it divides;
+    "tokens") on ``mesh`` (a ``MeshSpec`` or a ``DeviceMesh``), and, on
+    a mesh with a "model" axis, of the parameters ("params") and, in a
+    train cell, the optimizer state ("opt"; ``state_shard_shapes``), by
+    the reference's rules: the batch over the data axes where it divides;
     a K/V cache's heads over "model" where they divide, its positions
     over ``kv_shard_axes`` in a decode cell's full-attention segments
     (then its batch is over the data axes only where the positions are
@@ -149,6 +196,11 @@ def shard_shapes(cfg: ModelConfig, shape_name: str, mesh) -> dict:
     bp = data if cell.global_batch % nd == 0 else None
     mdl = ("model",) if "model" in sizes else None
     out: dict = {}
+    if mdl:
+        state = state_shard_shapes(cfg, mesh)
+        out["params"] = state["params"]
+        if cell.kind == "train":
+            out["opt"] = state["opt"]
     if cell.kind in ("train", "prefill"):
         out["batch"] = {k: _split(tuple(t.shape), (bp,) + (None,) *
                                   (t.ndim - 1), sizes)
@@ -224,7 +276,7 @@ def build_cell(cfg: ModelConfig, shape_name: str, mesh=None, *,
     params = param_shapes(cfg)
     if cell.kind == "train":
         fn = step_lib.make_train_step(cfg, device=META)
-        args = (params, opt_specs(cfg),
+        args = (params, opt_shapes(cfg),
                 batch_specs(cfg, cell, act_dtype=act_dtype))
     elif cell.kind == "prefill":
         fn = step_lib.make_prefill_step(cfg, device=META)

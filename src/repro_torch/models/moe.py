@@ -9,7 +9,9 @@ operations.  Two execution paths share the same math:
     of a ``torch.distributed`` group.  Every rank holds every token (the
     reference's activation layout, replicated over the model axis), routes
     them all, fills only its own experts' buffers, runs its experts, and
-    the combine is one ``all_reduce(SUM)`` of the (T, d) output.
+    the combine is one ``all_reduce(SUM)`` of the (T, d) output.  It
+    trains: the tokens and the combine weights enter the experts through
+    ``parallel.copy_to`` and the combine is ``parallel.reduce_from``.
 
 Dispatch is a stable sort by expert and a scatter into fixed-capacity
 per-expert buffers, never a one-hot einsum.  Capacity C = ceil(T·k·cf /
@@ -29,7 +31,7 @@ from typing import Callable, NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import common
+from repro_torch.models import common, parallel
 
 
 class MoEAux(NamedTuple):
@@ -124,7 +126,6 @@ def moe_ffn_local(x: torch.Tensor, params: dict, *, top_k: int,
     return y, aux._replace(dropped_frac=dropped)
 
 
-@torch.no_grad()
 def moe_ffn_ep(x: torch.Tensor, params: dict, *, top_k: int,
                capacity_factor: float, act: Callable, group=None,
                data_group=None) -> tuple[torch.Tensor, MoEAux]:
@@ -135,9 +136,16 @@ def moe_ffn_ep(x: torch.Tensor, params: dict, *, top_k: int,
 
     Each rank routes every token (redundant arithmetic, no exchange),
     fills only its own experts' buffers, runs its experts, adds their
-    weighted rows to its tokens, and one ``all_reduce(SUM)`` over
-    ``group`` combines the ranks.  The aux terms are averaged over
-    ``data_group`` when one is given.  Forward only."""
+    weighted rows to its tokens, and one all-reduce SUM over ``group``
+    combines the ranks.  The aux terms are averaged over ``data_group``
+    when one is given.
+
+    The gradient: routing reads the replicated tokens outside the
+    parallel region, so the aux terms' share of the router's gradient is
+    whole on every rank; the tokens and the combine weights enter the
+    experts through ``copy_to``, whose backward sums the ranks' parts
+    (each rank's experts see only their own assignments), and the
+    combine is ``reduce_from``."""
     import torch.distributed as dist
 
     world = dist.get_world_size(group)
@@ -156,16 +164,17 @@ def moe_ffn_ep(x: torch.Tensor, params: dict, *, top_k: int,
     lo, n_mine = rank * el * cap, el * cap
     mine = kept & (slot >= lo) & (slot < lo + n_mine)
     lslot = torch.where(mine, slot - lo, torch.full_like(slot, n_mine))
-    buf = xt.new_zeros((n_mine + 1, d)).index_put((lslot,), xt[tok])
+    xc, wc = parallel.copy_to(xt, group), parallel.copy_to(w, group)
+    buf = xc.new_zeros((n_mine + 1, d)).index_put((lslot,), xc[tok])
     out_e = _expert_ffn(buf[:-1].reshape(el, cap, d), params["wg"],
                         params["wu"], params["wd"], act)
-    y = _combine(out_e.reshape(n_mine, d), lslot, tok, mine, w, t)
-    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)     # combine
+    y = _combine(out_e.reshape(n_mine, d), lslot, tok, mine, wc, t)
+    y = parallel.reduce_from(y, group)                          # combine
     terms = torch.stack([aux.load_balance, aux.router_z,
                          1.0 - torch.mean(kept.to(torch.float32))])
     if data_group is not None:
-        dist.all_reduce(terms, op=dist.ReduceOp.SUM, group=data_group)
-        terms = terms / dist.get_world_size(data_group)
+        terms = parallel.reduce_from(terms, data_group) \
+            / dist.get_world_size(data_group)
     return y.reshape(b, s, d), MoEAux(terms[0], terms[1], terms[2])
 
 
@@ -173,10 +182,13 @@ def moe_ffn(x: torch.Tensor, params: dict, *, top_k: int,
             capacity_factor: float, act: Callable, group=None,
             data_group=None) -> tuple[torch.Tensor, MoEAux]:
     """Dispatcher: (B, S, d) -> ((B, S, d), aux).  Expert-parallel over
-    ``group`` when it has more than one rank, else all experts local."""
+    ``group`` when it has more than one rank and they divide the router's
+    experts (``params`` then holds this rank's), else all experts
+    local."""
     if group is not None:
         import torch.distributed as dist
-        if dist.get_world_size(group) > 1:
+        m = dist.get_world_size(group)
+        if m > 1 and params["router"].shape[-1] % m == 0:
             return moe_ffn_ep(x, params, top_k=top_k,
                               capacity_factor=capacity_factor, act=act,
                               group=group, data_group=data_group)

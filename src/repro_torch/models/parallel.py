@@ -1,0 +1,269 @@
+"""The model axis: the collectives of tensor-, expert- and fully sharded
+data parallelism as autograd Functions, and one rank's plan of which
+parameter runs which way.
+
+The reference places its parameters by ``PartitionSpec``s and lets GSPMD
+insert the collectives.  Here each collective is explicit, on
+``torch.distributed`` groups for the mesh's "data" and "model" axes:
+
+  * ``copy_to(x, group)``: forward the identity, backward an all-reduce
+    SUM.  It enters a region whose ranks each compute a part of a
+    replicated input's consumers (the heads of a layer, its FFN columns,
+    its experts), so each holds a part of that input's gradient.
+  * ``reduce_from(x, group)``: forward an all-reduce SUM of the ranks'
+    partial outputs, backward the identity.  It leaves such a region.
+  * ``gather_leaf(shard, dim, group, kind)``: forward an all-gather of a
+    parameter's blocks along ``dim``.  Over "model" every rank then
+    computes the same whole gradient, and the backward keeps this rank's
+    slice of it.  Over the data axes (FSDP) each rank's gradient comes
+    from its own rows, and the backward is a reduce-scatter SUM: such a
+    gradient is already summed over the data ranks.
+
+Messages travel on the device that the group's backend takes
+(``core.frontier.comm_device``): the card for NCCL, the host for gloo.
+The reduce-scatter is an all-reduce and this rank's slice on every
+backend (gloo has no reduce-scatter), so gloo and NCCL compute the same
+numbers.
+
+``Plan`` decides once, from the reference's specs (``launch.specs.
+param_pspecs``), which blocks run tensor-parallel: attention whose
+``wq``/``wk``/``wv`` columns and ``wo`` rows lie over "model" by whole
+heads (column-parallel projections, a row-parallel ``wo``, one
+``reduce_from``); an FFN whose ``ff`` dim lies over "model"; a MoE
+whose experts split over "model" (``moe.moe_ffn_ep``).  Every other
+sharded leaf is gathered where it is used (``Plan.take``), inside the
+per-layer checkpoint, so the backward gathers it again and no whole
+stack is held.
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.core.frontier import comm_device
+from repro_torch.models import common
+
+MODEL = "model"
+# the blocks that can run tensor-parallel, by their path in the tree
+ATTN_BLOCKS = (("layers", "attn"), ("dec", "attn"), ("dec", "xattn"))
+FFN_BLOCKS = (("layers", "ffn"), ("dec", "ffn"))
+MOE_BLOCK = ("layers", "moe")
+STACKS = ("layers", "dec")       # stacked (L, ...) subtrees
+
+
+def size(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+# ---------------------------------------------------------------------------
+# Plain collectives (no autograd), on the backend's device
+# ---------------------------------------------------------------------------
+
+
+def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM
+               ) -> torch.Tensor:
+    """``t`` reduced over ``group`` (a new tensor; ``t`` itself for one
+    rank), on ``t``'s device."""
+    if size(group) == 1:
+        return t
+    buf = t.to(comm_device(group), copy=True,
+               memory_format=torch.contiguous_format)
+    dist.all_reduce(buf, op=op, group=group)
+    return buf.to(t.device)
+
+
+def all_gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The blocks of every rank of ``group``, joined along ``dim`` in
+    rank order, on ``t``'s device."""
+    if size(group) == 1:
+        return t
+    buf = t.to(comm_device(group), copy=True,
+               memory_format=torch.contiguous_format)
+    parts = [torch.empty_like(buf) for _ in range(size(group))]
+    dist.all_gather(parts, buf, group=group)
+    return torch.cat(parts, dim=dim).to(t.device)
+
+
+def _slice(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block of ``t`` along ``dim``."""
+    n = t.shape[dim] // size(group)
+    return t.narrow(dim, dist.get_rank(group) * n, n).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# The collectives as autograd Functions
+# ---------------------------------------------------------------------------
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, group, kind):
+        ctx.dim, ctx.group, ctx.kind = dim, group, kind
+        return all_gather(t, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.kind != MODEL:                  # FSDP: a reduce-scatter SUM
+            g = all_reduce(g, ctx.group)
+        return _slice(g, ctx.dim, ctx.group), None, None, None
+
+
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    """The identity; the backward sums the gradient over ``group``."""
+    return x if size(group) == 1 else _CopyTo.apply(x, group)
+
+
+def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group``; the backward is the identity."""
+    return x if size(group) == 1 else _ReduceFrom.apply(x, group)
+
+
+def gather_leaf(shard: torch.Tensor, dim: int, group, kind: str
+                ) -> torch.Tensor:
+    """A parameter's blocks gathered along ``dim`` over ``group``;
+    ``kind`` "model" (the backward keeps this rank's slice) or "data"
+    (the backward is a reduce-scatter SUM)."""
+    if size(group) == 1:
+        return shard
+    return _Gather.apply(shard, dim, group, kind)
+
+
+# ---------------------------------------------------------------------------
+# One rank's plan
+# ---------------------------------------------------------------------------
+
+
+def _is(spec: tuple, dim: int, axis: str = MODEL) -> bool:
+    return len(spec) >= abs(dim) and spec[dim] == axis
+
+
+def _tensor_parallel(cfg, flat: dict, m: int) -> dict:
+    """{block path: the leaves it keeps local} for each block that runs
+    tensor- or expert-parallel over a model axis of ``m`` ranks."""
+    out: dict = {}
+    if m <= 1:
+        return out
+    for blk in ATTN_BLOCKS:
+        names = ("wq", "wk", "wv", "wo")
+        if blk + ("wq",) not in flat:
+            continue
+        cols = all(_is(flat[blk + (n,)], -1) for n in names[:3])
+        if cols and _is(flat[blk + ("wo",)], -2) \
+                and cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0:
+            out[blk] = names
+    for blk in FFN_BLOCKS:
+        names = tuple(n for n in ("wg", "wu", "wd") if blk + (n,) in flat)
+        if not names:
+            continue
+        if all(_is(flat[blk + (n,)], -2 if n == "wd" else -1)
+               for n in names):
+            out[blk] = names
+    if MOE_BLOCK + ("wg",) in flat and cfg.n_experts % m == 0 and all(
+            _is(flat[MOE_BLOCK + (n,)], 1) for n in ("wg", "wu", "wd")):
+        out[MOE_BLOCK] = ("wg", "wu", "wd")
+    return out
+
+
+class Plan:
+    """How one rank of a (data, model) mesh holds and uses the parameters.
+
+    ``specs``: the spec tree of the parameters (``launch.specs.
+    param_pspecs``); ``model`` and ``data``: this rank's groups of the
+    model axis and of the data axes together (None: one rank).  A spec
+    entry "model" is cut over ``model``, any other (a data axis or a
+    tuple of them) over ``data``."""
+
+    def __init__(self, cfg, specs: dict, *, model=None, data=None):
+        self.specs = specs
+        self.flat = dict(common.leaves(specs))
+        self.model, self.data = model, data
+        blocks = _tensor_parallel(cfg, self.flat, size(model))
+        self.tp_blocks = frozenset(blocks)
+        self.keep = frozenset(blk + (n,) for blk, names in blocks.items()
+                              for n in names)
+
+    def group(self, entry):
+        return self.model if entry == MODEL else self.data
+
+    def tp(self, block: tuple):
+        """The model group if ``block`` runs tensor-parallel, else None."""
+        return self.model if block in self.tp_blocks else None
+
+    def axes_of(self, path: tuple) -> set:
+        """"model" and / or "data": what cuts the leaf at ``path``."""
+        return {MODEL if e == MODEL else "data"
+                for e in self.flat[path] if e is not None}
+
+    def dim_groups(self, path: tuple) -> tuple:
+        """The group that cuts each dim of the leaf at ``path`` (None:
+        whole)."""
+        return tuple(None if e is None else self.group(e)
+                     for e in self.flat[path])
+
+    def counts(self) -> dict:
+        """Leaves used tensor- or expert-parallel over "model", and
+        leaves gathered where they are used (over "model", the data
+        axes, or both)."""
+        gathered = sum(1 for p in self.flat
+                       if p not in self.keep and self.axes_of(p))
+        return {"tp_leaves": len(self.keep), "gathered_leaves": gathered}
+
+    def take(self, tree: dict, prefix: tuple = (), *,
+             stacked: bool = False) -> dict:
+        """``tree`` (the subtree at ``prefix``; ``stacked``: one layer's
+        slice of a stack, its leading dim gone) with every leaf whole,
+        save the model-axis blocks of the tensor-parallel leaves."""
+        out = {}
+        for key, val in tree.items():
+            path = prefix + (key,)
+            if isinstance(val, dict):
+                out[key] = self.take(val, path, stacked=stacked)
+                continue
+            spec = self.flat[path][1:] if stacked else self.flat[path]
+            t = val
+            for dim, entry in enumerate(spec):
+                if entry is not None and entry != MODEL:
+                    t = gather_leaf(t, dim, self.data, "data")
+            if path not in self.keep:
+                for dim, entry in enumerate(spec):
+                    if entry == MODEL:
+                        t = gather_leaf(t, dim, self.model, MODEL)
+            out[key] = t
+        return out
+
+    def take_top(self, params: dict) -> dict:
+        """``params`` with its unstacked leaves (embedding, head, norms,
+        prefixes) gathered whole and its stacks left as they are."""
+        top = self.take({k: v for k, v in params.items()
+                         if k not in STACKS})
+        return {**top, **{k: params[k] for k in STACKS if k in params}}
+
+    def whole(self, t: torch.Tensor, spec: tuple) -> torch.Tensor:
+        """A leaf of spec ``spec`` whole on every rank (no autograd; the
+        checkpoint's gather), on the device the groups' backend takes."""
+        for dim, entry in enumerate(spec):
+            if entry is not None:
+                t = all_gather(t.to(comm_device(self.group(entry))), dim,
+                               self.group(entry))
+        return t

@@ -49,7 +49,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, common, mamba, moe, rwkv
+from repro_torch.models import attention, common, mamba, moe, parallel, rwkv
 from repro_torch.models.common import ParamSpec as PS
 
 @dataclasses.dataclass(frozen=True)
@@ -155,13 +155,14 @@ def param_specs(cfg: ModelConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _qkv(x, p, cfg: ModelConfig, positions):
+def _qkv(x, p, cfg: ModelConfig, positions, m: int = 1):
     """Projected q, k, v; RoPE at ``positions`` unless it is None (an
-    enc_dec model has no RoPE)."""
+    enc_dec model has no RoPE).  ``m``: the projections hold 1/m of the
+    heads (tensor-parallel)."""
     b, s, _ = x.shape
-    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = (x @ p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = (x @ p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads // m, cfg.head_dim)
+    k = (x @ p["wk"]).reshape(b, s, cfg.n_kv_heads // m, cfg.head_dim)
+    v = (x @ p["wv"]).reshape(b, s, cfg.n_kv_heads // m, cfg.head_dim)
     if cfg.qk_norm:
         q = common.rmsnorm(q, p["q_gamma"])
         k = common.rmsnorm(k, p["k_gamma"])
@@ -171,19 +172,36 @@ def _qkv(x, p, cfg: ModelConfig, positions):
     return q, k, v
 
 
-def attn_train(x, p, cfg: ModelConfig, kind: str, *, causal: bool = True):
+def _tp_enter(x, p, tp):
+    """A tensor-parallel attention's inputs: ``x`` and the replicated
+    q/k norms through ``copy_to`` (each rank's heads give a part of
+    their gradients).  -> (x, p, m)."""
+    m = parallel.size(tp)
+    if m == 1:
+        return x, p, 1
+    norms = {g: parallel.copy_to(p[g], tp) for g in ("q_gamma", "k_gamma")
+             if g in p}
+    return parallel.copy_to(x, tp), {**p, **norms}, m
+
+
+def attn_train(x, p, cfg: ModelConfig, kind: str, *, causal: bool = True,
+               tp=None):
     """Full-sequence attention (forward, loss and prefill compute);
-    ``causal=False`` for Whisper's encoder.
+    ``causal=False`` for Whisper's encoder.  ``tp``: a model group over
+    which ``wq``/``wk``/``wv`` hold this rank's heads' columns and ``wo``
+    their rows; the ranks' outputs are summed by one ``reduce_from``.
 
     Returns (out, (k, v)) so prefill can write the cache."""
     b, s, _ = x.shape
+    x, p, m = _tp_enter(x, p, tp)
     positions = None if cfg.enc_dec \
         else torch.arange(s, device=x.device)[None, :]
-    q, k, v = _qkv(x, p, cfg, positions)
+    q, k, v = _qkv(x, p, cfg, positions, m)
     window = cfg.window if kind == "swa" else 0
     out = attention.attend(q, k, v, causal=causal, window=window,
                            chunk=attention.div_chunk(s, cfg.scan_chunk))
-    return out.reshape(b, s, cfg.q_dim) @ p["wo"], (k, v)
+    out = out.reshape(b, s, cfg.q_dim // m) @ p["wo"]
+    return parallel.reduce_from(out, tp), (k, v)
 
 
 def attn_decode(x, p, cfg: ModelConfig, kind: str, cache, pos,
@@ -214,18 +232,23 @@ def _add_aux(a: moe.MoEAux, b: moe.MoEAux) -> moe.MoEAux:
     return moe.MoEAux(*(x + y for x, y in zip(a, b)))
 
 
-def ffn_block(x, p, cfg: ModelConfig):
+def ffn_block(x, p, cfg: ModelConfig, tp=None):
     """The dense FFN, or the routed experts of a MoE model.
-    -> (out, MoEAux); a dense FFN's aux is zeros."""
+    -> (out, MoEAux); a dense FFN's aux is zeros.  ``tp``: a model group
+    over which ``wg``/``wu`` hold this rank's ``ff`` columns and ``wd``
+    its rows (one ``reduce_from``), or a MoE's experts split
+    (``moe.moe_ffn_ep``)."""
     act = common.activation(cfg.mlp_act)
     if cfg.n_experts:
         return moe.moe_ffn(x, p, top_k=cfg.top_k,
-                           capacity_factor=cfg.capacity_factor, act=act)
+                           capacity_factor=cfg.capacity_factor, act=act,
+                           group=tp)
+    x = parallel.copy_to(x, tp)
     if cfg.mlp_gated:
         h = act(x @ p["wg"]) * (x @ p["wu"])
     else:
         h = act(x @ p["wu"])
-    return h @ p["wd"], _zero_aux(x.device)
+    return parallel.reduce_from(h @ p["wd"], tp), _zero_aux(x.device)
 
 
 def _mix(attn_out, m_out, p):
@@ -233,16 +256,17 @@ def _mix(attn_out, m_out, p):
                   + common.rmsnorm(m_out, p["mamba_gamma"]))
 
 
-def _ffn_residual(x, h, attn_out, p, cfg: ModelConfig):
+def _ffn_residual(x, h, attn_out, p, cfg: ModelConfig, tp=None):
     """The FFN and the residual adds -> (x, MoEAux).  A parallel block's
     FFN reads the same normed ``h`` as attention and ``ln2`` is not
-    applied, as in the reference."""
+    applied, as in the reference.  ``tp``: the FFN's model group if it
+    runs tensor- or expert-parallel."""
     pf = p["moe"] if cfg.n_experts else p["ffn"]
     if cfg.parallel_block:
-        f_out, aux = ffn_block(h, pf, cfg)
+        f_out, aux = ffn_block(h, pf, cfg, tp)
         return x + attn_out + f_out, aux
     x = x + attn_out
-    f_out, aux = ffn_block(common.rmsnorm(x, p["ln2"]), pf, cfg)
+    f_out, aux = ffn_block(common.rmsnorm(x, p["ln2"]), pf, cfg, tp)
     return x + f_out, aux
 
 
@@ -251,14 +275,22 @@ def _ffn_residual(x, h, attn_out, p, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
-def layer_train(x, p, cfg: ModelConfig, kind: str):
-    """One decoder layer, full sequence. Returns (x, MoEAux, (k, v))."""
+def _tp(plan, block: tuple):
+    return None if plan is None else plan.tp(block)
+
+
+def layer_train(x, p, cfg: ModelConfig, kind: str, plan=None):
+    """One decoder layer, full sequence. Returns (x, MoEAux, (k, v)).
+    ``plan`` (``parallel.Plan``): ``p`` is this rank's slice of the
+    layer, gathered but for the tensor-parallel blocks' leaves."""
     h = common.rmsnorm(x, p["ln1"])
-    attn_out, kv = attn_train(h, p["attn"], cfg, kind)
+    attn_out, kv = attn_train(h, p["attn"], cfg, kind,
+                              tp=_tp(plan, ("layers", "attn")))
     if cfg.family == "hybrid":
         m_out, _ = mamba.mamba_mix(h, p["mamba"], d_inner=cfg.q_dim)
         attn_out = _mix(attn_out, m_out, p)
-    x, aux = _ffn_residual(x, h, attn_out, p, cfg)
+    block = ("layers", "moe" if cfg.n_experts else "ffn")
+    x, aux = _ffn_residual(x, h, attn_out, p, cfg, _tp(plan, block))
     return x, aux, kv
 
 
@@ -333,13 +365,20 @@ def _run(fn, remat: bool, *args):
     return fn(*args)
 
 
-def _train_layer(x, p_l, cfg: ModelConfig, kind: str):
-    x, aux, _ = layer_train(x, p_l, cfg, kind)
+def _take(plan, p_l: dict, stack: str) -> dict:
+    """One layer's parameters as the layer uses them: under a ``plan``,
+    its sharded leaves gathered (inside the layer's checkpoint, so the
+    backward's recompute gathers them again)."""
+    return p_l if plan is None else plan.take(p_l, (stack,), stacked=True)
+
+
+def _train_layer(x, p_l, cfg: ModelConfig, kind: str, plan=None):
+    x, aux, _ = layer_train(x, _take(plan, p_l, "layers"), cfg, kind, plan)
     return (x, *aux)
 
 
 def decoder_stack(params, x, cfg: ModelConfig, mode: str, *,
-                  cache=None, pos=None, kv_shard=None):
+                  cache=None, pos=None, kv_shard=None, plan=None):
     """Run all decoder layers, a host loop over each segment's layers.
     ``mode`` is "train" (no cache), "prefill" or "decode" (the cache is
     written in place).  Returns (x, MoEAux summed over the layers in
@@ -351,9 +390,11 @@ def decoder_stack(params, x, cfg: ModelConfig, mode: str, *,
     all.  "dots" saves nothing more than "full" here: the reference's
     policy of also keeping the matmul outputs has no counterpart.  The
     values are the same either way.  ``kv_shard`` ("decode" only): the
-    group over which the full-attention caches split their positions."""
+    group over which the full-attention caches split their positions.
+    ``plan`` ("train" only): a ``parallel.Plan``, the stacks hold this
+    rank's shards."""
     if cfg.family == "ssm":
-        return _rwkv_stack(params, x, cfg, mode, cache=cache)
+        return _rwkv_stack(params, x, cfg, mode, cache=cache, plan=plan)
     remat = _remat(cfg, mode)
     aux = _zero_aux(x.device)
     layers = _unstack(params["layers"], cfg.n_layers)
@@ -361,7 +402,8 @@ def decoder_stack(params, x, cfg: ModelConfig, mode: str, *,
         for i in common.identical(range(seg.start, seg.end), seg.kind):
             p_l = layers[i]
             if mode == "train":
-                x, *a = _run(_train_layer, remat, x, p_l, cfg, seg.kind)
+                x, *a = _run(_train_layer, remat, x, p_l, cfg, seg.kind,
+                             plan)
                 aux = _add_aux(aux, moe.MoEAux(*a))
                 continue
             c_l = _layer(cache[si], i - seg.start)
@@ -378,11 +420,12 @@ def _rwkv_layer(x, p_l, cfg: ModelConfig, state=None):
                            chunk=min(64, cfg.scan_chunk), state=state)
 
 
-def _rwkv_train_layer(x, p_l, cfg: ModelConfig):
-    return _rwkv_layer(x, p_l, cfg)[0]
+def _rwkv_train_layer(x, p_l, cfg: ModelConfig, plan=None):
+    return _rwkv_layer(x, _take(plan, p_l, "layers"), cfg)[0]
 
 
-def _rwkv_stack(params, x, cfg: ModelConfig, mode: str, *, cache=None):
+def _rwkv_stack(params, x, cfg: ModelConfig, mode: str, *, cache=None,
+                plan=None):
     """The RWKV6 blocks.  "train" starts every layer from the zero state
     (what the reference's zero cache gives); "prefill" and "decode" read
     each layer's state from ``cache`` and write the new one in place.
@@ -391,7 +434,7 @@ def _rwkv_stack(params, x, cfg: ModelConfig, mode: str, *, cache=None):
     layers = _unstack(params["layers"], cfg.n_layers)
     for i, p_l in common.identical(enumerate(layers)):
         if mode == "train":
-            x = _run(_rwkv_train_layer, remat, x, p_l, cfg)
+            x = _run(_rwkv_train_layer, remat, x, p_l, cfg, plan)
             continue
         c = cache[0]
         x, st = _rwkv_layer(x, p_l, cfg, rwkv.RwkvState(
@@ -419,15 +462,19 @@ def _sinusoid(n: int, d: int, device=None) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=1)
 
 
-def _encoder_layer(x, p_l, cfg: ModelConfig):
+def _encoder_layer(x, p_l, cfg: ModelConfig, plan=None):
+    p_l = _take(plan, p_l, "layers")
     h = common.rmsnorm(x, p_l["ln1"])
-    out, _ = attn_train(h, p_l["attn"], cfg, "full", causal=False)
+    out, _ = attn_train(h, p_l["attn"], cfg, "full", causal=False,
+                        tp=_tp(plan, ("layers", "attn")))
     x = x + out
-    f_out, _ = ffn_block(common.rmsnorm(x, p_l["ln2"]), p_l["ffn"], cfg)
+    f_out, _ = ffn_block(common.rmsnorm(x, p_l["ln2"]), p_l["ffn"], cfg,
+                         _tp(plan, ("layers", "ffn")))
     return x + f_out
 
 
-def encoder_stack(params, frames: torch.Tensor, cfg: ModelConfig):
+def encoder_stack(params, frames: torch.Tensor, cfg: ModelConfig,
+                  plan=None):
     """Whisper's encoder over frame embeddings (B, F, d): sinusoidal
     positions, then ``n_layers`` non-causal pre-norm layers (under
     checkpointing as the decoder stack's).  -> (B, F, d), final-normed."""
@@ -435,31 +482,38 @@ def encoder_stack(params, frames: torch.Tensor, cfg: ModelConfig):
                            frames.device).to(frames.dtype)[None]
     remat = _remat(cfg, "train")
     for p_l in common.identical(_unstack(params["layers"], cfg.n_layers)):
-        x = _run(_encoder_layer, remat, x, p_l, cfg)
+        x = _run(_encoder_layer, remat, x, p_l, cfg, plan)
     return common.rmsnorm(x, params["enc_final_norm"])
 
 
-def _cross_kv(enc_out, p, cfg: ModelConfig):
+def _cross_kv(enc_out, p, cfg: ModelConfig, m: int = 1):
     b, f, _ = enc_out.shape
-    return ((enc_out @ p["wk"]).reshape(b, f, cfg.n_kv_heads, cfg.head_dim),
-            (enc_out @ p["wv"]).reshape(b, f, cfg.n_kv_heads, cfg.head_dim))
+    kvh = cfg.n_kv_heads // m
+    return ((enc_out @ p["wk"]).reshape(b, f, kvh, cfg.head_dim),
+            (enc_out @ p["wv"]).reshape(b, f, kvh, cfg.head_dim))
 
 
-def _decoder_layer(x, p_l, enc_out, cfg: ModelConfig, c_l=None):
+def _decoder_layer(x, p_l, enc_out, cfg: ModelConfig, c_l=None, plan=None):
     """One decoder layer over the whole token sequence: causal self-
     attention, cross-attention to ``enc_out``, the FFN.  With ``c_l``
     (prefill) the self K/V and the cross K/V are written into it."""
+    p_l = _take(plan, p_l, "dec")
     h = common.rmsnorm(x, p_l["ln1"])
-    out, (k, v) = attn_train(h, p_l["attn"], cfg, "full")
+    out, (k, v) = attn_train(h, p_l["attn"], cfg, "full",
+                             tp=_tp(plan, ("dec", "attn")))
     x = x + out
     h = common.rmsnorm(x, p_l["ln_x"])
     b, sq, _ = h.shape
-    q = (h @ p_l["xattn"]["wq"]).reshape(b, sq, cfg.n_heads, cfg.head_dim)
-    xk, xv = _cross_kv(enc_out, p_l["xattn"], cfg)
+    tp = _tp(plan, ("dec", "xattn"))
+    h, px, m = _tp_enter(h, p_l["xattn"], tp)
+    q = (h @ px["wq"]).reshape(b, sq, cfg.n_heads // m, cfg.head_dim)
+    xk, xv = _cross_kv(parallel.copy_to(enc_out, tp), px, cfg, m)
     out = attention.attend(q, xk, xv, causal=False,
                            chunk=attention.div_chunk(sq, cfg.scan_chunk))
-    x = x + out.reshape(b, sq, cfg.q_dim) @ p_l["xattn"]["wo"]
-    f_out, _ = ffn_block(common.rmsnorm(x, p_l["ln2"]), p_l["ffn"], cfg)
+    x = x + parallel.reduce_from(
+        out.reshape(b, sq, cfg.q_dim // m) @ px["wo"], tp)
+    f_out, _ = ffn_block(common.rmsnorm(x, p_l["ln2"]), p_l["ffn"], cfg,
+                         _tp(plan, ("dec", "ffn")))
     if c_l is not None:
         c_l["k"][:, :sq] = k.to(c_l["k"].dtype)
         c_l["v"][:, :sq] = v.to(c_l["v"].dtype)
@@ -488,7 +542,8 @@ def _decoder_layer_decode(x, p_l, cfg: ModelConfig, c_l, pos: int):
 
 
 def whisper_decoder(params, tokens: torch.Tensor, enc_out, cfg: ModelConfig,
-                    mode: str, *, cache=None, pos: int | None = None):
+                    mode: str, *, cache=None, pos: int | None = None,
+                    plan=None):
     """Whisper's decoder: self- and cross-attention.
 
     "train" / "prefill": tokens (B, T) against ``enc_out`` (B, F, d);
@@ -507,7 +562,8 @@ def whisper_decoder(params, tokens: torch.Tensor, enc_out, cfg: ModelConfig,
     layers = _unstack(params["dec"], cfg.n_dec_layers)
     for i, p_l in common.identical(enumerate(layers)):
         if mode == "train":
-            x = _run(_decoder_layer, remat, x, p_l, enc_out, cfg)
+            x = _run(_decoder_layer, remat, x, p_l, enc_out, cfg, None,
+                     plan)
         elif mode == "prefill":
             x = _decoder_layer(x, p_l, enc_out, cfg, _layer(cache[0], i))
         else:
@@ -573,25 +629,26 @@ def lm_logits(params, x, cfg: ModelConfig):
     return logits
 
 
-def _encode(params, batch: dict, cfg: ModelConfig, device):
+def _encode(params, batch: dict, cfg: ModelConfig, device, plan=None):
     """An enc_dec batch's encoder output and decoder tokens on the device."""
     dev, tokens = _on_device(params, batch["dec_tokens"], device)
     frames = torch.as_tensor(batch["frames"], device=dev)
-    return encoder_stack(params, frames, cfg), tokens
+    return encoder_stack(params, frames, cfg, plan), tokens
 
 
-def _hidden(params, batch: dict, cfg: ModelConfig, device):
+def _hidden(params, batch: dict, cfg: ModelConfig, device, plan=None):
     """The final-normed hidden states of the tokens (prefixes cut),
     (B, S, d), the tokens on the device and the MoEAux summed over the
-    layers.  An enc_dec batch holds "frames" and "dec_tokens"."""
+    layers.  An enc_dec batch holds "frames" and "dec_tokens".  Under a
+    ``plan`` the unstacked leaves are whole already."""
     if cfg.enc_dec:
-        enc, tokens = _encode(params, batch, cfg, device)
-        x, _ = whisper_decoder(params, tokens, enc, cfg, "train")
+        enc, tokens = _encode(params, batch, cfg, device, plan)
+        x, _ = whisper_decoder(params, tokens, enc, cfg, "train", plan=plan)
         return x, tokens, _zero_aux(x.device)
     dev, tokens = _on_device(params, batch["tokens"], device)
     patches = _patches(batch, cfg, dev)
     x = embed_inputs(params, tokens, cfg, patches)
-    x, aux, _ = decoder_stack(params, x, cfg, "train")
+    x, aux, _ = decoder_stack(params, x, cfg, "train", plan=plan)
     x = common.rmsnorm(x, params["final_norm"])
     prefix = _prefix(cfg, patches)
     return (x[:, prefix:] if prefix else x), tokens, aux
@@ -620,7 +677,7 @@ def _ce_chunk(xs, ls, head, pad_mask, cap: float):
 
 
 def loss_fn(params, batch: dict, cfg: ModelConfig, *,
-            device: str | torch.device | None = "cuda"):
+            device: str | torch.device | None = "cuda", plan=None):
     """Next-token cross-entropy with chunked logits: (loss, metrics).
 
     Labels are ``batch["labels"]`` or the tokens shifted left with -1
@@ -633,8 +690,12 @@ def loss_fn(params, batch: dict, cfg: ModelConfig, *,
     metrics carry their sums ``moe_lb`` and ``moe_drop`` (zeros for the
     other families).  An enc_dec model's loss is over its
     ``dec_tokens``.  Differentiable: the caller decides whether autograd
-    records it."""
-    x, tokens, aux = _hidden(params, batch, cfg, device)
+    records it.  ``plan`` (a ``parallel.Plan``): ``params`` is this
+    rank's shards; the embedding, head and norms are gathered here once,
+    each layer's leaves in the layer."""
+    if plan is not None:
+        params = plan.take_top(params)
+    x, tokens, aux = _hidden(params, batch, cfg, device, plan)
     labels = batch.get("labels")
     if labels is None:
         labels = torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], -1)],

@@ -13,14 +13,23 @@ other tree.  ``opt_update_`` writes an update into the parameters and
 the state in place, leaf by leaf, which is what the train step uses: a
 leaf's temporaries are its only extra memory.  ``opt_update`` returns
 new tensors, as the reference does.
+
+On a mesh a rank holds its shard of each leaf and of its state
+(``opt_state_specs``, the reference's rule).  AdamW is elementwise.
+Adafactor's row and column means and its update-clipping RMS reduce
+over a leaf's dims, so ``opt_update_`` takes, a leaf, the group that
+cuts each dim, and each of those reductions is summed over the group
+that cuts the dim it runs along: every rank computes the statistics one
+process computes over the whole leaf.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, NamedTuple
 
 import torch
 
-from repro_torch.models import common
+from repro_torch.models import common, parallel
 
 
 class AdamWState(NamedTuple):
@@ -99,26 +108,49 @@ def adafactor_init(params) -> AdafactorState:
                           v=common.tree_map(v, params))
 
 
+def _mean(t: torch.Tensor, dim: int, group, keepdim: bool = False
+          ) -> torch.Tensor:
+    """The mean along ``dim`` of a tensor whose ``dim`` is cut over
+    ``group`` (None: whole here)."""
+    if group is None:
+        return torch.mean(t, dim=dim, keepdim=keepdim)
+    s = parallel.all_reduce(torch.sum(t, dim=dim, keepdim=keepdim), group)
+    return s / (t.shape[dim] * parallel.size(group))
+
+
+def _mean_all(t: torch.Tensor, groups: tuple) -> torch.Tensor:
+    """The mean of every element of a leaf cut over ``groups``."""
+    cut = [g for g in dict.fromkeys(groups) if g is not None]
+    if not cut:
+        return torch.mean(t)
+    s = torch.sum(t)
+    for g in cut:
+        s = parallel.all_reduce(s, g)
+    return s / (t.numel() * math.prod(parallel.size(g) for g in groups
+                                      if g is not None))
+
+
 def _adafactor_prep(state: AdafactorState, *, decay: float = 0.8,
                     eps: float = 1e-30, clip: float = 1.0):
     step = state.step + 1
     t = step.to(torch.float32)
     beta = 1.0 - torch.pow(t, -decay)
 
-    def leaf(p, g, vr, vc, v, lr):
+    def leaf(p, g, vr, vc, v, lr, groups=None):
+        groups = groups or (None,) * p.ndim
         g = g.to(torch.float32)
         g2 = g * g + eps
         if _factored(p):
-            vr = beta * vr + (1 - beta) * torch.mean(g2, dim=-1)
-            vc = beta * vc + (1 - beta) * torch.mean(g2, dim=-2)
-            rf = vr / torch.clamp(torch.mean(vr, dim=-1, keepdim=True),
+            vr = beta * vr + (1 - beta) * _mean(g2, -1, groups[-1])
+            vc = beta * vc + (1 - beta) * _mean(g2, -2, groups[-2])
+            rf = vr / torch.clamp(_mean(vr, -1, groups[-2], keepdim=True),
                                   min=eps)
             u = g * torch.rsqrt(torch.clamp(rf[..., None], min=eps)) \
                 * torch.rsqrt(torch.clamp(vc, min=eps))[..., None, :]
         else:
             v = beta * v + (1 - beta) * g2
             u = g * torch.rsqrt(torch.clamp(v, min=eps))
-        rms = torch.sqrt(torch.mean(u * u) + 1e-30)     # update clipping
+        rms = torch.sqrt(_mean_all(u * u, groups) + 1e-30)  # update clipping
         u = u / torch.clamp(rms / clip, min=1.0)
         return (p.to(torch.float32) - lr * u).to(p.dtype), vr, vc, v
 
@@ -139,23 +171,62 @@ def opt_init(kind: str, params):
     raise ValueError(kind)
 
 
-def opt_update_(kind: str, grads, state, params, *, lr, ok=None, **kw):
+def opt_update_(kind: str, grads, state, params, *, lr, ok=None,
+                dim_groups=None, **kw):
     """One update written into ``params`` and ``state`` in place, leaf by
     leaf.  ``ok`` (a 0-d bool tensor): where it is False every leaf keeps
     its value (``torch.where``, no host sync); the step counter advances
-    either way.  -> (params, state), the same objects."""
+    either way.  ``dim_groups`` (path -> the group that cuts each dim of
+    the leaf, None where whole): the leaves are shards, and Adafactor's
+    reductions run over those groups.  -> (params, state), the same
+    objects."""
     if kind not in _PREP:
         raise ValueError(kind)
     step, leaf, fields = _PREP[kind](state, **kw)
     g_of = dict(common.leaves(grads))
     slots = [dict(common.leaves(getattr(state, f))) for f in fields]
+    cut = {} if dim_groups is None or kind == "adamw" else dim_groups
     for path, p in common.leaves(params):
         old = [p, *(s[path] for s in slots)]
-        new = leaf(p, g_of[path], *old[1:], lr)
+        extra = (cut[path],) if path in cut else ()
+        new = leaf(p, g_of[path], *old[1:], lr, *extra)
         for dst, src in zip(old, new):
             dst.copy_(src if ok is None else torch.where(ok, src, dst))
     state.step.copy_(step)
     return params, state
+
+
+def opt_state_specs(kind: str, param_specs: dict, param_shapes: dict):
+    """The spec tree of the optimizer state, mirroring the parameters'
+    (the reference's rule): AdamW's moments take their leaf's spec;
+    Adafactor's ``vr`` drops the last entry and ``vc`` the second to
+    last, a factored leaf's size-0 ``v`` and an unfactored leaf's ``vr``
+    and ``vc`` are replicated (), an unfactored leaf's ``v`` takes its
+    spec.  ``step`` is replicated."""
+    if kind == "adamw":
+        return AdamWState(step=(), m=param_specs, v=param_specs)
+    if kind != "adafactor":
+        raise ValueError(kind)
+    ndim = {p: len(getattr(t, "shape", t))
+            for p, t in common.leaves(param_shapes)}
+
+    def drop(which):
+        def f(path, spec):
+            if ndim[path] < 2:
+                return ()
+            ent = list(spec) + [None] * (ndim[path] - len(spec))
+            del ent[-1 if which == "vr" else -2]
+            return tuple(ent)
+        return f
+
+    def v(path, spec):
+        return () if ndim[path] >= 2 else spec
+
+    def over(f):
+        return common.with_leaves(param_specs, {
+            p: f(p, s) for p, s in common.leaves(param_specs)})
+    return AdafactorState(step=(), vr=over(drop("vr")), vc=over(drop("vc")),
+                          v=over(v))
 
 
 def opt_update(kind: str, grads, state, params, *, lr, **kw):

@@ -14,6 +14,17 @@ gradients (with the loss and metrics) are averaged over the ranks by one
 all-reduce a step, or by ``compression.ddp_allreduce_int8`` with error
 feedback; every rank then applies the same update.  The reference's
 mesh step shards the batch over its data axes inside one jitted program.
+
+The model axis: given a ``parallel.Plan``, every rank of a (D, M) mesh
+holds its shards of the parameters and the optimizer state, the M ranks
+of a model group step on the same rows, and the model runs its
+tensor-parallel blocks and gathers its other sharded leaves
+(``models.parallel``).  Replicated and model-sharded gradients are
+averaged over the data group; FSDP gradients come out of their gathers'
+reduce-scatter already summed over it and are only scaled.  The
+gradient norm counts each element of the whole gradient once, and the
+finite check is agreed by every rank of the world, so no rank skips a
+step alone.
 """
 from __future__ import annotations
 
@@ -26,7 +37,7 @@ import torch.distributed as dist
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.frontier import comm_device
 from repro_torch.device import resolve_device
-from repro_torch.models import common, transformer
+from repro_torch.models import common, parallel, transformer
 from repro_torch.train import compression as compression_lib
 from repro_torch.train import optimizer as opt_lib
 
@@ -98,10 +109,25 @@ def _mean_over_ranks(loss, metrics: dict, grads: dict, group,
             out)
 
 
+def _grad_norm(grads: dict, plan, device) -> torch.Tensor:
+    """The whole gradient's norm from this rank's shards: each leaf's
+    squares summed over the groups that cut it (a replicated leaf's
+    once), the same on every rank."""
+    by = {k: torch.zeros((), dtype=torch.float32, device=device)
+          for k in ((), ("model",), ("data",), ("data", "model"))}
+    for path, g in grads.items():
+        key = tuple(sorted(plan.axes_of(path)))
+        by[key] = by[key] + torch.sum(g.to(torch.float32) ** 2)
+    m = parallel.all_reduce(torch.stack([by[("model",)],
+                                         by[("data", "model")]]), plan.model)
+    d = parallel.all_reduce(torch.stack([by[("data",)], m[1]]), plan.data)
+    return torch.sqrt(by[()] + m[0] + d[0] + d[1])
+
+
 def make_train_step(cfg: ModelConfig, *, base_lr: float = 3e-4,
                     total_steps: int = 10_000, warmup: int = 100,
                     microbatch: int | None = None, group=None,
-                    compression: str = "none",
+                    plan=None, compression: str = "none",
                     device: str | torch.device | None = "cuda") -> Callable:
     """The train step of one architecture config:
     (params, opt_state, batch) -> (params, opt_state, metrics), the first
@@ -119,13 +145,21 @@ def make_train_step(cfg: ModelConfig, *, base_lr: float = 3e-4,
     "int8": ``compression.ddp_allreduce_int8`` with error feedback), so
     the ranks take the same step: on equal shards, the step a single
     process takes over the whole batch in ``microbatch`` x world
-    slices."""
+    slices.
+
+    With ``plan`` (a ``parallel.Plan``; ``group`` is then its data group)
+    the parameters and the optimizer state are this rank's shards, and
+    the metrics add the plan's ``tp_leaves`` and ``gathered_leaves``."""
     if compression not in COMPRESSION:
         raise ValueError(f"compression must be one of {COMPRESSION}, got "
                          f"{compression!r}")
     mb = microbatch if microbatch is not None else max(1, cfg.microbatch)
     dev = resolve_device(device)
     err: dict = {}                    # int8 error feedback, by leaf path
+    fsdp: set = set()                 # leaves cut over the data axes
+    if plan is not None:
+        group = plan.data
+        fsdp = {p for p in plan.flat if "data" in plan.axes_of(p)}
 
     def grads_of(params, batch):
         paths, leaves = zip(*common.leaves(params))
@@ -133,7 +167,7 @@ def make_train_step(cfg: ModelConfig, *, base_lr: float = 3e-4,
         tree = common.with_leaves(params, dict(zip(paths, live)))
         with torch.enable_grad():
             loss, metrics = transformer.loss_fn(
-                tree, batch, cfg, device=dev)
+                tree, batch, cfg, device=dev, plan=plan)
             # a parameter the config never reads (a parallel block's
             # ln2) gets zeros, as jax.grad gives it
             grads = torch.autograd.grad(loss, live, allow_unused=True,
@@ -162,8 +196,14 @@ def make_train_step(cfg: ModelConfig, *, base_lr: float = 3e-4,
         else:
             loss, metrics, grads = grads_of(params, batch)
         if group is not None:
-            loss, metrics, grads = _mean_over_ranks(loss, metrics, grads,
-                                                    group, compression, err)
+            # FSDP gradients are summed over the data ranks already
+            rest = {p: g for p, g in grads.items() if p not in fsdp}
+            loss, metrics, rest = _mean_over_ranks(loss, metrics, rest,
+                                                   group, compression, err)
+            inv = 1.0 / dist.get_world_size(group)
+            grads = {p: rest[p] if p in rest else grads[p].mul_(inv)
+                     for p in grads}
+        by_path = grads
         grads = common.with_leaves(params, grads)
 
         lr = lr_schedule(opt_state.step, base_lr=base_lr, warmup=warmup,
@@ -172,12 +212,22 @@ def make_train_step(cfg: ModelConfig, *, base_lr: float = 3e-4,
         ok = torch.isfinite(loss)
         for g in flat:
             ok = ok & torch.isfinite(g).all()
-        gnorm = torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2)
-                               for g in flat))
+        if plan is None:
+            gnorm = torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2)
+                                   for g in flat))
+            cut = None
+        else:                       # no rank skips a step alone
+            ok = parallel.all_reduce(ok.to(torch.float32), dist.group.WORLD,
+                                     dist.ReduceOp.MIN) > 0
+            gnorm = _grad_norm(by_path, plan, loss.device)
+            cut = {p: plan.dim_groups(p) for p in by_path}
         opt_lib.opt_update_(cfg.optimizer, grads, opt_state, params, lr=lr,
-                            ok=ok)
+                            ok=ok, dim_groups=cut)
         metrics.update(loss=loss, lr=lr, grad_norm=gnorm,
                        skipped=(~ok).to(torch.int32))
+        if plan is not None:
+            metrics.update({k: torch.tensor(v, device=loss.device)
+                            for k, v in plan.counts().items()})
         return params, opt_state, metrics
 
     return train_step

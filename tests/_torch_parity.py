@@ -1,5 +1,6 @@
 """Helpers shared by the port's parity tests: carry a ``repro`` index
-across with ``interop``, compare two SearchResults, and the
+across with ``interop``, compare two SearchResults, build a
+``jax.sharding.AbstractMesh`` under either jax's constructor, and the
 ``one_intra_op_thread`` fixture every port test module imports.
 
 Ids and every SearchStats counter must be equal.  Squared distances agree
@@ -26,6 +27,19 @@ def one_intra_op_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def abstract_mesh(shape: tuple, names: tuple):
+    """A ``jax.sharding.AbstractMesh`` of ``shape`` over ``names``: jax
+    0.9 takes (sizes, names), jax 0.4.37 one tuple of (name, size)
+    pairs."""
+    import inspect
+
+    from jax.sharding import AbstractMesh
+    params = inspect.signature(AbstractMesh.__init__).parameters
+    if "axis_sizes" in params:
+        return AbstractMesh(tuple(shape), tuple(names))
+    return AbstractMesh(tuple(zip(names, shape)))
 
 
 def carry(ji):

@@ -18,7 +18,6 @@ import math
 import jax
 import numpy as np
 import pytest
-from jax.sharding import AbstractMesh
 torch = pytest.importorskip("torch", exc_type=ImportError)
 
 import repro.configs as J  # noqa: E402
@@ -29,6 +28,7 @@ from repro_torch.launch import mesh as M  # noqa: E402
 from repro_torch.launch import specs as S  # noqa: E402
 from repro_torch.models import common  # noqa: E402
 from repro_torch.models.transformer import segments  # noqa: E402
+from _torch_parity import abstract_mesh  # noqa: E402
 from _torch_parity import one_intra_op_thread  # noqa: E402,F401
 
 CELLS = [(a, s) for a in list_archs()
@@ -126,7 +126,7 @@ def test_stand_ins_equal_the_reference_leaves(arch):
     caches, leaf for leaf, in shape and dtype."""
     cfg, jcfg = get_config(arch), J.get_config(arch)
     _same_leaves(S.param_shapes(cfg), JS.param_shapes(jcfg), "params")
-    _same_leaves(S.opt_specs(cfg),
+    _same_leaves(S.opt_shapes(cfg),
                  jopt.opt_state_shapes(jcfg.optimizer,
                                        JS.param_shapes(jcfg)), "opt")
     for shape in S.runnable_shapes(cfg):
@@ -151,7 +151,7 @@ def _cut(shape, spec, sizes) -> tuple:
 @pytest.mark.parametrize("multi_pod", [False, True])
 def test_shard_shapes_equal_the_reference_partition_specs(multi_pod):
     ms = M.production_mesh(multi_pod=multi_pod)
-    am = AbstractMesh(ms.shape, ms.axis_names)
+    am = abstract_mesh(ms.shape, ms.axis_names)
     sizes, data = dict(am.shape), M.data_axes_of(ms)
     for arch, shape in CELLS:
         cfg, jcfg = get_config(arch), J.get_config(arch)

@@ -451,11 +451,18 @@ def test_train_step_on_a_group_matches_one_process(runs, world):
 
 
 def test_mesh_option_refuses_a_model_axis():
+    """The model axis is taken now (tests/test_torch_model_axis.py runs
+    it): ``--mesh`` refuses only a malformed mesh, and ``main`` a batch
+    that does not split over the data ranks."""
     assert launch_train.parse_mesh("2x1") == (2, 1)
-    with pytest.raises(ValueError, match="M must be 1"):
-        launch_train.parse_mesh("2x2")
-    with pytest.raises(ValueError, match="DxM"):
-        launch_train.parse_mesh("two")
+    assert launch_train.parse_mesh("2x2") == (2, 2)
+    assert launch_train.parse_mesh("1X4") == (1, 4)
+    for bad in ("2x0", "0x2", "ax2", "two", "2x2x2"):
+        with pytest.raises(ValueError, match="DxM"):
+            launch_train.parse_mesh(bad)
+    with pytest.raises(ValueError, match="does not split over 2 data"):
+        launch_train.main(["--arch", TRAIN_ARCH, "--smoke", "--batch", "3",
+                           "--mesh", "2x2", "--device", "cpu"])
 
 
 def test_index_checkpoint_elastic_reshard_8_to_4(runs):

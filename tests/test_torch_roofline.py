@@ -43,6 +43,7 @@ from repro.models import transformer as JT  # noqa: E402
 from repro_torch.configs import (SHAPES, ShapeCell,  # noqa: E402
                                  active_params, get_config, list_archs)
 from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch import mesh as M  # noqa: E402
 from repro_torch.launch import op_analysis as OA  # noqa: E402
 from repro_torch.launch import roofline as R  # noqa: E402
 from repro_torch.launch import specs as S  # noqa: E402
@@ -210,7 +211,7 @@ def _small_cell(cfg, kind: str, b: int, s: int):
     cell = ShapeCell("small", s, b, kind)
     if kind == "train":
         return (step_lib.make_train_step(cfg, device=META),
-                (params, S.opt_specs(cfg), S.batch_specs(cfg, cell)))
+                (params, S.opt_shapes(cfg), S.batch_specs(cfg, cell)))
     cache = S.cache_shapes(cfg, b, s)
     if kind == "prefill":
         return (step_lib.make_prefill_step(cfg, device=META),
@@ -373,6 +374,27 @@ def test_roofline_terms_against_peaks():
         0.024508, abs=5e-7)
 
 
+# one rank's parameter elements on the reference's 16 x 16 mesh, by the
+# reference's own param_pspecs on AbstractMesh((16, 16), ("data", "model"))
+PER_RANK_16X16 = {"nemotron-4-340b": 10_887_488_640,
+                  "command-r-35b": 708_157_952, "gemma3-27b": 605_524_496,
+                  "h2o-danube-1.8b": 114_567_680}
+
+
 def test_mesh_with_a_model_axis_is_refused():
-    with pytest.raises(ValueError, match="D x 1"):
-        dryrun.parse_mesh("16x16")
+    """The model axis is taken now: ``parse_mesh`` reads the production
+    meshes and refuses only a malformed one, and each rank of 16 x 16
+    holds the reference's shards (from the shard shapes: no 96-layer
+    count runs here)."""
+    assert dryrun.parse_mesh("16x16") == M.MeshSpec((16, 16),
+                                                    ("data", "model"))
+    assert dryrun.parse_mesh("2x16x16") == M.MeshSpec(
+        (2, 16, 16), ("pod", "data", "model"))
+    assert dryrun.parse_mesh("16x1") == M.MeshSpec((16,), ("data",))
+    for bad in ("16x0", "ax16", "16", "1x2x3x4"):
+        with pytest.raises(ValueError, match="DxM"):
+            dryrun.parse_mesh(bad)
+    spec = dryrun.parse_mesh("16x16")
+    for arch, want in PER_RANK_16X16.items():
+        st = S.state_shard_shapes(get_config(arch), spec)
+        assert S.held_elements(st["params"]) == want, arch
