@@ -126,7 +126,25 @@ CUDA toolkit.  Phases, each printing one JSON line:
                  1's half and off a chunk edge, against one-process
                  ``decode_attend`` over the whole cache (1e-5 x its
                  largest magnitude), the new
-                 K/V written by its owner; ms a call of both;
+                 K/V written by its owner; ms a call of both; then
+                 serving over the model axis on 4 spawned gloo ranks at
+                 MODEL_AXIS_MESH: ``launch.serve.greedy_generate(...,
+                 plan=)`` on hymba-1.5b at full width and MESH_SERVE_LAYERS
+                 layers (fp32, batch 4, a 1,024-token prompt that with
+                 the 128 meta tokens wraps the 1,024-slot SWA ring, 16
+                 greedy tokens; the attention gathered, the
+                 full-attention layer's decode positions over "model",
+                 ``m_h`` / ``m_conv`` and the scan on 800 channels a
+                 rank, the FFN tensor-parallel), then every arch's
+                 ``smoke()`` config (MoE at capacity factor 16); each
+                 rank's logits at the prefill and every step within
+                 MESH_SERVE_REL x max|logit| of one process's
+                 ``greedy_generate`` on the card on the same weights, the
+                 tokens equal wherever one process's top-2 gap exceeds
+                 that bound, each rank's parameter and cache elements
+                 the specs', ``ssm_scan`` launched once a layer a call
+                 on every rank; prefill seconds, ms a token and peak
+                 memory a rank;
  13. roofline  — ``python -m repro_torch.launch.dryrun --mesh 16x1`` as a
                  subprocess (its fake process group kept away from
                  ``dist1``'s NCCL one): every (arch x shape) cell, 34,
@@ -305,6 +323,7 @@ from repro_torch.kernels.ssm_scan import (ssm_scan,  # noqa: E402
                                           ssm_scan_with_checkpoints)
 from repro_torch.kernels.ssm_scan_bwd import ssm_scan_bwd  # noqa: E402
 from repro_torch.configs import count_params, get_config  # noqa: E402
+from repro_torch.configs import list_archs  # noqa: E402
 from repro_torch.data.tokens import synthetic_token_batches  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import roofline  # noqa: E402
@@ -398,6 +417,15 @@ MODEL_AXIS_TIMEOUT_S = 600
 SEQ_ARCH, SEQ_SLOTS = "gemma3-27b", 524_288
 SEQ_POS = 300_007              # in rank 1's half, off a 1,024-slot chunk edge
 SEQ_REL = 1e-5                 # the sharded merge vs one process's decode, x max |want|
+# serving over the model axis: 4 gloo ranks on the card at MODEL_AXIS_MESH,
+# Hymba at full width and a cut depth, then every arch's smoke() config
+MESH_SERVE_ARCH, MESH_SERVE_LAYERS = "hymba-1.5b", 4
+# batch, prompt, generated tokens: with 128 meta tokens, 1,168 cache slots
+MESH_SERVE_BATCH, MESH_SERVE_PROMPT, MESH_SERVE_GEN = 4, 1024, 16
+MESH_SERVE_SMOKE_PROMPT, MESH_SERVE_SMOKE_GEN = 36, 4
+MESH_SERVE_FRAMES = 8          # Whisper smoke()'s frames (decoder_len 16)
+MESH_SERVE_REL = 1e-5          # a rank's logits vs one process's, x max|logit|
+MESH_SERVE_TIMEOUT_S = 420
 SEQ_CALLS = 10
 MESH_DIR = ROOT / "build" / "mesh"   # git-ignored; removed at the phase's end
 ROOFLINE_DIR = ROOT / "build" / "roofline"   # git-ignored; the records
@@ -1642,10 +1670,193 @@ def _mesh_seqsharded(args) -> dict:
             "one_process_ms_per_call": one_ms, "ranks_seconds": ranks_s}
 
 
+def _serve_runs(seed: int) -> list[dict]:
+    """The serving runs of the mesh phase, the same in every rank and in
+    the main process: Hymba at full width, then every arch's smoke()."""
+    cfg = dataclasses.replace(get_config(MESH_SERVE_ARCH),
+                              n_layers=MESH_SERVE_LAYERS)
+    runs = [(f"{MESH_SERVE_ARCH} full width, {MESH_SERVE_LAYERS} layers",
+             cfg, MESH_SERVE_BATCH, MESH_SERVE_PROMPT, MESH_SERVE_GEN)]
+    for arch in list_archs():
+        c = get_config(arch, smoke=True)
+        if c.n_experts:
+            c = dataclasses.replace(c, capacity_factor=MOE_SERVE_CF)
+        runs.append((f"{arch} smoke", c, MODEL_AXIS_MESH[0],
+                     MESH_SERVE_SMOKE_PROMPT, MESH_SERVE_SMOKE_GEN))
+    out = []
+    for i, (label, c, b, prompt, gen) in enumerate(runs):
+        rng = np.random.default_rng(seed * 1000 + 31 + i)
+        req = {"label": label, "cfg": c, "gen": gen, "frames": None,
+               "prompt": rng.integers(0, c.vocab, (b, prompt))}
+        if c.enc_dec:
+            req["prompt"] = req["prompt"][:, :c.decoder_len - gen]
+            req["frames"] = (rng.standard_normal(
+                (b, MESH_SERVE_FRAMES, c.d_model)) * 0.1).astype(np.float32)
+        out.append(req)
+    return out
+
+
+def _serve_rank(rank: int, cfg_d: dict) -> None:
+    """One rank of the serving mesh (a spawned process on the card): the
+    (data, model) groups over gloo, then each run of ``_serve_runs``
+    through ``greedy_generate(plan=)`` from its shards of the weights
+    (built on the host from the seed, as one process builds them), the
+    launch counts set to 0 just before and read just after; its logits,
+    tokens and a JSON line a run to ``cfg_d["out"]``."""
+    import torch.distributed as tdist
+    from datetime import timedelta
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import parallel
+    dev = torch.device(cfg_d["device"])
+    card = dev.type == "cuda"          # the host only in a CPU rehearsal
+    if card:
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    d, m = MODEL_AXIS_MESH
+    tdist.init_process_group("gloo", init_method=cfg_d["init"],
+                             world_size=d * m, rank=rank,
+                             timeout=timedelta(seconds=DIST_TIMEOUT_S))
+    try:
+        groups = make_mesh((d, m), ("data", "model"), "cpu")
+        ms = MeshSpec((d, m), ("data", "model"))
+        coords = dict(zip(ms.axis_names, divmod(rank, m)))
+        sizes = dict(zip(ms.axis_names, ms.shape))
+        reports = []
+        for i, req in enumerate(_serve_runs(cfg_d["seed"])):
+            cfg = req["cfg"]
+            pspecs = launch_specs.param_pspecs(cfg, ms)
+            sp = dict(common.leaves(pspecs))
+            whole = serve.build_params(cfg, cfg_d["seed"], "cpu")
+            params = common.with_leaves(whole, {
+                p: common.shard(t, sp[p], coords, sizes).to(dev)
+                for p, t in common.leaves(whole)})
+            del whole
+            plan = parallel.Plan(cfg, pspecs, model=groups.get_group("model"),
+                                 data=groups.get_group("data"), serve=True,
+                                 mesh=ms, coords=coords)
+            if card:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            tdist.barrier()
+            ops.reset_launch_counts()
+            g = serve.greedy_generate(params, cfg, req["prompt"], req["gen"],
+                                      frames=req["frames"], plan=plan,
+                                      device=dev)
+            launches = {k: v for k, v in ops.launch_counts().items() if v}
+            np.save(Path(cfg_d["out"]) / f"serve{i}_r{rank}.npy",
+                    g.logits.cpu().numpy())
+            reports.append({
+                "rank": rank, "coords": coords, "run": i,
+                "prefill_s": g.prefill_s, "decode_s": g.decode_s,
+                "ms_per_token": g.decode_s / max(req["gen"] - 1, 1) * 1e3,
+                "peak_bytes": (torch.cuda.max_memory_allocated(dev)
+                               if card else None),
+                "launches": launches, "tokens": g.tokens.cpu().tolist(),
+                "params_held": sum(t.numel() for _, t in
+                                   common.leaves(params)),
+                "cache_shapes": [{k: list(t.shape) for k, t in seg.items()}
+                                 for seg in g.cache], **plan.counts()})
+            del params, g, plan
+            if card:
+                torch.cuda.empty_cache()
+        (Path(cfg_d["out"]) / f"serve_r{rank}.json").write_text(
+            json.dumps(reports))
+    finally:
+        tdist.destroy_process_group()
+
+
+def _mesh_serve(args) -> tuple[dict, dict]:
+    """Serving over the model axis on 4 gloo ranks sharing the card,
+    against one process's ``greedy_generate`` on the card.  -> (its line,
+    the ranks' kernel launches summed)."""
+    d, m = MODEL_AXIS_MESH
+    ms = MeshSpec(MODEL_AXIS_MESH, ("data", "model"))
+    sizes = dict(zip(ms.axis_names, ms.shape))
+    cfg_d = {"seed": args.seed, "out": str(MESH_DIR),
+             "init": _group_init("mesh_serve"), "device": str(_card())}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ok = _spawn_ranks(_serve_rank, d * m, cfg_d, MESH_SERVE_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    if not ok:
+        return {"ranks_seconds": ranks_s}, {}
+    reps = [json.loads((MESH_DIR / f"serve_r{r}.json").read_text())
+            for r in range(d * m)]
+    launches: dict = {}
+    runs = []
+    for i, req in enumerate(_serve_runs(args.seed)):
+        cfg, label = req["cfg"], f"mesh: serving {req['label']} on {d}x{m}"
+        b, gen = req["prompt"].shape[0], req["gen"]
+        params = common.tree_map(lambda t: t.to(_card()),
+                                 serve.build_params(cfg, args.seed, "cpu"))
+        one = serve.greedy_generate(params, cfg, req["prompt"], gen,
+                                    frames=req["frames"], device=_card())
+        want = one.logits.cpu()
+        del params
+        max_len = (req["frames"].shape[1] if cfg.enc_dec
+                   else req["prompt"].shape[1] + gen)
+        lay = launch_specs.serving_specs(cfg, ms, b, max_len)
+        held = launch_specs.held_elements(
+            launch_specs.state_shard_shapes(cfg, ms)["params"])
+        cache = [{k: list(v) for k, v in seg.items()} for seg in
+                 launch_specs.cut_cache_shapes(launch_specs.cache_shapes(
+                     cfg, b, max_len, torch.float32), lay["decode"], sizes)]
+        tol = MESH_SERVE_REL * float(want.abs().max())
+        top2 = torch.topk(want, 2, dim=-1).values
+        sure = (top2[..., 0] - top2[..., 1]) > tol     # (B, gen)
+        rows_n = b // d if lay["batch"] else b
+        errs, ranks = [], []
+        for rep in reps:
+            rr = rep[i]
+            r = rr["rank"]
+            lo = rr["coords"]["data"] * rows_n if lay["batch"] else 0
+            got = torch.from_numpy(np.load(MESH_DIR / f"serve{i}_r{r}.npy"))
+            w = want[lo:lo + rows_n]
+            err = float((got - w).abs().max())
+            errs.append(err)
+            toks = torch.as_tensor(rr["tokens"])
+            same = (toks == one.tokens.cpu()[lo:lo + rows_n]) \
+                | ~sure[lo:lo + rows_n]
+            check(err <= tol and bool(same.all()),
+                  f"{label} rank {r}: logits within {MESH_SERVE_REL} x "
+                  f"max|logit| = {tol:.3g} of one process's, got {err:.3g}; "
+                  f"tokens equal where the top-2 gap exceeds it")
+            check(rr["params_held"] == held and rr["cache_shapes"] == cache,
+                  f"{label} rank {r}: holds {rr['params_held']} parameter "
+                  f"elements (the specs' {held}) and the decode "
+                  f"cache_pspecs blocks")
+            if cfg.family == "hybrid":     # one scan a layer a call
+                n = cfg.n_layers * gen
+                check(rr["launches"].get("ssm_scan") == n,
+                      f"{label} rank {r}: ssm_scan launched "
+                      f"{rr['launches'].get('ssm_scan')} times, {n} "
+                      f"expected ({cfg.n_layers} a call)")
+            for k, v in rr["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+            ranks.append({k: rr[k] for k in (
+                "rank", "coords", "prefill_s", "ms_per_token", "peak_bytes",
+                "launches", "tp_leaves", "gathered_leaves", "mamba_leaves",
+                "rwkv_leaves")})
+        runs.append({"label": req["label"], "batch": b,
+                     "prompt": req["prompt"].shape[1], "gen": gen,
+                     "kv_shard": lay["kv_shard"], "params_held": held,
+                     "max_abs_err": max(errs), "tolerance": tol,
+                     "one_process_prefill_s": one.prefill_s,
+                     "one_process_ms_per_token":
+                         one.decode_s / max(gen - 1, 1) * 1e3,
+                     "ranks": ranks})
+        del one
+        torch.cuda.empty_cache()
+    return {"ranks_seconds": ranks_s, "mesh": list(MODEL_AXIS_MESH),
+            "runs": runs}, launches
+
+
 def phase_mesh(args) -> dict:
-    """launch.train --mesh Dx1 and 2x2 and the sequence-sharded decode,
-    on the card.  -> the kernel launches of the 2x2 runs, summed over
-    their ranks."""
+    """launch.train --mesh Dx1 and 2x2, the sequence-sharded decode and
+    serving over the model axis, on the card.  -> the kernel launches of
+    the 2x2 runs, summed over their ranks."""
     t_phase = time.perf_counter()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1664,11 +1875,15 @@ def phase_mesh(args) -> dict:
             for k, v in counts.items():
                 launches[k] = launches.get(k, 0) + v
         seq = _mesh_seqsharded(args)
+        serving, counts = _mesh_serve(args)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
     finally:
         shutil.rmtree(MESH_DIR, ignore_errors=True)
     emit({"phase": "mesh", "nvidia_smi": nvidia_smi_line(),
           "seconds": time.perf_counter() - t_phase, "train_mesh": train,
-          "model_axis": model_axis, "decode_seqsharded": seq})
+          "model_axis": model_axis, "decode_seqsharded": seq,
+          "serving": serving})
     return launches
 
 
@@ -2227,17 +2442,32 @@ def _compare_ssm(scan_in: dict) -> dict:
     shape (S = 1) from that scan's last state, and at a state size that is
     no power of two (the first SSM_ODD_N states of the same coefficients
     over SSM_ODD_STEPS steps; one state fewer than the config's where that
-    is smaller), which the kernel pads in registers."""
+    is smaller), which the kernel pads in registers; and at the shapes a
+    rank of the mesh phase's serving run gives it (its batch rows, the
+    prompt and meta tokens, its 1 / M of the channels; the decode from
+    the slice of the prefill's last state), on slices of the same
+    coefficients."""
     xc, dt, bm, cm, a = (scan_in[k] for k in ("xc", "dt", "bm", "cm", "a"))
     one = lambda t: t[:, -1:].contiguous()
     odd = min(SSM_ODD_N, max(bm.shape[-1] - 1, 1))
     part = lambda t: t[:, :SSM_ODD_STEPS, :odd].contiguous()
+    rb = MESH_SERVE_BATCH // MODEL_AXIS_MESH[0]
+    rs = min(MESH_SERVE_PROMPT + get_config(MESH_SERVE_ARCH).meta_tokens,
+             xc.shape[1])
+    rd = xc.shape[2] // MODEL_AXIS_MESH[1]
+    rank = lambda t: t[:rb, :rs, :rd].contiguous()
+    rank_bc = lambda t: t[:rb, :rs].contiguous()
     cases = {"prefill": (xc, dt, bm, cm, a, None),
              "decode": (one(xc), one(dt), one(bm), one(cm), a,
                         scan_in["h_last"]),
              f"n{odd}": (xc[:, :SSM_ODD_STEPS].contiguous(),
                          dt[:, :SSM_ODD_STEPS].contiguous(), part(bm),
-                         part(cm), a[:, :odd].contiguous(), None)}
+                         part(cm), a[:, :odd].contiguous(), None),
+             "rank_prefill": (rank(xc), rank(dt), rank_bc(bm), rank_bc(cm),
+                              a[:rd].contiguous(), None),
+             "rank_decode": (one(rank(xc)), one(rank(dt)), one(rank_bc(bm)),
+                             one(rank_bc(cm)), a[:rd].contiguous(),
+                             scan_in["h_last"][:rb, :rd].contiguous())}
     ok_all, line = True, {}
     for label, args in cases.items():
         y, h_last = ssm_scan(*args)

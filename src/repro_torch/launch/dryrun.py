@@ -14,9 +14,13 @@ trains: the rank holds the shards of the parameters and the optimizer
 state that the reference's specs give it (``specs.param_pspecs``),
 runs its tensor- and expert-parallel blocks over a fake model group of
 M and gathers its other sharded leaves over the model and data groups
-(``models.parallel``).  The port's serving steps take no model axis, so
-a prefill or decode cell on a mesh with M > 1 is recorded as skipped,
-with its per-rank parameter elements.  ``--mesh Dx1`` (``16x1``, and
+(``models.parallel``).  A prefill or decode cell runs as
+``launch.serve.greedy_generate(plan=)`` serves: the same shards of the
+parameters, a serving plan (Mamba by channel, RWKV by head besides),
+the rank's rows of the batch and its blocks of every cache by the
+reference's ``cache_pspecs``, a decode cell's full-attention positions
+over the fake model group or the fake data group where
+``kv_shard_axes`` puts them.  ``--mesh Dx1`` (``16x1``, and
 ``32x1`` for the two-pod row) is the data-parallel layout: each rank
 holds the whole model (an ``fsdp`` config's train cell its FSDP shards)
 and its share of the batch and caches, and a decode batch that does not
@@ -123,9 +127,7 @@ def rank_cell(arch: str, shape: str, mesh: str = "16x1", *,
     state = specs.state_shard_shapes(cfg, spec)
     held = specs.held_elements(state["params"])
     m = _model_size(spec)
-    if m > 1 and cell.kind != "train":
-        raise _Skip(f"{cell.kind} over a model axis: the port's serving "
-                    "steps shard no parameter", held)
+    nd = d // m
     # an ssm or enc_dec model has no full-attention cache to split: a
     # batch that does not split over the ranks runs whole on each
     kv_split = bool(cell.kv_shard_axes) and not (cfg.enc_dec
@@ -135,23 +137,27 @@ def rank_cell(arch: str, shape: str, mesh: str = "16x1", *,
                          "over the ranks; one rank cannot step alone")
     group = op_analysis.fake_group(d) if d > 1 and not alone else None
     meta = lambda shp, like: torch.empty(shp, dtype=like.dtype, device=META)
+    params = cell.args[0]
+    p_specs = specs.param_pspecs(cfg, spec)
     plan = None
+    # a train cell holds its shards on any mesh (FSDP's over the data
+    # axes too), a serving cell on a mesh with a model axis
+    if not alone and (m > 1 or cell.kind == "train") and any(
+            e is not None for _, sp in common.leaves(p_specs) for e in sp):
+        # this rank's shards, on fake groups of the model axis and of the
+        # data axes together
+        plan = parallel.Plan(
+            cfg, p_specs,
+            model=op_analysis.fake_group(m, "model") if m > 1 else None,
+            data=op_analysis.fake_group(nd, "data") if nd > 1 else None,
+            serve=cell.kind != "train", mesh=spec,
+            coords=dict.fromkeys(spec.axis_names, 0))
+        whole = dict(common.leaves(params))
+        params = common.with_leaves(params, {
+            p: meta(s, whole[p]) for p, s in common.leaves(state["params"])})
     if cell.kind == "train":
-        params, opt, batch = cell.args
-        p_specs = specs.param_pspecs(cfg, spec)
-        if not alone and any(e is not None
-                             for _, sp in common.leaves(p_specs) for e in sp):
-            # this rank's shards, on fake groups of the model axis and of
-            # the data axes together
-            nd = d // m
-            plan = parallel.Plan(
-                cfg, p_specs,
-                model=op_analysis.fake_group(m, "model") if m > 1 else None,
-                data=op_analysis.fake_group(nd, "data") if nd > 1 else None)
-            whole = dict(common.leaves(params))
-            params = common.with_leaves(params, {
-                p: meta(s, whole[p])
-                for p, s in common.leaves(state["params"])})
+        _, opt, batch = cell.args
+        if plan is not None:
             opt = opt_lib.opt_init(cfg.optimizer, params)
         fn = step_lib.make_train_step(cfg, group=group, plan=plan,
                                       device=META)
@@ -162,27 +168,24 @@ def rank_cell(arch: str, shape: str, mesh: str = "16x1", *,
                   for seg, s_c in zip(specs.cache_shapes(
                       cfg, 1, SHAPES[shape].seq_len, act), sh["cache"])]
         if cell.kind == "prefill":
-            params, batch, _ = cell.args
-            fn = step_lib.make_prefill_step(cfg, device=META)
+            batch = cell.args[1]
+            fn = step_lib.make_prefill_step(cfg, plan=plan, device=META)
             args = (params, {k: meta(sh["batch"][k], v)
                              for k, v in batch.items()}, caches)
         else:
-            params, tokens, _, _ = cell.args
-            kv = group if kv_split else None
-            fn = step_lib.make_serve_step(cfg, kv_shard=kv, device=META)
+            tokens = cell.args[1]
+            kv = None
+            if kv_split and m == 1:
+                kv = group
+            elif kv_split:         # positions over "model" or the data axes
+                kv = plan.model if "model" in cell.kv_shard_axes \
+                    else plan.data
+            fn = step_lib.make_serve_step(cfg, kv_shard=kv, plan=plan,
+                                          device=META)
             last = (cfg.decoder_len if cfg.enc_dec
                     else SHAPES[shape].seq_len) - 1
             args = (params, meta(sh["tokens"], tokens), last, caches)
     return RankCell(cfg, cell.kind, fn, args, d, sh, act, held, plan)
-
-
-class _Skip(Exception):
-    """A cell this mesh does not count, with its per-rank parameter
-    elements."""
-
-    def __init__(self, why: str, params_per_rank: int):
-        super().__init__(why)
-        self.params_per_rank = params_per_rank
 
 
 def run_cell(arch: str, shape: str, mesh: str = "16x1", *,
@@ -190,15 +193,7 @@ def run_cell(arch: str, shape: str, mesh: str = "16x1", *,
     """Count one rank's step of a cell (``alone``: as it steps by
     itself); return its dry-run record."""
     t0 = time.perf_counter()
-    try:
-        rc = rank_cell(arch, shape, mesh, alone=alone)
-    except _Skip as e:
-        if verbose:
-            print(f"[skip] {arch:22s} {shape:12s} mesh={mesh}: {e}",
-                  flush=True)
-        return {"arch": arch, "shape": shape, "mesh": mesh,
-                "chips": parse_mesh(mesh).size, "status": f"skipped: {e}",
-                "params_per_rank": e.params_per_rank}
+    rc = rank_cell(arch, shape, mesh, alone=alone)
     totals = op_analysis.count(rc.fn, *rc.args)
     count_s = time.perf_counter() - t0
     roof = rl.analyze(totals, n_ranks=rc.ranks,
@@ -400,7 +395,6 @@ def main(argv=None) -> int:
                 f.write(json.dumps(rec) + "\n")
     counted = sum(r["status"] == "ok" for r in records)
     print(f"\n{counted}/{len(records)} cells counted, "
-          f"{len(records) - counted - len(failures)} skipped, "
           f"{len(failures)} failed in {time.perf_counter() - t0:.1f}s")
     return 1 if failures else 0
 

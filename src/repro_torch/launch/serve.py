@@ -38,6 +38,8 @@ import torch
 from repro_torch.configs import get_config, list_archs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import specs
 from repro_torch.models import common, transformer
 from repro_torch.train.step import make_prefill_step, make_serve_step
 
@@ -51,6 +53,7 @@ class Generation:
     logits: torch.Tensor        # (B, gen, V) f32: the prefill's, then each step's
     prefill_s: float            # seconds, synchronised
     decode_s: float             # seconds over the gen - 1 decode steps
+    cache: list | None = None   # the cache after the last step (a rank's blocks)
 
 
 def _sync(dev: torch.device) -> None:
@@ -69,7 +72,7 @@ def build_params(cfg: ModelConfig, seed: int,
 
 
 def greedy_generate(params: dict, cfg: ModelConfig, prompt, gen: int, *,
-                    frames=None,
+                    frames=None, plan=None,
                     device: str | torch.device | None = "cuda") -> Generation:
     """Serve a batch of prompts (B, S): an fp32 cache for S + gen tokens,
     the prefill (its argmax is the first token), then gen - 1 decode
@@ -77,7 +80,16 @@ def greedy_generate(params: dict, cfg: ModelConfig, prompt, gen: int, *,
 
     An enc_dec model also takes ``frames`` (B, F, d): ``prompt`` is its
     decoder prompt, the cache's cross K/V spans the F frames, and
-    S + gen must fit in ``decoder_len``."""
+    S + gen must fit in ``decoder_len``.
+
+    ``plan`` (a serving ``parallel.Plan`` with its ``mesh`` and
+    ``coords``): every rank of the mesh calls this with the whole
+    ``prompt`` (and ``frames``) and its shards of ``params``; it serves
+    its rows of the batch (``launch.specs.serving_specs``) from cache
+    blocks laid out as the reference's prefill cell lays them, re-cuts
+    them to the decode cell's layout (``specs.recut_cache``: the
+    full-attention positions over "model" or the data axes, where
+    ``kv_shard_axes`` puts them) and decodes.  It returns its rows."""
     dev = resolve_device(device)
     prompt = torch.as_tensor(prompt, device=dev).to(torch.int64)
     b, s = prompt.shape
@@ -92,10 +104,25 @@ def greedy_generate(params: dict, cfg: ModelConfig, prompt, gen: int, *,
         max_len = frames.shape[1]
     else:
         batch, max_len = {"tokens": prompt}, s + gen
-    cache = transformer.init_cache(cfg, b, max_len, dtype=torch.float32,
-                                   device=dev)
-    prefill = make_prefill_step(cfg, device=dev)
-    decode = make_serve_step(cfg, device=dev)
+    kv_shard, lay, sizes = None, None, None
+    if plan is None:
+        cache = transformer.init_cache(cfg, b, max_len, dtype=torch.float32,
+                                       device=dev)
+    else:
+        lay = specs.serving_specs(cfg, plan.mesh, b, max_len)
+        sizes = mesh_lib.axis_sizes(plan.mesh)
+        batch = {k: common.shard(v, (lay["batch"],), plan.coords, sizes)
+                 for k, v in batch.items()}
+        shapes = specs.cut_cache_shapes(
+            specs.cache_shapes(cfg, b, max_len, torch.float32),
+            lay["prefill"], sizes)
+        cache = [{k: torch.zeros(shp, dtype=torch.float32, device=dev)
+                  for k, shp in seg.items()} for seg in shapes]
+        axes = lay["kv_shard"]
+        if axes:
+            kv_shard = plan.model if "model" in axes else plan.data
+    prefill = make_prefill_step(cfg, plan=plan, device=dev)
+    decode = make_serve_step(cfg, kv_shard=kv_shard, plan=plan, device=dev)
 
     _sync(dev)
     t0 = time.perf_counter()
@@ -103,6 +130,9 @@ def greedy_generate(params: dict, cfg: ModelConfig, prompt, gen: int, *,
     tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
     _sync(dev)
     prefill_s = time.perf_counter() - t0
+    if lay is not None:
+        cache = specs.recut_cache(cache, lay["prefill"], lay["decode"],
+                                  plan.coords, sizes)
 
     toks, steps = [tok], [logits[:, -1]]
     t0 = time.perf_counter()
@@ -115,7 +145,7 @@ def greedy_generate(params: dict, cfg: ModelConfig, prompt, gen: int, *,
     decode_s = time.perf_counter() - t0
     return Generation(tokens=torch.cat(toks, dim=1),
                       logits=torch.stack(steps, dim=1),
-                      prefill_s=prefill_s, decode_s=decode_s)
+                      prefill_s=prefill_s, decode_s=decode_s, cache=cache)
 
 
 def tenant_traffic(index, seed: int, tenants: int, batch: int

@@ -16,12 +16,15 @@ the KV heads do not divide "model", by their positions
 (``kv_shard_axes``).  ``param_pspecs`` and ``opt_specs`` give the
 parameters' and the optimizer state's specs by the reference's resolver
 (``common.resolve_pspecs``, ``optimizer.opt_state_specs``): a spec is a
-tuple with one entry a dim, as a ``PartitionSpec`` holds them.  A rank
+tuple with one entry a dim, as a ``PartitionSpec`` holds them, and
+``cache_pspecs`` the caches' by the reference's own function.  A rank
 of the port holds its shard of what it steps on and nothing else
-(``launch.train --mesh DxM``), so ``shard_shapes`` gives the per-rank
-shapes of a cell's batch, caches, parameters and optimizer state on a
-``mesh.MeshSpec``, by those rules.  ``core.distributed`` has no
-counterpart of ``index_pspecs``.
+(``launch.train --mesh DxM``, ``launch.serve.greedy_generate(plan=)``),
+so ``shard_shapes`` gives the per-rank shapes of a cell's batch,
+caches, parameters and optimizer state on a ``mesh.MeshSpec``, by those
+rules; ``cache_blocks`` cuts a whole cache into a rank's blocks and
+``recut_cache`` takes a rank's prefill blocks to the decode layout.
+``core.distributed`` has no counterpart of ``index_pspecs``.
 """
 from __future__ import annotations
 
@@ -121,6 +124,14 @@ def _divisible(n: int, sizes: dict, axis: str) -> bool:
     return axis in sizes and n % sizes[axis] == 0
 
 
+def _batch_entry(batch: int, sizes: dict, data_axes: tuple):
+    """The batch dim's spec entry: the data axes (a name, or a tuple of
+    them) where they divide ``batch``, else None."""
+    if not data_axes or batch % math.prod(sizes[a] for a in data_axes):
+        return None
+    return data_axes if len(data_axes) > 1 else data_axes[0]
+
+
 def kv_shard_axes(cfg: ModelConfig, cell: ShapeCell, mesh,
                   data_axes: tuple[str, ...]) -> tuple | None:
     """The axes over which a decode cell's full-attention caches split
@@ -142,16 +153,111 @@ def kv_shard_axes(cfg: ModelConfig, cell: ShapeCell, mesh,
     return None
 
 
-def _split(shape: tuple, spec: tuple, sizes: dict) -> tuple:
-    """``shape`` cut by ``spec``: one entry a dim, None or a tuple of
-    axis names whose sizes divide it."""
+def cache_pspecs(cfg: ModelConfig, cell: ShapeCell, mesh,
+                 data_axes: tuple[str, ...], kv_shard: tuple | None = None
+                 ) -> list:
+    """The spec tree of ``init_cache``'s cache, the reference's
+    ``cache_pspecs``: the batch over the data axes where it divides; K/V
+    heads over "model" where they divide; with ``kv_shard``
+    (``kv_shard_axes`` of a decode cell) the full-attention segments'
+    positions over those axes, the batch then over the data axes only
+    where the positions are over "model"; Hymba's ``m_h`` / ``m_conv``
+    over "model" by channel and RWKV's state by head where those
+    divide."""
+    sizes = mesh_lib.axis_sizes(mesh)
+    bp = _batch_entry(cell.global_batch, sizes, data_axes)
+    mdl = "model"
+
+    def kv_spec(full_attn: bool) -> tuple:
+        h_ax = mdl if _divisible(cfg.n_kv_heads, sizes, mdl) else None
+        if kv_shard and full_attn:
+            s_ax = kv_shard if len(kv_shard) > 1 else kv_shard[0]
+            if "model" in kv_shard:
+                return (None, bp, s_ax, None, None)
+            return (None, None, s_ax, h_ax, None)
+        return (None, bp, None, h_ax, None)
+
+    if cfg.enc_dec:
+        sp = kv_spec(False)
+        return [dict(k=sp, v=sp, xk=sp, xv=sp)]
+    if cfg.family == "ssm":
+        h = cfg.d_model // cfg.rwkv_head_dim
+        h_ax = mdl if _divisible(h, sizes, mdl) else None
+        return [dict(s=(None, bp, h_ax, None, None),
+                     x_tm=(None, bp, None), x_cm=(None, bp, None))]
     out = []
-    for n, axes in zip(shape, spec):
-        k = math.prod(sizes[a] for a in axes) if axes else 1
-        if n % k:
-            raise ValueError(f"dim {n} does not split over {axes}")
-        out.append(n // k)
-    return tuple(out)
+    for seg in transformer.segments(cfg):
+        full = seg.kind == "full"
+        c = dict(k=kv_spec(full), v=kv_spec(full))
+        if cfg.family == "hybrid":
+            d_ax = mdl if _divisible(cfg.q_dim, sizes, mdl) else None
+            c.update(m_h=(None, bp, d_ax, None),
+                     m_conv=(None, bp, None, d_ax))
+        out.append(c)
+    return out
+
+
+def cut_cache_shapes(caches: list, spec_tree: list, sizes: dict) -> list:
+    """Each leaf's shape on a rank under ``spec_tree`` (``caches``' leaves
+    are tensors, meta ones included)."""
+    return [{k: common.shard_shape(tuple(seg[k].shape), sp[k], sizes)
+             for k in seg} for seg, sp in zip(caches, spec_tree)]
+
+
+def cache_blocks(cache: list, spec_tree: list, coords: dict,
+                 sizes: dict) -> list:
+    """The rank at ``coords`` ({axis: index}) of a mesh of ``sizes``: its
+    blocks of a whole cache (a copy of each) under ``spec_tree``
+    (``cache_pspecs``' layout).  Every cut dim must split evenly."""
+    cut_cache_shapes(cache, spec_tree, sizes)          # raises if one does not
+    return [{k: common.shard(t, sp[k], coords, sizes) for k, t in seg.items()}
+            for seg, sp in zip(cache, spec_tree)]
+
+
+def recut_cache(cache: list, src: list, dst: list, coords: dict,
+                sizes: dict) -> list:
+    """A rank's cache blocks under spec tree ``src`` (a prefill's) re-cut
+    to ``dst`` (the decode's), on the rank itself: ``dst`` must cut every
+    dim that ``src`` cuts the same way, and may cut more (the
+    full-attention positions over ``kv_shard_axes``); the rank keeps its
+    block of each further cut dim and sends nothing.  A leaf that keeps
+    its layout is the same tensor."""
+    out = []
+    for seg, s_sp, d_sp in zip(cache, src, dst):
+        new = {}
+        for k, t in seg.items():
+            a = tuple(s_sp[k]) + (None,) * (t.ndim - len(s_sp[k]))
+            b = tuple(d_sp[k]) + (None,) * (t.ndim - len(d_sp[k]))
+            if a == b:
+                new[k] = t
+                continue
+            if any(x is not None and x != y for x, y in zip(a, b)):
+                raise ValueError(f"{k}: {b} does not refine {a}: the "
+                                 "blocks would move between ranks")
+            extra = tuple(y if x is None else None for x, y in zip(a, b))
+            common.shard_shape(tuple(t.shape), extra, sizes)
+            new[k] = common.shard(t, extra, coords, sizes)
+        out.append(new)
+    return out
+
+
+def serving_specs(cfg: ModelConfig, mesh, batch: int, max_len: int
+                  ) -> dict:
+    """The layout of a serving request of ``batch`` sequences and a cache
+    of ``max_len`` positions (``init_cache``'s) on ``mesh``, as the
+    reference lays out a prefill cell and a decode cell of those sizes:
+    "batch" the batch dim's spec entry, "prefill" and "decode" the cache
+    spec trees, "kv_shard" the axes the decode's full-attention
+    positions split over (None where no such cache splits: an ssm or
+    enc_dec model, or no axis needs it)."""
+    data = mesh_lib.data_axes_of(mesh)
+    pre = ShapeCell("serve_prefill", max_len, batch, "prefill")
+    dec = ShapeCell("serve_decode", max_len, batch, "decode")
+    kvs = kv_shard_axes(cfg, dec, mesh, data)
+    return {"batch": _batch_entry(batch, mesh_lib.axis_sizes(mesh), data),
+            "prefill": cache_pspecs(cfg, pre, mesh, data),
+            "decode": cache_pspecs(cfg, dec, mesh, data, kv_shard=kvs),
+            "kv_shard": None if cfg.enc_dec or cfg.family == "ssm" else kvs}
 
 
 def state_shard_shapes(cfg: ModelConfig, mesh) -> dict:
@@ -192,56 +298,25 @@ def shard_shapes(cfg: ModelConfig, shape_name: str, mesh) -> dict:
     cell = SHAPES[shape_name]
     sizes = mesh_lib.axis_sizes(mesh)
     data = mesh_lib.data_axes_of(mesh)
-    nd = math.prod(sizes[a] for a in data)
-    bp = data if cell.global_batch % nd == 0 else None
-    mdl = ("model",) if "model" in sizes else None
+    bp = _batch_entry(cell.global_batch, sizes, data)
     out: dict = {}
-    if mdl:
+    if "model" in sizes:
         state = state_shard_shapes(cfg, mesh)
         out["params"] = state["params"]
         if cell.kind == "train":
             out["opt"] = state["opt"]
     if cell.kind in ("train", "prefill"):
-        out["batch"] = {k: _split(tuple(t.shape), (bp,) + (None,) *
-                                  (t.ndim - 1), sizes)
+        out["batch"] = {k: common.shard_shape(tuple(t.shape), (bp,), sizes)
                         for k, t in batch_specs(cfg, cell).items()}
     if cell.kind == "train":
         return out
-    kvs = kv_shard_axes(cfg, cell, mesh, data) \
-        if cell.kind == "decode" else None
-
-    def kv_spec(full_attn: bool) -> tuple:
-        h_ax = mdl if mdl and _divisible(cfg.n_kv_heads, sizes,
-                                         "model") else None
-        if kvs and full_attn:
-            if "model" in kvs:
-                return (None, bp, kvs, None, None)
-            return (None, None, kvs, h_ax, None)
-        return (None, bp, None, h_ax, None)
-
-    caches = cache_shapes(cfg, cell.global_batch, cell.seq_len)
-    if cfg.enc_dec:
-        specs = [dict.fromkeys(("k", "v", "xk", "xv"), kv_spec(False))]
-    elif cfg.family == "ssm":
-        h = cfg.d_model // cfg.rwkv_head_dim
-        h_ax = mdl if mdl and _divisible(h, sizes, "model") else None
-        specs = [dict(s=(None, bp, h_ax, None, None),
-                      x_tm=(None, bp, None), x_cm=(None, bp, None))]
-    else:
-        specs = []
-        for seg in transformer.segments(cfg):
-            full = seg.kind == "full"
-            c = dict(k=kv_spec(full), v=kv_spec(full))
-            if cfg.family == "hybrid":
-                d_ax = mdl if mdl and _divisible(cfg.q_dim, sizes,
-                                                 "model") else None
-                c.update(m_h=(None, bp, d_ax, None),
-                         m_conv=(None, bp, None, d_ax))
-            specs.append(c)
-    out["cache"] = [{k: _split(tuple(seg[k].shape), sp[k], sizes)
-                     for k in seg} for seg, sp in zip(caches, specs)]
+    kvs = kv_shard_axes(cfg, cell, mesh, data)
+    out["cache"] = cut_cache_shapes(
+        cache_shapes(cfg, cell.global_batch, cell.seq_len),
+        cache_pspecs(cfg, cell, mesh, data, kv_shard=kvs), sizes)
     if cell.kind == "decode":
-        out["tokens"] = _split((cell.global_batch, 1), (bp, None), sizes)
+        out["tokens"] = common.shard_shape((cell.global_batch, 1), (bp,),
+                                           sizes)
     return out
 
 

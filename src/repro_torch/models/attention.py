@@ -178,7 +178,7 @@ def decode_attend(q: torch.Tensor, k_cache: torch.Tensor,
     """One-token decode. q (B, 1, H, hd); caches (B, S, KVH, hd).
 
     ``pos`` (int, scalar tensor or (B,)): index of the NEW token; keys at
-    indices > pos are masked.  For ``window > 0`` the cache is a ring
+    indices > pos are masked.  The cache is read in ``q``'s dtype.  For ``window > 0`` the cache is a ring
     buffer of width ``window`` written at ``pos % window``; the mask
     handles the wrap-around.  The cache is read in chunks of ``chunk``
     slots, the last one ragged, partials merged by their log-sum-exp.
@@ -204,8 +204,8 @@ def decode_attend(q: torch.Tensor, k_cache: torch.Tensor,
         else:
             valid = slot[None, :] <= posv[:, None]
         mask = valid[:, None, None, None, :]                    # (B,1,1,1,Ck)
-        m2, l2, o2 = _block_attn(qg, k_cache[:, lo:hi], v_cache[:, lo:hi],
-                                 mask, scale)
+        m2, l2, o2 = _block_attn(qg, k_cache[:, lo:hi].to(q.dtype),
+                                 v_cache[:, lo:hi].to(q.dtype), mask, scale)
         m0, l0, o0 = _merge(m0, l0, o0, m2, l2, o2)
     return _finish(l0, o0, q.dtype).reshape(b, 1, h, hd)
 
@@ -253,8 +253,8 @@ def decode_attend_seqsharded(q: torch.Tensor, k_new: torch.Tensor,
         hi = min(lo + ck, sloc)
         abs_slot = base + torch.arange(lo, hi, device=dev)
         mask = (abs_slot[None, :] <= posv[:, None])[:, None, None, None, :]
-        m2, l2, o2 = _block_attn(qg, k_cache[:, lo:hi], v_cache[:, lo:hi],
-                                 mask, scale)
+        m2, l2, o2 = _block_attn(qg, k_cache[:, lo:hi].to(q.dtype),
+                                 v_cache[:, lo:hi].to(q.dtype), mask, scale)
         m0, l0, o0 = _merge(m0, l0, o0, m2, l2, o2)
     comm = comm_device(group)
     mg = m0.to(comm, copy=True)

@@ -13,17 +13,29 @@ recurrence as a chunked ``lax.associative_scan``.  Prefill, decode (S = 1,
 from the cached state and conv history) and the teacher-forced forward
 all take this one path.  ``mamba_naive`` is the plain sequential oracle
 (tests and ``chip_smoke.py`` only).
+
+``mamba_mix(..., tp=group)`` runs the mixer channel-parallel over a
+model group of M ranks (serving): rank r holds channels r·D/M ..
+(r+1)·D/M of ``conv``, ``w_dt``, ``dt_bias``, ``w_b``, ``w_c``,
+``a_log``, ``d_skip`` and the rows of ``w_out``, and of the state
+(``h`` (B, D/M, N), ``conv`` (B, K-1, D/M)); ``w_in`` comes whole (its
+x and z halves lie on different ranks under the reference's specs) and
+the rank takes its own columns of each half.  ``B_t`` and ``C_t`` are
+sums over every channel: each rank's partial sums are completed by one
+all-reduce.  The scan runs on the rank's (B, S, D/M, N), and the
+``w_out`` rows' partial outputs end in one ``reduce_from``.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.models import common
+from repro_torch.models import common, parallel
 
 
 class MambaState(NamedTuple):
@@ -62,11 +74,17 @@ def _conv_causal(x: torch.Tensor, kernel: torch.Tensor,
     return out
 
 
-def _dt_bc(xc: torch.Tensor, p: dict):
-    """xc (B, S, D) -> dt (B, S, D), B_t, C_t (B, S, N), A (D, N)."""
+def _dt_bc(xc: torch.Tensor, p: dict, tp=None):
+    """xc (B, S, D) -> dt (B, S, D), B_t, C_t (B, S, N), A (D, N).
+    ``tp``: ``xc`` holds this rank's channels; B_t and C_t, sums over
+    every channel, are completed by one all-reduce over the group."""
     dt = F.softplus(xc * p["w_dt"][..., 0] + p["dt_bias"])
     bt = xc @ p["w_b"]
     ct = xc @ p["w_c"]
+    if parallel.size(tp) > 1:
+        n = bt.shape[-1]
+        bt, ct = parallel.reduce_from(torch.cat([bt, ct], dim=-1),
+                                      tp).split(n, dim=-1)
     a_mat = -torch.exp(p["a_log"].to(torch.float32))
     return dt, bt, ct, a_mat
 
@@ -100,21 +118,44 @@ def _mixer_out(y: torch.Tensor, xc: torch.Tensor, z: torch.Tensor, p: dict,
     return y @ p["w_out"]
 
 
+def _channels(p: dict, d_inner: int, tp) -> tuple[dict, int]:
+    """A channel-parallel rank's parameters: its x and z columns of the
+    whole ``w_in``, beside its own blocks of the rest.  -> (p, D/M)."""
+    m, r = parallel.size(tp), dist.get_rank(tp)
+    dl = d_inner // m
+    w_in = p["w_in"]
+    if w_in.shape[-1] != 2 * d_inner or p["conv"].shape[-1] != dl:
+        raise ValueError(f"channel-parallel Mamba on {m} ranks takes w_in "
+                         f"whole (2 x {d_inner} columns) and {dl} channels "
+                         f"of the rest, got {w_in.shape[-1]} and "
+                         f"{p['conv'].shape[-1]}")
+    cols = torch.cat([w_in[:, r * dl:(r + 1) * dl],
+                      w_in[:, d_inner + r * dl:d_inner + (r + 1) * dl]],
+                     dim=1)
+    return {**p, "w_in": cols}, dl
+
+
 def mamba_mix(x: torch.Tensor, p: dict, *, d_inner: int,
-              state: MambaState | None = None
+              state: MambaState | None = None, tp=None
               ) -> tuple[torch.Tensor, MambaState]:
     """Full Mamba mixer. x (B, S, d_model) -> (B, S, d_model), final state.
 
     The recurrence is one ``ops.ssm_scan`` call from ``state.h`` (zeros
-    without a state)."""
+    without a state).  ``tp``: a model group over which the mixer runs
+    channel-parallel (the module's docstring); ``state`` then holds this
+    rank's channels, and so does the state returned."""
+    if parallel.size(tp) > 1:
+        p, d_inner = _channels(p, d_inner, tp)
+        x = parallel.copy_to(x, tp)
     xc, z, tail = _mixer_in(x, p, d_inner, state)
-    dt, bt, ct, a_mat = _dt_bc(xc, p)
+    dt, bt, ct, a_mat = _dt_bc(xc, p, tp)
     h0 = state.h if state is not None else None
     y, h_last = ops.ssm_scan(xc.contiguous(), dt.contiguous(),
                              bt.contiguous(), ct.contiguous(),
                              a_mat.contiguous(),
                              None if h0 is None else h0.contiguous())
-    return _mixer_out(y, xc, z, p, x.dtype), MambaState(h=h_last, conv=tail)
+    out = _mixer_out(y, xc, z, p, x.dtype)
+    return parallel.reduce_from(out, tp), MambaState(h=h_last, conv=tail)
 
 
 def mamba_naive(x: torch.Tensor, p: dict, *, d_inner: int,

@@ -30,10 +30,15 @@ param_pspecs``), which blocks run tensor-parallel: attention whose
 ``wq``/``wk``/``wv`` columns and ``wo`` rows lie over "model" by whole
 heads (column-parallel projections, a row-parallel ``wo``, one
 ``reduce_from``); an FFN whose ``ff`` dim lies over "model"; a MoE
-whose experts split over "model" (``moe.moe_ffn_ep``).  Every other
-sharded leaf is gathered where it is used (``Plan.take``), inside the
-per-layer checkpoint, so the backward gathers it again and no whole
-stack is held.
+whose experts split over "model" (``moe.moe_ffn_ep``).  A serving plan
+(``serve=True``) adds three forward-only kinds: Hymba's Mamba by
+channel (its ``d_inner`` leaves over "model", ``mamba.mamba_mix(tp=)``),
+RWKV's time mix by head (``w_r``/``w_k``/``w_v``/``w_g`` columns,
+``w_o`` rows, ``bonus_u``) and its channel mix by ``ff``
+(``rwkv.rwkv_layer(tp=, ffn_tp=)``).  Every other sharded leaf is
+gathered where it is used (``Plan.take``), inside the per-layer
+checkpoint, so the backward gathers it again and no whole stack is
+held.
 """
 from __future__ import annotations
 
@@ -48,6 +53,17 @@ MODEL = "model"
 ATTN_BLOCKS = (("layers", "attn"), ("dec", "attn"), ("dec", "xattn"))
 FFN_BLOCKS = (("layers", "ffn"), ("dec", "ffn"))
 MOE_BLOCK = ("layers", "moe")
+MAMBA_BLOCK = ("layers", "mamba")
+# RWKV's leaves lie in "layers" itself: its two halves are named blocks
+RWKV_TIME, RWKV_CHANNEL = ("layers", "time_mix"), ("layers", "channel_mix")
+# the leaves a serving block keeps local, each with the dim that "model"
+# must cut (of the stacked (L, ...) leaf); Mamba's ``w_in`` is gathered
+# (its x and z halves lie on different ranks), as are RWKV's ``w_cr``,
+# ``ln_x``, token-shift mixes and decay LoRA
+MAMBA_LOCAL = dict(conv=-1, w_dt=1, dt_bias=-1, w_b=1, w_c=1, a_log=1,
+                   d_skip=-1, w_out=1)
+RWKV_TIME_LOCAL = dict(w_r=-1, w_k=-1, w_v=-1, w_g=-1, w_o=1, bonus_u=1)
+RWKV_CHANNEL_LOCAL = dict(w_ck=-1, w_cv=1)
 STACKS = ("layers", "dec")       # stacked (L, ...) subtrees
 
 
@@ -159,8 +175,8 @@ def _is(spec: tuple, dim: int, axis: str = MODEL) -> bool:
 
 
 def _tensor_parallel(cfg, flat: dict, m: int) -> dict:
-    """{block path: the leaves it keeps local} for each block that runs
-    tensor- or expert-parallel over a model axis of ``m`` ranks."""
+    """{block path: the leaf paths it keeps local} for each block that
+    runs tensor- or expert-parallel over a model axis of ``m`` ranks."""
     out: dict = {}
     if m <= 1:
         return out
@@ -171,17 +187,49 @@ def _tensor_parallel(cfg, flat: dict, m: int) -> dict:
         cols = all(_is(flat[blk + (n,)], -1) for n in names[:3])
         if cols and _is(flat[blk + ("wo",)], -2) \
                 and cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0:
-            out[blk] = names
+            out[blk] = tuple(blk + (n,) for n in names)
     for blk in FFN_BLOCKS:
         names = tuple(n for n in ("wg", "wu", "wd") if blk + (n,) in flat)
         if not names:
             continue
         if all(_is(flat[blk + (n,)], -2 if n == "wd" else -1)
                for n in names):
-            out[blk] = names
+            out[blk] = tuple(blk + (n,) for n in names)
     if MOE_BLOCK + ("wg",) in flat and cfg.n_experts % m == 0 and all(
             _is(flat[MOE_BLOCK + (n,)], 1) for n in ("wg", "wu", "wd")):
-        out[MOE_BLOCK] = ("wg", "wu", "wd")
+        out[MOE_BLOCK] = tuple(MOE_BLOCK + (n,) for n in ("wg", "wu", "wd"))
+    return out
+
+
+def _local(flat: dict, prefix: tuple, dims: dict) -> tuple | None:
+    """The paths of ``dims``' leaves under ``prefix`` if "model" cuts
+    each at its dim, else None."""
+    paths = tuple(prefix + (n,) for n in dims)
+    if all(p in flat and _is(flat[p], d) for p, d in zip(paths,
+                                                           dims.values())):
+        return paths
+    return None
+
+
+def _serving_parallel(cfg, flat: dict, m: int) -> dict:
+    """The forward-only blocks of a serving plan: Hymba's Mamba by
+    channel where ``q_dim`` (its ``d_inner``) divides ``m``, RWKV's time
+    mix by whole heads and its channel mix by ``ff``."""
+    out: dict = {}
+    if m <= 1:
+        return out
+    if cfg.family == "hybrid" and cfg.q_dim % m == 0:
+        keep = _local(flat, MAMBA_BLOCK, MAMBA_LOCAL)
+        if keep:
+            out[MAMBA_BLOCK] = keep
+    if cfg.family == "ssm":
+        if (cfg.d_model // cfg.rwkv_head_dim) % m == 0:
+            keep = _local(flat, ("layers",), RWKV_TIME_LOCAL)
+            if keep:
+                out[RWKV_TIME] = keep
+        keep = _local(flat, ("layers",), RWKV_CHANNEL_LOCAL)
+        if keep:
+            out[RWKV_CHANNEL] = keep
     return out
 
 
@@ -192,16 +240,28 @@ class Plan:
     param_pspecs``); ``model`` and ``data``: this rank's groups of the
     model axis and of the data axes together (None: one rank).  A spec
     entry "model" is cut over ``model``, any other (a data axis or a
-    tuple of them) over ``data``."""
+    tuple of them) over ``data``.  ``serve``: also the forward-only
+    blocks (Mamba by channel, RWKV by head and by ``ff``).  ``mesh`` (a
+    ``launch.mesh.MeshSpec``) and ``coords`` ({axis: index}, this
+    rank's place on it): what a serving run needs to cut its batch and
+    caches (``launch.serve.greedy_generate``)."""
 
-    def __init__(self, cfg, specs: dict, *, model=None, data=None):
+    def __init__(self, cfg, specs: dict, *, model=None, data=None,
+                 serve: bool = False, mesh=None, coords: dict | None = None):
         self.specs = specs
         self.flat = dict(common.leaves(specs))
         self.model, self.data = model, data
-        blocks = _tensor_parallel(cfg, self.flat, size(model))
+        self.mesh, self.coords = mesh, coords
+        m = size(model)
+        blocks = _tensor_parallel(cfg, self.flat, m)
+        serving = _serving_parallel(cfg, self.flat, m) if serve else {}
+        blocks.update(serving)
         self.tp_blocks = frozenset(blocks)
-        self.keep = frozenset(blk + (n,) for blk, names in blocks.items()
-                              for n in names)
+        self.keep = frozenset(p for paths in blocks.values() for p in paths)
+        self._by_kind = {
+            "mamba_leaves": len(serving.get(MAMBA_BLOCK, ())),
+            "rwkv_leaves": len(serving.get(RWKV_TIME, ()))
+            + len(serving.get(RWKV_CHANNEL, ()))}
 
     def group(self, entry):
         return self.model if entry == MODEL else self.data
@@ -222,12 +282,14 @@ class Plan:
                      for e in self.flat[path])
 
     def counts(self) -> dict:
-        """Leaves used tensor- or expert-parallel over "model", and
-        leaves gathered where they are used (over "model", the data
-        axes, or both)."""
+        """Leaves used tensor- or expert-parallel over "model" (of them,
+        a serving plan's Mamba leaves by channel and RWKV leaves by head
+        or ``ff``), and leaves gathered where they are used (over
+        "model", the data axes, or both)."""
         gathered = sum(1 for p in self.flat
                        if p not in self.keep and self.axes_of(p))
-        return {"tp_leaves": len(self.keep), "gathered_leaves": gathered}
+        return {"tp_leaves": len(self.keep), "gathered_leaves": gathered,
+                **self._by_kind}
 
     def take(self, tree: dict, prefix: tuple = (), *,
              stacked: bool = False) -> dict:

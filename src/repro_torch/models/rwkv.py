@@ -27,15 +27,26 @@ a (B, S, S, H, n) tensor (about 275 GB at rwkv6-7b's widths for 2 x 2,050
 tokens).  Here the sequence runs in chunks of ``chunk`` and one ragged
 last chunk: the same closed form, the same values up to rounding.
 ``rwkv_naive_wkv`` is the sequential oracle.
+
+Serving over a model group of M ranks: ``time_mix(..., tp=group)`` runs
+by head.  Rank r holds heads r·H/M .. (r+1)·H/M: the columns of
+``w_r``, ``w_k``, ``w_v``, ``w_g``, the rows of ``w_o``, ``bonus_u``
+and the state ``s`` (B, H/M, n, n); the token shift, the mixes and the
+decay LoRA run whole on every rank, which keeps its heads' columns of
+the decays and of ``ln_x``; the ranks' ``w_o`` outputs meet in one
+``reduce_from``.  ``channel_mix(..., tp=group)`` runs by ``ff``:
+``w_ck`` columns and ``w_cv`` rows, one ``reduce_from`` before the
+receptance gate (``w_cr`` whole).
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
-from repro_torch.models import common
+from repro_torch.models import common, parallel
 
 
 class RwkvState(NamedTuple):
@@ -133,15 +144,23 @@ def _chunk_wkv(r, k, v, logw, u, s0):
 
 
 def time_mix(x: torch.Tensor, p: dict, *, head_dim: int, chunk: int = 64,
-             state: RwkvState | None = None
+             state: RwkvState | None = None, tp=None
              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """RWKV6 attention replacement.  x (B, S, d) -> (out, s_end, last_x).
 
     The sequence runs in chunks of ``chunk`` tokens, the last one ragged
-    when S is no multiple of it."""
+    when S is no multiple of it.  ``tp``: a model group over which it
+    runs by head (the module's docstring); ``state.s`` and ``s_end``
+    then hold this rank's heads."""
     b, s, d = x.shape
     n = head_dim
-    h = d // n
+    m = parallel.size(tp)
+    h = d // n // m                                    # this rank's heads
+    col = 0 if m == 1 else dist.get_rank(tp) * h * n   # its first column
+    if p["w_r"].shape[-1] != h * n:
+        raise ValueError(f"time mix over {m} ranks takes {h} heads a "
+                         f"rank, w_r holds {p['w_r'].shape[-1]} columns")
+    x = parallel.copy_to(x, tp)
     last = state.x_tm if state is not None else x.new_zeros((b, d))
     xs = _token_shift(x, last)
     mu = p["mix"]                                      # (5, d)
@@ -150,7 +169,7 @@ def time_mix(x: torch.Tensor, p: dict, *, head_dim: int, chunk: int = 64,
     k = (xk @ p["w_k"]).reshape(b, s, h, n)
     v = (xv @ p["w_v"]).reshape(b, s, h, n)
     g = xg @ p["w_g"]
-    logw = _decays(xw, p).reshape(b, s, h, n)
+    logw = _decays(xw, p)[..., col:col + h * n].reshape(b, s, h, n)
 
     st = (state.s if state is not None
           else torch.zeros((b, h, n, n), dtype=torch.float32,
@@ -162,16 +181,20 @@ def time_mix(x: torch.Tensor, p: dict, *, head_dim: int, chunk: int = 64,
         o, st = _chunk_wkv(r[:, lo:hi], k[:, lo:hi], v[:, lo:hi],
                            logw[:, lo:hi], p["bonus_u"], st)
         outs.append(o)
-    out = _group_norm(torch.cat(outs, dim=1), p["ln_x"], n).reshape(b, s, d)
+    ln_x = p["ln_x"][col:col + h * n]
+    out = _group_norm(torch.cat(outs, dim=1), ln_x, n).reshape(b, s, h * n)
     out = (out * F.silu(g.to(torch.float32))).to(x.dtype)
-    return out @ p["w_o"], st, x[:, -1, :]
+    return parallel.reduce_from(out @ p["w_o"], tp), st, x[:, -1, :]
 
 
 def channel_mix(x: torch.Tensor, p: dict, *,
-                state: RwkvState | None = None
+                state: RwkvState | None = None, tp=None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """RWKV6 FFN. x (B, S, d) -> (out, last_x)."""
+    """RWKV6 FFN. x (B, S, d) -> (out, last_x).  ``tp``: a model group
+    over which ``w_ck`` holds this rank's ``ff`` columns and ``w_cv``
+    its rows."""
     b, s, d = x.shape
+    x = parallel.copy_to(x, tp)
     last = state.x_cm if state is not None else x.new_zeros((b, d))
     xs = _token_shift(x, last)
     mu = p["mix_c"]
@@ -179,17 +202,21 @@ def channel_mix(x: torch.Tensor, p: dict, *,
     xr = _lerp(x, xs, mu[1])
     kk = torch.square(F.relu(xk @ p["w_ck"]))
     rr = torch.sigmoid((xr @ p["w_cr"]).to(torch.float32)).to(x.dtype)
-    return rr * (kk @ p["w_cv"]), x[:, -1, :]
+    return rr * parallel.reduce_from(kk @ p["w_cv"], tp), x[:, -1, :]
 
 
 def rwkv_layer(x: torch.Tensor, p: dict, *, head_dim: int, chunk: int = 64,
-               state: RwkvState | None = None
+               state: RwkvState | None = None, tp=None, ffn_tp=None
                ) -> tuple[torch.Tensor, RwkvState]:
-    """One full RWKV block: time mix + channel mix, pre-norm residual."""
+    """One full RWKV block: time mix + channel mix, pre-norm residual.
+    ``tp`` / ``ffn_tp``: the model group of a time mix by head / a
+    channel mix by ``ff`` (``state.s`` then holds this rank's heads)."""
     att, s_end, x_tm = time_mix(common.rmsnorm(x, p["ln1"]), p,
-                                head_dim=head_dim, chunk=chunk, state=state)
+                                head_dim=head_dim, chunk=chunk, state=state,
+                                tp=tp)
     x = x + att
-    ffn, x_cm = channel_mix(common.rmsnorm(x, p["ln2"]), p, state=state)
+    ffn, x_cm = channel_mix(common.rmsnorm(x, p["ln2"]), p, state=state,
+                            tp=ffn_tp)
     return x + ffn, RwkvState(s=s_end, x_tm=x_tm, x_cm=x_cm)
 
 

@@ -34,17 +34,22 @@ Mamba recurrence goes through ``ops.ssm_scan``'s autograd ``Function``
 
 ``decode_step`` takes ``kv_shard``, a ``torch.distributed`` group over
 whose ranks the full-attention layers' caches split their positions
-(``cache_shard`` cuts a rank's share of a whole cache), the counterpart of
-the reference's ``Ctx.kv_shard``: those layers decode through
-``attention.decode_attend_seqsharded``; every other part of the step is
-the same on every rank.
+(``launch.specs.cache_blocks`` cuts a rank's share of a whole cache),
+the counterpart of the reference's ``Ctx.kv_shard``: those layers decode
+through ``attention.decode_attend_seqsharded``.  ``prefill`` and
+``decode_step`` take ``plan`` (``parallel.Plan``, ``serve=True``): the
+parameters are this rank's shards of a (data, model) mesh and the cache
+its blocks by the reference's ``cache_pspecs``; the tensor- and
+expert-parallel blocks, Mamba by channel and RWKV by head run over the
+model group, every other leaf is gathered in its layer, and
+``kv_shard`` is the model group (positions over "model"), the data group
+(long_500k's layout) or None.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
-import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
@@ -204,14 +209,25 @@ def attn_train(x, p, cfg: ModelConfig, kind: str, *, causal: bool = True,
     return parallel.reduce_from(out, tp), (k, v)
 
 
+def _check_heads(cache_k, k) -> None:
+    """A cache must hold the heads the attention computes: a rank's
+    under tensor parallelism, else all of them."""
+    if cache_k.shape[-2] != k.shape[-2]:
+        raise ValueError(f"the cache holds {cache_k.shape[-2]} KV heads, "
+                         f"the attention computes {k.shape[-2]}")
+
+
 def attn_decode(x, p, cfg: ModelConfig, kind: str, cache, pos,
-                kv_shard=None):
+                kv_shard=None, tp=None):
     """One-token attention against the cache, written in place.
     ``pos`` (B,) int64; ``kv_shard`` a group over which a full-attention
-    cache splits its positions (this rank's slice in ``cache``).
-    Returns (out, cache)."""
+    cache splits its positions (this rank's slice in ``cache``); ``tp``
+    a model group over which the attention runs by head (the cache holds
+    this rank's KV heads).  Returns (out, cache)."""
     b = x.shape[0]
-    q, k, v = _qkv(x, p, cfg, pos[:, None])
+    x, p, m = _tp_enter(x, p, tp)
+    q, k, v = _qkv(x, p, cfg, pos[:, None], m)
+    _check_heads(cache["k"], k)
     window = cfg.window if kind == "swa" else 0
     if kv_shard is not None and not window:
         out, kc, vc = attention.decode_attend_seqsharded(
@@ -220,7 +236,8 @@ def attn_decode(x, p, cfg: ModelConfig, kind: str, cache, pos,
         kc, vc = attention.cache_update(cache["k"], cache["v"], k, v, pos,
                                         window=window)
         out = attention.decode_attend(q, kc, vc, pos, window=window)
-    return out.reshape(b, 1, cfg.q_dim) @ p["wo"], {"k": kc, "v": vc}
+    out = out.reshape(b, 1, cfg.q_dim // m) @ p["wo"]
+    return parallel.reduce_from(out, tp), {"k": kc, "v": vc}
 
 
 def _zero_aux(device) -> moe.MoEAux:
@@ -287,35 +304,45 @@ def layer_train(x, p, cfg: ModelConfig, kind: str, plan=None):
     attn_out, kv = attn_train(h, p["attn"], cfg, kind,
                               tp=_tp(plan, ("layers", "attn")))
     if cfg.family == "hybrid":
-        m_out, _ = mamba.mamba_mix(h, p["mamba"], d_inner=cfg.q_dim)
+        m_out, _ = mamba.mamba_mix(h, p["mamba"], d_inner=cfg.q_dim,
+                                   tp=_tp(plan, parallel.MAMBA_BLOCK))
         attn_out = _mix(attn_out, m_out, p)
     block = ("layers", "moe" if cfg.n_experts else "ffn")
     x, aux = _ffn_residual(x, h, attn_out, p, cfg, _tp(plan, block))
     return x, aux, kv
 
 
+def _ffn_tp(plan, cfg: ModelConfig):
+    return _tp(plan, ("layers", "moe" if cfg.n_experts else "ffn"))
+
+
 def layer_decode(x, p, cfg: ModelConfig, kind: str, cache, pos,
-                 kv_shard=None):
+                 kv_shard=None, plan=None):
     """One decoder layer, one token; writes the layer's cache in place.
-    Returns (x, cache)."""
+    ``plan``: ``p`` is this rank's layer as ``Plan.take`` gives it and
+    ``cache`` its blocks.  Returns (x, cache)."""
     h = common.rmsnorm(x, p["ln1"])
     attn_out, _ = attn_decode(h, p["attn"], cfg, kind, cache, pos,
-                              kv_shard)
+                              kv_shard, _tp(plan, ("layers", "attn")))
     if cfg.family == "hybrid":
         mst = mamba.MambaState(h=cache["m_h"], conv=cache["m_conv"])
         m_out, mst = mamba.mamba_mix(h, p["mamba"], d_inner=cfg.q_dim,
-                                     state=mst)
+                                     state=mst,
+                                     tp=_tp(plan, parallel.MAMBA_BLOCK))
         cache["m_h"].copy_(mst.h)
         cache["m_conv"].copy_(mst.conv)
         attn_out = _mix(attn_out, m_out, p)
-    return _ffn_residual(x, h, attn_out, p, cfg)[0], cache
+    return _ffn_residual(x, h, attn_out, p, cfg, _ffn_tp(plan, cfg))[0], \
+        cache
 
 
-def layer_prefill(x, p, cfg: ModelConfig, kind: str, cache):
-    """Full-sequence compute + cache population (in place).
-    Returns (x, cache)."""
+def layer_prefill(x, p, cfg: ModelConfig, kind: str, cache, plan=None):
+    """Full-sequence compute + cache population (in place).  ``plan`` as
+    ``layer_decode``'s.  Returns (x, cache)."""
     h = common.rmsnorm(x, p["ln1"])
-    attn_out, (k, v) = attn_train(h, p["attn"], cfg, kind)
+    attn_out, (k, v) = attn_train(h, p["attn"], cfg, kind,
+                                  tp=_tp(plan, ("layers", "attn")))
+    _check_heads(cache["k"], k)
     s = x.shape[1]
     window = cfg.window if kind == "swa" else 0
     kd, vd = k.to(cache["k"].dtype), v.to(cache["v"].dtype)
@@ -327,11 +354,13 @@ def layer_prefill(x, p, cfg: ModelConfig, kind: str, cache):
         cache["k"][:, :s] = kd
         cache["v"][:, :s] = vd
     if cfg.family == "hybrid":
-        m_out, mst = mamba.mamba_mix(h, p["mamba"], d_inner=cfg.q_dim)
+        m_out, mst = mamba.mamba_mix(h, p["mamba"], d_inner=cfg.q_dim,
+                                     tp=_tp(plan, parallel.MAMBA_BLOCK))
         cache["m_h"].copy_(mst.h)
         cache["m_conv"].copy_(mst.conv)
         attn_out = _mix(attn_out, m_out, p)
-    return _ffn_residual(x, h, attn_out, p, cfg)[0], cache
+    return _ffn_residual(x, h, attn_out, p, cfg, _ffn_tp(plan, cfg))[0], \
+        cache
 
 
 # ---------------------------------------------------------------------------
@@ -391,8 +420,8 @@ def decoder_stack(params, x, cfg: ModelConfig, mode: str, *,
     policy of also keeping the matmul outputs has no counterpart.  The
     values are the same either way.  ``kv_shard`` ("decode" only): the
     group over which the full-attention caches split their positions.
-    ``plan`` ("train" only): a ``parallel.Plan``, the stacks hold this
-    rank's shards."""
+    ``plan``: a ``parallel.Plan``, the stacks hold this rank's shards
+    (and ``cache`` its blocks)."""
     if cfg.family == "ssm":
         return _rwkv_stack(params, x, cfg, mode, cache=cache, plan=plan)
     remat = _remat(cfg, mode)
@@ -407,17 +436,20 @@ def decoder_stack(params, x, cfg: ModelConfig, mode: str, *,
                 aux = _add_aux(aux, moe.MoEAux(*a))
                 continue
             c_l = _layer(cache[si], i - seg.start)
+            p_l = _take(plan, p_l, "layers")
             if mode == "prefill":
-                x, _ = layer_prefill(x, p_l, cfg, seg.kind, c_l)
+                x, _ = layer_prefill(x, p_l, cfg, seg.kind, c_l, plan)
             else:
                 x, _ = layer_decode(x, p_l, cfg, seg.kind, c_l, pos,
-                                    kv_shard)
+                                    kv_shard, plan)
     return x, aux, cache
 
 
-def _rwkv_layer(x, p_l, cfg: ModelConfig, state=None):
+def _rwkv_layer(x, p_l, cfg: ModelConfig, state=None, plan=None):
     return rwkv.rwkv_layer(x, p_l, head_dim=cfg.rwkv_head_dim,
-                           chunk=min(64, cfg.scan_chunk), state=state)
+                           chunk=min(64, cfg.scan_chunk), state=state,
+                           tp=_tp(plan, parallel.RWKV_TIME),
+                           ffn_tp=_tp(plan, parallel.RWKV_CHANNEL))
 
 
 def _rwkv_train_layer(x, p_l, cfg: ModelConfig, plan=None):
@@ -437,8 +469,9 @@ def _rwkv_stack(params, x, cfg: ModelConfig, mode: str, *, cache=None,
             x = _run(_rwkv_train_layer, remat, x, p_l, cfg, plan)
             continue
         c = cache[0]
-        x, st = _rwkv_layer(x, p_l, cfg, rwkv.RwkvState(
-            s=c["s"][i], x_tm=c["x_tm"][i], x_cm=c["x_cm"][i]))
+        x, st = _rwkv_layer(x, _take(plan, p_l, "layers"), cfg,
+                            rwkv.RwkvState(s=c["s"][i], x_tm=c["x_tm"][i],
+                                           x_cm=c["x_cm"][i]), plan)
         c["s"][i].copy_(st.s)
         c["x_tm"][i].copy_(st.x_tm)
         c["x_cm"][i].copy_(st.x_cm)
@@ -515,6 +548,7 @@ def _decoder_layer(x, p_l, enc_out, cfg: ModelConfig, c_l=None, plan=None):
     f_out, _ = ffn_block(common.rmsnorm(x, p_l["ln2"]), p_l["ffn"], cfg,
                          _tp(plan, ("dec", "ffn")))
     if c_l is not None:
+        _check_heads(c_l["k"], k)
         c_l["k"][:, :sq] = k.to(c_l["k"].dtype)
         c_l["v"][:, :sq] = v.to(c_l["v"].dtype)
         c_l["xk"].copy_(xk)
@@ -522,22 +556,34 @@ def _decoder_layer(x, p_l, enc_out, cfg: ModelConfig, c_l=None, plan=None):
     return x + f_out
 
 
-def _decoder_layer_decode(x, p_l, cfg: ModelConfig, c_l, pos: int):
+def _decoder_layer_decode(x, p_l, cfg: ModelConfig, c_l, pos: int,
+                          plan=None):
     """One decoder layer, one token at ``pos``; its self K/V written into
     the cache.  The cross-attention reads every frame of ``xk`` / ``xv``
-    (the reference's reads only whole chunks of 1,024)."""
+    (the reference's reads only whole chunks of 1,024).  ``plan``: the
+    blocks run as ``_decoder_layer``'s, the cache holds this rank's
+    heads where they run by head."""
+    p_l = _take(plan, p_l, "dec")
     b = x.shape[0]
     h = common.rmsnorm(x, p_l["ln1"])
-    q, k, v = _qkv(h, p_l["attn"], cfg, None)
+    tp = _tp(plan, ("dec", "attn"))
+    h, pa, m = _tp_enter(h, p_l["attn"], tp)
+    q, k, v = _qkv(h, pa, cfg, None, m)
+    _check_heads(c_l["k"], k)
     kc, vc = attention.cache_update(c_l["k"], c_l["v"], k, v, pos)
     out = attention.decode_attend(q, kc, vc, pos)
-    x = x + out.reshape(b, 1, cfg.q_dim) @ p_l["attn"]["wo"]
+    x = x + parallel.reduce_from(
+        out.reshape(b, 1, cfg.q_dim // m) @ pa["wo"], tp)
     h = common.rmsnorm(x, p_l["ln_x"])
-    q = (h @ p_l["xattn"]["wq"]).reshape(b, 1, cfg.n_heads, cfg.head_dim)
+    tp = _tp(plan, ("dec", "xattn"))
+    h, px, m = _tp_enter(h, p_l["xattn"], tp)
+    q = (h @ px["wq"]).reshape(b, 1, cfg.n_heads // m, cfg.head_dim)
     out = attention.decode_attend(q, c_l["xk"], c_l["xv"],
                                   c_l["xk"].shape[1] - 1)
-    x = x + out.reshape(b, 1, cfg.q_dim) @ p_l["xattn"]["wo"]
-    f_out, _ = ffn_block(common.rmsnorm(x, p_l["ln2"]), p_l["ffn"], cfg)
+    x = x + parallel.reduce_from(
+        out.reshape(b, 1, cfg.q_dim // m) @ px["wo"], tp)
+    f_out, _ = ffn_block(common.rmsnorm(x, p_l["ln2"]), p_l["ffn"], cfg,
+                         _tp(plan, ("dec", "ffn")))
     return x + f_out
 
 
@@ -565,9 +611,11 @@ def whisper_decoder(params, tokens: torch.Tensor, enc_out, cfg: ModelConfig,
             x = _run(_decoder_layer, remat, x, p_l, enc_out, cfg, None,
                      plan)
         elif mode == "prefill":
-            x = _decoder_layer(x, p_l, enc_out, cfg, _layer(cache[0], i))
+            x = _decoder_layer(x, p_l, enc_out, cfg, _layer(cache[0], i),
+                               plan)
         else:
-            x = _decoder_layer_decode(x, p_l, cfg, _layer(cache[0], i), pos)
+            x = _decoder_layer_decode(x, p_l, cfg, _layer(cache[0], i), pos,
+                                      plan)
     return common.rmsnorm(x, params["final_norm"]), cache
 
 
@@ -770,69 +818,61 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return out
 
 
-def cache_shard(cache: list, cfg: ModelConfig, kv_shard) -> list:
-    """This rank's share of a whole cache (e.g. one filled by
-    ``prefill``): each full-attention segment's slice of the positions
-    over the ranks of ``kv_shard``, copied; every other entry copied
-    whole.  The positions must split evenly."""
-    world, rank = dist.get_world_size(kv_shard), dist.get_rank(kv_shard)
-    out = []
-    for seg, c in zip(segments(cfg), cache):
-        total = c["k"].shape[2]
-        if seg.kind == "full" and total % world:
-            raise ValueError(f"{cfg.name}: {total} cache positions do not "
-                             f"split over {world} ranks")
-        n = total // world
-        mine = lambda name, t: (t[:, :, rank * n:(rank + 1) * n]
-                                if seg.kind == "full" and name in ("k", "v")
-                                else t)
-        out.append({name: mine(name, t).clone() for name, t in c.items()})
-    return out
-
-
 @torch.no_grad()
 def prefill(params, batch: dict, cache: list, cfg: ModelConfig, *,
-            device: str | torch.device | None = "cuda"):
+            plan=None, device: str | torch.device | None = "cuda"):
     """Process the prompt (a vlm batch's patches first; an enc_dec batch's
     frames through the encoder, then its "dec_tokens"); returns
-    (last-position logits (B, 1, V), the cache, filled in place)."""
+    (last-position logits (B, 1, V), the cache, filled in place).
+    ``plan``: ``params`` are this rank's shards, ``batch`` its rows and
+    ``cache`` its blocks by the reference's prefill ``cache_pspecs``;
+    the embedding and head are gathered here, each layer's leaves in
+    the layer."""
+    if plan is not None:
+        params = plan.take_top(params)
     if cfg.enc_dec:
-        enc, tokens = _encode(params, batch, cfg, device)
+        enc, tokens = _encode(params, batch, cfg, device, plan)
         x, cache = whisper_decoder(params, tokens, enc, cfg, "prefill",
-                                   cache=cache)
+                                   cache=cache, plan=plan)
         return lm_logits(params, x[:, -1:], cfg), cache
     dev, tokens = _on_device(params, batch["tokens"], device)
     x = embed_inputs(params, tokens, cfg, _patches(batch, cfg, dev))
-    x, _, cache = decoder_stack(params, x, cfg, "prefill", cache=cache)
+    x, _, cache = decoder_stack(params, x, cfg, "prefill", cache=cache,
+                                plan=plan)
     x = common.rmsnorm(x, params["final_norm"])
     return lm_logits(params, x[:, -1:], cfg), cache
 
 
 @torch.no_grad()
 def decode_step(params, tokens, pos: int, cache: list, cfg: ModelConfig, *,
-                kv_shard=None, device: str | torch.device | None = "cuda"):
+                kv_shard=None, plan=None,
+                device: str | torch.device | None = "cuda"):
     """One token step. tokens (B, 1); ``pos`` = its absolute position in
     the prompt + generated stream, a vlm prompt's patches included (the
     meta prefix is added here; an enc_dec model's is its position among
     the decoder's tokens).  ``kv_shard``: a ``torch.distributed`` group
     over whose ranks the full-attention caches split their positions
     (every rank of it calls this with its slice; an enc_dec or ssm model
-    has no such cache and refuses it).
+    has no such cache and refuses it).  ``plan``: as ``prefill``'s, the
+    cache laid out by the reference's decode ``cache_pspecs`` (its
+    full-attention positions over ``kv_shard``'s axes).
 
     Returns (logits (B, 1, V), the cache, updated in place)."""
     if kv_shard is not None and (cfg.enc_dec or cfg.family == "ssm"):
         raise ValueError(f"{cfg.name}: no full-attention decoder cache to "
                          "shard")
+    if plan is not None:
+        params = plan.take_top(params)
     dev, tokens = _on_device(params, tokens, device)
     if cfg.enc_dec:
         x, cache = whisper_decoder(params, tokens, None, cfg, "decode",
-                                   cache=cache, pos=int(pos))
+                                   cache=cache, pos=int(pos), plan=plan)
         return lm_logits(params, x, cfg), cache
     x = _embed_tokens(params, tokens, cfg)
     eff_pos = pos + cfg.meta_tokens
     posv = torch.full((tokens.shape[0],), eff_pos, dtype=torch.int64,
                       device=dev)
     x, _, cache = decoder_stack(params, x, cfg, "decode", cache=cache,
-                                pos=posv, kv_shard=kv_shard)
+                                pos=posv, kv_shard=kv_shard, plan=plan)
     x = common.rmsnorm(x, params["final_norm"])
     return lm_logits(params, x, cfg), cache

@@ -244,22 +244,28 @@ def make_eval_step(cfg: ModelConfig, *,
     return eval_step
 
 
-def make_serve_step(cfg: ModelConfig, *, kv_shard=None,
+def make_serve_step(cfg: ModelConfig, *, kv_shard=None, plan=None,
                     device: str | torch.device | None = "cuda") -> Callable:
     """One-token decode step: (params, tokens (B, 1), pos, cache) ->
     (logits (B, 1, V), cache).  ``kv_shard``: the group over which the
-    full-attention caches split their positions (``decode_step``)."""
+    full-attention caches split their positions (``decode_step``);
+    ``plan``: a serving ``parallel.Plan``, the parameters this rank's
+    shards and the cache its blocks by the decode ``cache_pspecs``."""
     def serve_step(params, tokens, pos, cache):
         return transformer.decode_step(params, tokens, pos, cache, cfg,
-                                       kv_shard=kv_shard, device=device)
+                                       kv_shard=kv_shard, plan=plan,
+                                       device=device)
     return serve_step
 
 
-def make_prefill_step(cfg: ModelConfig, *,
+def make_prefill_step(cfg: ModelConfig, *, plan=None,
                       device: str | torch.device | None = "cuda") -> Callable:
     """Prompt step: (params, batch {"tokens": (B, S)} or an enc_dec
     model's {"frames", "dec_tokens"}, cache) -> (last-position logits
-    (B, 1, V), cache)."""
+    (B, 1, V), cache).  ``plan``: a serving ``parallel.Plan``, the
+    parameters this rank's shards, the batch its rows and the cache its
+    blocks by the prefill ``cache_pspecs``."""
     def prefill_step(params, batch, cache):
-        return transformer.prefill(params, batch, cache, cfg, device=device)
+        return transformer.prefill(params, batch, cache, cfg, plan=plan,
+                                   device=device)
     return prefill_step

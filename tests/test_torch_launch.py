@@ -10,9 +10,12 @@ cells: the port's batch, parameter, optimizer and cache stand-ins equal
 the reference's ``ShapeDtypeStruct`` leaves in shape and dtype; each
 rank's shard shapes on the one- and two-pod production meshes equal what
 the reference's ``PartitionSpec``s cut (on a ``jax.sharding.AbstractMesh``
-of the same layout, no devices); ``build_cell`` gives a step function
-and meta arguments.  Exact equality throughout: these are shapes.
+of the same layout, no devices), and ``cache_pspecs`` equals the
+reference's spec tree; a rank's cache blocks rebuild the whole cache and
+its prefill blocks re-cut to the decode layout are its decode blocks;
+``build_cell`` gives a step function and meta arguments.  Exact equality throughout: these are shapes.
 """
+import dataclasses
 import math
 
 import jax
@@ -172,6 +175,71 @@ def test_shard_shapes_equal_the_reference_partition_specs(multi_pod):
         assert got["cache"] == [{k: _cut(seg[k].shape, sp[k], sizes)
                                  for k in seg}
                                 for seg, sp in zip(jc, jps)], (arch, shape)
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_cache_pspecs_equal_the_reference(multi_pod):
+    """``cache_pspecs`` is the reference's spec tree entry by entry, with
+    and without ``kv_shard``, for every serving cell; on the small
+    meshes the serving tests run too."""
+    meshes = [M.production_mesh(multi_pod=multi_pod),
+              M.MeshSpec((2, 2), ("data", "model")),
+              M.MeshSpec((1, 4), ("data", "model"))]
+    for ms in meshes:
+        am = abstract_mesh(ms.shape, ms.axis_names)
+        data = M.data_axes_of(ms)
+        for arch, shape in CELLS:
+            cell, jcell = SHAPES[shape], J.SHAPES[shape]
+            if cell.kind == "train":
+                continue
+            cfg, jcfg = get_config(arch), J.get_config(arch)
+            kvs = S.kv_shard_axes(cfg, cell, ms, data)
+            for kv in {None, kvs}:
+                got = S.cache_pspecs(cfg, cell, ms, data, kv_shard=kv)
+                want = JS.cache_pspecs(jcfg, jcell, am, data, kv_shard=kv)
+                assert [{k: tuple(sp[k]) for k in sp} for sp in got] == [
+                    {k: tuple(sp[k]) for k in sp} for sp in want], (
+                        arch, shape, ms.shape, kv)
+
+
+def test_cache_blocks_and_the_decode_recut():
+    """A rank's blocks of a whole cache rebuild it (``common.unshard``),
+    and its prefill blocks re-cut to the decode layout on the rank are
+    its decode blocks of the same cache, where the decode splits the
+    full-attention positions over "model" (Hymba smoke() with one KV
+    head) or over the data axis (a batch of 1)."""
+    gen = torch.Generator().manual_seed(0)
+    cfg = dataclasses.replace(get_config("hymba-1.5b", smoke=True),
+                              n_kv_heads=1)
+    for shape, batch in (((2, 2), 2), ((1, 4), 2), ((2, 2), 1)):
+        ms = M.MeshSpec(shape, ("data", "model"))
+        sizes = dict(zip(ms.axis_names, ms.shape))
+        lay = S.serving_specs(cfg, ms, batch, 24)
+        whole = [{k: torch.randn(tuple(t.shape), generator=gen)
+                  for k, t in seg.items()}
+                 for seg in S.cache_shapes(cfg, batch, 24, torch.float32)]
+        blocks = {tag: [] for tag in ("prefill", "decode")}
+        for r in range(ms.size):
+            coords = dict(zip(ms.axis_names, divmod(r, shape[1])))
+            for tag in blocks:
+                blocks[tag].append(S.cache_blocks(whole, lay[tag], coords,
+                                                  sizes))
+            recut = S.recut_cache(blocks["prefill"][-1], lay["prefill"],
+                                  lay["decode"], coords, sizes)
+            for a, b in zip(recut, blocks["decode"][-1]):
+                assert all(torch.equal(a[k], b[k]) for k in a)
+        for tag, specs in (("prefill", lay["prefill"]),
+                           ("decode", lay["decode"])):
+            for i, seg in enumerate(whole):
+                for k, t in seg.items():
+                    back = common.unshard([b[i][k] for b in blocks[tag]],
+                                          specs[i][k], ms.shape,
+                                          ms.axis_names)
+                    assert torch.equal(back, t), (shape, batch, tag, i, k)
+        assert lay["kv_shard"] == (("data",) if batch == 1 else ("model",))
+    with pytest.raises(ValueError, match="refine"):
+        S.recut_cache([{"k": torch.zeros(2, 4)}], [{"k": ("model",)}],
+                      [{"k": (None, "model")}], {"model": 0}, {"model": 2})
 
 
 def test_build_cell_resolves_all_34_cells():

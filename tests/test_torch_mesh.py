@@ -82,7 +82,7 @@ import datetime, sys
 import numpy as np, torch, torch.distributed as dist
 torch.set_num_threads(1)
 from repro_torch.configs import get_config
-from repro_torch.launch import serve
+from repro_torch.launch import serve, specs as S
 from repro_torch.models import attention, transformer as T
 world, rank = {world}, int(sys.argv[1])
 dist.init_process_group("gloo", init_method={init!r}, world_size=world,
@@ -105,7 +105,12 @@ cache = T.init_cache(cfg, toks.shape[0], {prompt} + {gen}, dtype=torch.float32,
                      device="cpu")
 _, cache = T.prefill(params, {{"tokens": toks[:, :{prompt}]}}, cache, cfg,
                      device="cpu")
-cache = T.cache_shard(cache, cfg, dist.group.WORLD)
+# this rank's slice of every full-attention segment's positions, the
+# rest whole: long_500k's layout on a data axis of ``world`` ranks
+cache = S.cache_blocks(cache, [
+    {{k: (None, None, "data") if seg.kind == "full" and k in ("k", "v")
+      else () for k in c}} for seg, c in zip(T.segments(cfg), cache)],
+    {{"data": rank}}, {{"data": world}})
 steps = []
 for t in range({prompt}, {prompt} + {gen}):
     lg, cache = T.decode_step(params, toks[:, t:t + 1], t, cache, cfg,

@@ -23,7 +23,9 @@ full; the count on meta tensors (each signature's meta kernel run
 once) equal to the count on real CPU tensors, peak memory included, on
 dense and Hymba ``smoke()`` train, prefill and decode steps;
 ``ssm_scan``'s calls a Hymba prefill and train step; ``run_cell``
-on 16x1 and 32x1; the roofline terms against the H100 peaks.  Exact
+on 16x1 and 32x1, and three serving cells on 16x16 (Mamba by channel,
+RWKV by head, long_500k's positions over the data axis); the roofline
+terms against the H100 peaks.  Exact
 throughout except the 2% band: these are integer counts.
 """
 import dataclasses
@@ -347,6 +349,43 @@ def test_run_cell_each_kind(mesh):
             assert k[2] == cell.seq_len // d
         else:
             assert rec["coll_by_op"] == {}
+
+
+SERVING_16X16 = (("hymba-1.5b", "decode_32k"), ("rwkv6-7b", "prefill_32k"),
+                 ("gemma3-27b", "long_500k"))
+
+
+@pytest.mark.parametrize("arch,shape", SERVING_16X16,
+                         ids=[f"{a}-{s}" for a, s in SERVING_16X16])
+def test_serving_cells_counted_over_the_model_axis(arch, shape):
+    """A serving cell of the production 16 x 16 mesh counts as one rank
+    of ``greedy_generate(plan=)``: the reference's shards, its cache
+    blocks, and collectives over the fake model and data groups."""
+    rec = dryrun.run_cell(arch, shape, "16x16", verbose=False)
+    cfg, cell = get_config(arch), SHAPES[shape]
+    assert rec["status"] == "ok" and rec["chips"] == 256
+    assert rec["collective_s"] > 0 and rec["coll_by_op"], rec["coll_by_op"]
+    assert rec["params_per_rank"] == S.held_elements(
+        S.state_shard_shapes(cfg, dryrun.parse_mesh("16x16"))["params"])
+    cache = rec["shards"]["cache"]
+    if arch == "hymba-1.5b":        # Mamba by channel, positions over model
+        assert rec["mamba_leaves"] == 8
+        assert rec["kernel_calls"] == {"ssm_scan": cfg.n_layers}
+        kinds = [seg.kind for seg in T.segments(cfg)]
+        full = cache[kinds.index("full")]
+        assert full["k"][1:4] == (cell.global_batch // 16,
+                                  (cell.seq_len + cfg.meta_tokens) // 16,
+                                  cfg.n_kv_heads)
+        assert full["m_h"][2] == cfg.q_dim // 16
+    elif arch == "rwkv6-7b":        # the time mix by head
+        assert rec["rwkv_leaves"] == 8
+        assert cache[0]["s"][1:3] == (cell.global_batch // 16,
+                                      cfg.d_model // cfg.rwkv_head_dim // 16)
+    else:                           # long_500k: positions over the data axis
+        kinds = [seg.kind for seg in T.segments(cfg)]
+        full = cache[kinds.index("full")]
+        assert full["k"][1:4] == (1, cell.seq_len // 16,
+                                  cfg.n_kv_heads // 16)
 
 
 def test_roofline_terms_against_peaks():
