@@ -116,9 +116,12 @@ CUDA toolkit.  Phases, each printing one JSON line:
                  checkpoint's moments (1e-5 relative, absolute near 0)
                  and its parameters against AdamW applied to those
                  moments (1e-5), the scan kernels'
-                 launches a step (2 and 1 a layer); a line a rank with its
-                 peak memory, step seconds and tensor-parallel and
-                 gathered leaves; ``attention.decode_attend_seqsharded``
+                 launches a step (2 and 1 a layer), every rank's
+                 embedding and head used by vocabulary block
+                 (``vocab_leaves`` > 0, neither among its gathered
+                 leaves); a line a rank with its peak memory, step
+                 seconds and tensor-parallel, vocabulary and gathered
+                 leaves; ``attention.decode_attend_seqsharded``
                  on 2 spawned gloo ranks at one of ``gemma3-27b``'s global
                  layers (32 query and 16 KV heads of 128) over the
                  ``long_500k`` cache of 524,288 slots (8.6 GB of fp32
@@ -143,7 +146,9 @@ CUDA toolkit.  Phases, each printing one JSON line:
                  tokens equal wherever one process's top-2 gap exceeds
                  that bound, each rank's parameter and cache elements
                  the specs', ``ssm_scan`` launched once a layer a call
-                 on every rank; prefill seconds, ms a token and peak
+                 on every rank, the embedding and head used by
+                 vocabulary block on every rank (the greedy pick over
+                 the blocks); prefill seconds, ms a token and peak
                  memory a rank;
  13. roofline  — ``python -m repro_torch.launch.dryrun --mesh 16x1`` as a
                  subprocess (its fake process group kept away from
@@ -1447,6 +1452,16 @@ def _one_process_step(run: dict, params, opt, i: int):
     return out
 
 
+def _check_vocab_blocks(tag: str, rep: dict) -> bool:
+    """A rank of the model axis uses its blocks of the vocabulary: its
+    plan keeps ``embed`` (and ``lm_head``) local, gathering neither."""
+    return check(rep["vocab_leaves"] > 0 and not {"embed", "lm_head"}
+                 & set(rep["gathered"]),
+                 f"{tag}: uses its vocabulary blocks ({rep['vocab_leaves']} "
+                 f"leaves), gathers neither embed nor lm_head "
+                 f"({rep['gathered']})")
+
+
 def _model_axis_finish(run: dict) -> tuple[dict, dict]:
     """The started run held to one process: each rank's parameter
     elements against the port's specs (held equal to the reference's by
@@ -1492,6 +1507,7 @@ def _model_axis_finish(run: dict) -> tuple[dict, dict]:
         check(rep["params_held"] == held,
               f"{tag}: holds {rep['params_held']} parameter elements, the "
               f"specs' {held} of {whole}")
+        _check_vocab_blocks(tag, rep)
         per_step = {k: v / steps for k, v in rep["launches"].items() if v}
         if cfg.family == "hybrid":     # a checkpointed layer scans twice
             fwd = 2 if cfg.remat != "none" else 1
@@ -1508,6 +1524,7 @@ def _model_axis_finish(run: dict) -> tuple[dict, dict]:
             "opt_held": rep["opt_held"],
             "peak_bytes": rep["peak_bytes"], "step_s": rep["step_s"],
             "tp_leaves": rep["tp_leaves"],
+            "vocab_leaves": rep["vocab_leaves"],
             "gathered_leaves": rep["gathered_leaves"],
             "launches_per_step": per_step}, "nvidia_smi": nvidia_smi_line()}),
             flush=True)
@@ -1547,6 +1564,7 @@ def _model_axis_finish(run: dict) -> tuple[dict, dict]:
     line.update(
         params_whole=whole, params_held_per_rank=held,
         tp_leaves=reps[0]["tp_leaves"],
+        vocab_leaves=reps[0]["vocab_leaves"],
         gathered_leaves=reps[0]["gathered_leaves"],
         peak_bytes=[x["peak_bytes"] for x in reps],
         step_s=[x["step_s"] for x in reps],
@@ -1756,7 +1774,8 @@ def _serve_rank(rank: int, cfg_d: dict) -> None:
                 "params_held": sum(t.numel() for _, t in
                                    common.leaves(params)),
                 "cache_shapes": [{k: list(t.shape) for k, t in seg.items()}
-                                 for seg in g.cache], **plan.counts()})
+                                 for seg in g.cache], **plan.counts(),
+                "gathered": ["/".join(p) for p in plan.gathered()]})
             del params, g, plan
             if card:
                 torch.cuda.empty_cache()
@@ -1827,6 +1846,7 @@ def _mesh_serve(args) -> tuple[dict, dict]:
                   f"{label} rank {r}: holds {rr['params_held']} parameter "
                   f"elements (the specs' {held}) and the decode "
                   f"cache_pspecs blocks")
+            _check_vocab_blocks(f"{label} rank {r}", rr)
             if cfg.family == "hybrid":     # one scan a layer a call
                 n = cfg.n_layers * gen
                 check(rr["launches"].get("ssm_scan") == n,
@@ -1837,8 +1857,8 @@ def _mesh_serve(args) -> tuple[dict, dict]:
                 launches[k] = launches.get(k, 0) + v
             ranks.append({k: rr[k] for k in (
                 "rank", "coords", "prefill_s", "ms_per_token", "peak_bytes",
-                "launches", "tp_leaves", "gathered_leaves", "mamba_leaves",
-                "rwkv_leaves")})
+                "launches", "tp_leaves", "vocab_leaves", "gathered_leaves",
+                "mamba_leaves", "rwkv_leaves")})
         runs.append({"label": req["label"], "batch": b,
                      "prompt": req["prompt"].shape[1], "gen": gen,
                      "kv_shard": lay["kv_shard"], "params_held": held,

@@ -12,9 +12,9 @@ mesh's axes (``op_analysis.fake_group``).
 production meshes.  A train cell runs as ``launch.train --mesh DxM``
 trains: the rank holds the shards of the parameters and the optimizer
 state that the reference's specs give it (``specs.param_pspecs``),
-runs its tensor- and expert-parallel blocks over a fake model group of
-M and gathers its other sharded leaves over the model and data groups
-(``models.parallel``).  A prefill or decode cell runs as
+runs its tensor- and expert-parallel blocks and its vocabulary blocks
+over a fake model group of M and gathers its other sharded leaves over
+the model and data groups (``models.parallel``).  A prefill or decode cell runs as
 ``launch.serve.greedy_generate(plan=)`` serves: the same shards of the
 parameters, a serving plan (Mamba by channel, RWKV by head besides),
 the rank's rows of the batch and its blocks of every cache by the

@@ -40,7 +40,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import specs
-from repro_torch.models import common, transformer
+from repro_torch.models import common, parallel, transformer
 from repro_torch.train.step import make_prefill_step, make_serve_step
 
 
@@ -71,6 +71,29 @@ def build_params(cfg: ModelConfig, seed: int,
     return common.build_params(transformer.param_specs(cfg), gen, dev)
 
 
+def greedy_pick(block: torch.Tensor, group) -> torch.Tensor:
+    """The greedy tokens (B,) of the logits (B, n) that ``block`` holds:
+    the whole row (``group`` None), or this rank's block of the columns
+    over ``group`` (columns [r·n, (r+1)·n) of rank r).  Each rank's
+    (max, global index) pairs are all-gathered over ``group`` (one
+    float64 message, exact for fp32 logits and for the indices); the
+    largest value wins, the lowest global index on ties, as
+    ``torch.argmax`` picks over the whole row."""
+    idx = torch.argmax(block, dim=-1)
+    if parallel.size(group) == 1:
+        return idx
+    top = torch.gather(block, -1, idx[:, None])[:, 0]
+    lo = parallel.rank(group) * block.shape[-1]
+    pairs = torch.stack([top.to(torch.float64),
+                         (idx + lo).to(torch.float64)])        # (2, B)
+    every = parallel.all_gather(pairs[None], 0, group)         # (M, 2, B)
+    # ranks hold ascending columns: the first rank at the max holds the
+    # lowest index of it
+    first = torch.argmax(every[:, 0], dim=0, keepdim=True)     # (1, B)
+    return torch.take_along_dim(every[:, 1], first, dim=0)[0].to(
+        torch.int64)
+
+
 def greedy_generate(params: dict, cfg: ModelConfig, prompt, gen: int, *,
                     frames=None, plan=None,
                     device: str | torch.device | None = "cuda") -> Generation:
@@ -89,7 +112,10 @@ def greedy_generate(params: dict, cfg: ModelConfig, prompt, gen: int, *,
     blocks laid out as the reference's prefill cell lays them, re-cuts
     them to the decode cell's layout (``specs.recut_cache``: the
     full-attention positions over "model" or the data axes, where
-    ``kv_shard_axes`` puts them) and decodes.  It returns its rows."""
+    ``kv_shard_axes`` puts them) and decodes.  It returns its rows.
+    Where "model" cuts the vocabulary, each step's logits are the rank's
+    block and the token its ``greedy_pick``; the blocks are gathered
+    once, at the end, into ``Generation.logits``."""
     dev = resolve_device(device)
     prompt = torch.as_tensor(prompt, device=dev).to(torch.int64)
     b, s = prompt.shape
@@ -104,7 +130,7 @@ def greedy_generate(params: dict, cfg: ModelConfig, prompt, gen: int, *,
         max_len = frames.shape[1]
     else:
         batch, max_len = {"tokens": prompt}, s + gen
-    kv_shard, lay, sizes = None, None, None
+    kv_shard, lay, sizes, group = None, None, None, None
     if plan is None:
         cache = transformer.init_cache(cfg, b, max_len, dtype=torch.float32,
                                        device=dev)
@@ -121,13 +147,14 @@ def greedy_generate(params: dict, cfg: ModelConfig, prompt, gen: int, *,
         axes = lay["kv_shard"]
         if axes:
             kv_shard = plan.model if "model" in axes else plan.data
+        group = plan.vocab
     prefill = make_prefill_step(cfg, plan=plan, device=dev)
     decode = make_serve_step(cfg, kv_shard=kv_shard, plan=plan, device=dev)
 
     _sync(dev)
     t0 = time.perf_counter()
     logits, cache = prefill(params, batch, cache)
-    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    tok = greedy_pick(logits[:, -1], group)[:, None]
     _sync(dev)
     prefill_s = time.perf_counter() - t0
     if lay is not None:
@@ -138,13 +165,15 @@ def greedy_generate(params: dict, cfg: ModelConfig, prompt, gen: int, *,
     t0 = time.perf_counter()
     for i in range(gen - 1):
         logits, cache = decode(params, tok, s + i, cache)
-        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        tok = greedy_pick(logits[:, -1], group)[:, None]
         toks.append(tok)
         steps.append(logits[:, -1])
     _sync(dev)
     decode_s = time.perf_counter() - t0
-    return Generation(tokens=torch.cat(toks, dim=1),
-                      logits=torch.stack(steps, dim=1),
+    logits = torch.stack(steps, dim=1)
+    if group is not None:           # the blocks, whole, padding dropped
+        logits = parallel.all_gather(logits, -1, group)[..., :cfg.vocab]
+    return Generation(tokens=torch.cat(toks, dim=1), logits=logits,
                       prefill_s=prefill_s, decode_s=decode_s, cache=cache)
 
 

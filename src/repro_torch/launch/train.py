@@ -21,7 +21,8 @@ reference's specs give it (``launch.specs.param_pspecs``: tensor
 parallel over "model", FSDP over "data" for an ``fsdp`` config).  The M
 ranks of data coordinate d step on rows d·B/D .. (d+1)·B/D - 1 of each
 global batch of ``--batch`` rows; the model runs its tensor- and
-expert-parallel blocks over the model group and gathers its other
+expert-parallel blocks, its embedding and cross-entropy over the
+vocabulary's blocks over the model group, and gathers its other
 sharded leaves where it uses them (``models.parallel``); gradients are
 averaged over the data group (``--grad-compression int8``: the int8
 all-gather with error feedback, on each rank's shards).  The parameters
@@ -31,8 +32,9 @@ and writes the checkpoints, in the one-process format: every rank takes
 part in gathering each leaf whole, and a restore cuts the shards again,
 so a checkpoint moves between meshes and one process.  With a mesh rank
 0 prints, at the end, one ``[rank] {json}`` line a rank: the elements it
-holds, its peak memory, its step seconds, its tensor-parallel and
-gathered leaves and its kernel launches.
+holds, its peak memory, its step seconds, its tensor-parallel,
+vocabulary and gathered leaves (and the gathered ones' paths) and its
+kernel launches.
 """
 from __future__ import annotations
 
@@ -343,8 +345,8 @@ def _report(rank: int, lay: _Layout, params, opt_state, metrics, step_s,
             dev) -> None:
     """Every rank's ``[rank] {json}`` line, printed by rank 0 in rank
     order: what the rank holds, its peak memory, its step seconds, its
-    plan's counts, its kernel launches and the last step's loss and
-    gradient norm."""
+    plan's counts and gathered paths, its kernel launches and the last
+    step's loss and gradient norm."""
     opt = {f: _shapes(getattr(opt_state, f)) for f in opt_state._fields[1:]}
     mine = {
         "rank": rank, "coords": lay.coords,
@@ -355,6 +357,7 @@ def _report(rank: int, lay: _Layout, params, opt_state, metrics, step_s,
         "peak_bytes": (torch.cuda.max_memory_allocated(dev)
                        if dev.type == "cuda" else None),
         "step_s": step_s, **lay.plan.counts(),
+        "gathered": ["/".join(p) for p in lay.plan.gathered()],
         "launches": ops.launch_counts(),
         **({"loss": float(metrics["loss"]),
             "grad_norm": float(metrics["grad_norm"])} if metrics else {})}

@@ -35,10 +35,14 @@ whose experts split over "model" (``moe.moe_ffn_ep``).  A serving plan
 channel (its ``d_inner`` leaves over "model", ``mamba.mamba_mix(tp=)``),
 RWKV's time mix by head (``w_r``/``w_k``/``w_v``/``w_g`` columns,
 ``w_o`` rows, ``bonus_u``) and its channel mix by ``ff``
-(``rwkv.rwkv_layer(tp=, ffn_tp=)``).  Every other sharded leaf is
-gathered where it is used (``Plan.take``), inside the per-layer
-checkpoint, so the backward gathers it again and no whole stack is
-held.
+(``rwkv.rwkv_layer(tp=, ffn_tp=)``).  Where "model" cuts the
+vocabulary (dim 0 of ``embed``, dim 1 of ``lm_head``), both plans keep
+those blocks local (``Plan.vocab``): the lookup, the head, the
+cross-entropy and the greedy pick run over the vocabulary shards
+(``transformer.vocab_embed``, ``vocab_logits``, ``launch.serve.
+greedy_pick``).  Every other sharded leaf is gathered where it is used
+(``Plan.take``), inside the per-layer checkpoint, so the backward
+gathers it again and no whole stack is held.
 """
 from __future__ import annotations
 
@@ -64,11 +68,18 @@ MAMBA_LOCAL = dict(conv=-1, w_dt=1, dt_bias=-1, w_b=1, w_c=1, a_log=1,
                    d_skip=-1, w_out=1)
 RWKV_TIME_LOCAL = dict(w_r=-1, w_k=-1, w_v=-1, w_g=-1, w_o=1, bonus_u=1)
 RWKV_CHANNEL_LOCAL = dict(w_ck=-1, w_cv=1)
+# the vocabulary's leaves, each with its vocab dim
+VOCAB_LOCAL = {("embed",): 0, ("lm_head",): 1}
 STACKS = ("layers", "dec")       # stacked (L, ...) subtrees
 
 
 def size(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
+
+
+def rank(group) -> int:
+    """This process's rank in ``group`` (0 for None)."""
+    return 0 if group is None else dist.get_rank(group)
 
 
 # ---------------------------------------------------------------------------
@@ -233,6 +244,17 @@ def _serving_parallel(cfg, flat: dict, m: int) -> dict:
     return out
 
 
+def _vocab_parallel(flat: dict, m: int) -> tuple:
+    """The paths of the vocabulary's leaves if "model" cuts each at its
+    vocab dim (a tied model has ``embed`` alone), else ()."""
+    if m <= 1:
+        return ()
+    paths = tuple(p for p in VOCAB_LOCAL if p in flat)
+    if all(_is(flat[p], VOCAB_LOCAL[p]) for p in paths):
+        return paths
+    return ()
+
+
 class Plan:
     """How one rank of a (data, model) mesh holds and uses the parameters.
 
@@ -244,7 +266,9 @@ class Plan:
     blocks (Mamba by channel, RWKV by head and by ``ff``).  ``mesh`` (a
     ``launch.mesh.MeshSpec``) and ``coords`` ({axis: index}, this
     rank's place on it): what a serving run needs to cut its batch and
-    caches (``launch.serve.greedy_generate``)."""
+    caches (``launch.serve.greedy_generate``).  ``vocab``: the model
+    group where it cuts the vocabulary of ``embed`` (and ``lm_head``),
+    whose blocks are then used where they lie, else None."""
 
     def __init__(self, cfg, specs: dict, *, model=None, data=None,
                  serve: bool = False, mesh=None, coords: dict | None = None):
@@ -258,6 +282,9 @@ class Plan:
         blocks.update(serving)
         self.tp_blocks = frozenset(blocks)
         self.keep = frozenset(p for paths in blocks.values() for p in paths)
+        self.vocab_leaves = _vocab_parallel(self.flat, m)
+        self.vocab = model if self.vocab_leaves else None
+        self.local = self.keep | frozenset(self.vocab_leaves)
         self._by_kind = {
             "mamba_leaves": len(serving.get(MAMBA_BLOCK, ())),
             "rwkv_leaves": len(serving.get(RWKV_TIME, ()))
@@ -284,18 +311,24 @@ class Plan:
     def counts(self) -> dict:
         """Leaves used tensor- or expert-parallel over "model" (of them,
         a serving plan's Mamba leaves by channel and RWKV leaves by head
-        or ``ff``), and leaves gathered where they are used (over
-        "model", the data axes, or both)."""
-        gathered = sum(1 for p in self.flat
-                       if p not in self.keep and self.axes_of(p))
-        return {"tp_leaves": len(self.keep), "gathered_leaves": gathered,
-                **self._by_kind}
+        or ``ff``), the vocabulary's leaves used by vocab block, and the
+        other leaves gathered where they are used (over "model", the
+        data axes, or both)."""
+        return {"tp_leaves": len(self.keep),
+                "gathered_leaves": len(self.gathered()),
+                "vocab_leaves": len(self.vocab_leaves), **self._by_kind}
+
+    def gathered(self) -> list:
+        """The paths of the leaves gathered where they are used."""
+        return [p for p in self.flat
+                if p not in self.local and self.axes_of(p)]
 
     def take(self, tree: dict, prefix: tuple = (), *,
              stacked: bool = False) -> dict:
         """``tree`` (the subtree at ``prefix``; ``stacked``: one layer's
         slice of a stack, its leading dim gone) with every leaf whole,
-        save the model-axis blocks of the tensor-parallel leaves."""
+        save the model-axis blocks of the tensor-parallel and vocabulary
+        leaves."""
         out = {}
         for key, val in tree.items():
             path = prefix + (key,)
@@ -307,7 +340,7 @@ class Plan:
             for dim, entry in enumerate(spec):
                 if entry is not None and entry != MODEL:
                     t = gather_leaf(t, dim, self.data, "data")
-            if path not in self.keep:
+            if path not in self.local:
                 for dim, entry in enumerate(spec):
                     if entry == MODEL:
                         t = gather_leaf(t, dim, self.model, MODEL)
@@ -316,7 +349,8 @@ class Plan:
 
     def take_top(self, params: dict) -> dict:
         """``params`` with its unstacked leaves (embedding, head, norms,
-        prefixes) gathered whole and its stacks left as they are."""
+        prefixes) gathered whole, save the vocabulary blocks over
+        "model", and its stacks left as they are."""
         top = self.take({k: v for k, v in params.items()
                          if k not in STACKS})
         return {**top, **{k: params[k] for k in STACKS if k in params}}

@@ -43,13 +43,19 @@ its blocks by the reference's ``cache_pspecs``; the tensor- and
 expert-parallel blocks, Mamba by channel and RWKV by head run over the
 model group, every other leaf is gathered in its layer, and
 ``kv_shard`` is the model group (positions over "model"), the data group
-(long_500k's layout) or None.
+(long_500k's layout) or None.  Where the plan's specs cut the vocabulary
+over "model" (``Plan.vocab``), a rank computes on its blocks of
+``embed`` and ``lm_head``: the lookup (``vocab_embed``), the head
+(``vocab_logits``: ``prefill`` and ``decode_step`` return the rank's
+block of the logits) and ``loss_fn``'s cross-entropy
+(``_ce_chunk_vocab``).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
@@ -595,8 +601,10 @@ def whisper_decoder(params, tokens: torch.Tensor, enc_out, cfg: ModelConfig,
     "train" / "prefill": tokens (B, T) against ``enc_out`` (B, F, d);
     "prefill" fills the cache's self K/V at [0, T) and its cross K/V
     (which must span F frames).  "decode": tokens (B, 1) at ``pos``
-    against the cache, written in place.  -> (x final-normed, cache)."""
-    x = params["embed"][tokens]
+    against the cache, written in place.  -> (x final-normed, cache).
+    Under a ``plan`` that cuts the vocabulary, ``params["embed"]`` is
+    this rank's block (``vocab_embed``)."""
+    x = _lookup(params, tokens, _vocab(plan))
     if mode == "decode":
         x = x + params["dec_pos"][pos][None, None].to(x.dtype)
     else:
@@ -647,18 +655,46 @@ def _prefix(cfg: ModelConfig, patches) -> int:
     return cfg.meta_tokens + (0 if patches is None else patches.shape[1])
 
 
-def _embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig):
-    x = params["embed"][tokens]
+def _vocab(plan):
+    """The group that cuts the vocabulary under ``plan``, else None."""
+    return None if plan is None else plan.vocab
+
+
+def vocab_embed(block: torch.Tensor, tokens: torch.Tensor, group
+                ) -> torch.Tensor:
+    """The rows of ``tokens`` from this rank's block of the embedding
+    (rows [r·n, (r+1)·n) of rank r of ``group``): the rows of the ids
+    outside the block are zeros, and the sum over ``group`` adds exactly
+    one non-zero row an id, so it is bitwise the whole lookup.  The
+    backward gives the block its rows of the whole gradient."""
+    n = block.shape[0]
+    local = tokens - parallel.rank(group) * n
+    inside = (local >= 0) & (local < n)
+    rows = block[torch.where(inside, local, 0)]
+    rows = torch.where(inside[..., None], rows, 0.0)
+    return parallel.reduce_from(rows, group)
+
+
+def _lookup(params, tokens: torch.Tensor, group) -> torch.Tensor:
+    if group is None:
+        return params["embed"][tokens]
+    return vocab_embed(params["embed"], tokens, group)
+
+
+def _embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig,
+                  group=None):
+    x = _lookup(params, tokens, group)
     if cfg.emb_scale:
         x = x * (cfg.d_model ** 0.5)
     return x
 
 
 def embed_inputs(params, tokens: torch.Tensor, cfg: ModelConfig,
-                 patches: torch.Tensor | None = None):
+                 patches: torch.Tensor | None = None, group=None):
     """Token embedding behind the vlm patch prefix and the meta-token
-    prefix. -> (B, S_total, d)."""
-    x = _embed_tokens(params, tokens, cfg)
+    prefix. -> (B, S_total, d).  ``group``: ``params["embed"]`` is this
+    rank's vocabulary block over it (``vocab_embed``)."""
+    x = _embed_tokens(params, tokens, cfg, group)
     if patches is not None:
         x = torch.cat([patches.to(x.dtype), x], dim=1)
     if cfg.meta_tokens:
@@ -668,13 +704,48 @@ def embed_inputs(params, tokens: torch.Tensor, cfg: ModelConfig,
     return x
 
 
+def _head(params, cfg: ModelConfig) -> torch.Tensor:
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
 def lm_logits(params, x, cfg: ModelConfig):
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = x.to(torch.float32) @ head.to(torch.float32)
+    logits = x.to(torch.float32) @ _head(params, cfg).to(torch.float32)
     logits = common.softcap(logits, cfg.logit_softcap)
     if cfg.vocab_padded != cfg.vocab:           # drop padded columns
         logits = logits[..., :cfg.vocab]
     return logits
+
+
+def _pad_mask(cfg: ModelConfig, lo: int, n: int, device):
+    """0 for the columns [lo, lo + n) of the vocabulary, -1e30 for those
+    of its padding (by their global index); None without padding."""
+    if cfg.vocab_padded == cfg.vocab:
+        return None
+    cols = torch.arange(lo, lo + n, device=device)
+    return torch.where(cols < cfg.vocab, 0.0, -1e30).to(torch.float32)
+
+
+def vocab_logits(x, head: torch.Tensor, cfg: ModelConfig, group
+                 ) -> torch.Tensor:
+    """This rank's block of the logits, (..., n): ``head`` is its block
+    of the head's columns over ``group`` (columns [r·n, (r+1)·n) of rank
+    r), softcapped, the padded vocabulary's columns at -1e30.  The
+    backward sums the gradient of ``x`` over ``group``."""
+    n = head.shape[-1]
+    logits = parallel.copy_to(x, group).to(torch.float32) \
+        @ head.to(torch.float32)
+    logits = common.softcap(logits, cfg.logit_softcap)
+    mask = _pad_mask(cfg, parallel.rank(group) * n, n, logits.device)
+    return logits if mask is None else logits + mask
+
+
+def _logits(params, x, cfg: ModelConfig, plan):
+    """The whole logits (padding dropped), or under a plan that cuts the
+    vocabulary this rank's block of them (``vocab_logits``)."""
+    group = _vocab(plan)
+    if group is None:
+        return lm_logits(params, x, cfg)
+    return vocab_logits(x, _head(params, cfg), cfg, group)
 
 
 def _encode(params, batch: dict, cfg: ModelConfig, device, plan=None):
@@ -688,14 +759,15 @@ def _hidden(params, batch: dict, cfg: ModelConfig, device, plan=None):
     """The final-normed hidden states of the tokens (prefixes cut),
     (B, S, d), the tokens on the device and the MoEAux summed over the
     layers.  An enc_dec batch holds "frames" and "dec_tokens".  Under a
-    ``plan`` the unstacked leaves are whole already."""
+    ``plan`` the unstacked leaves are whole already, save the
+    vocabulary blocks over "model"."""
     if cfg.enc_dec:
         enc, tokens = _encode(params, batch, cfg, device, plan)
         x, _ = whisper_decoder(params, tokens, enc, cfg, "train", plan=plan)
         return x, tokens, _zero_aux(x.device)
     dev, tokens = _on_device(params, batch["tokens"], device)
     patches = _patches(batch, cfg, dev)
-    x = embed_inputs(params, tokens, cfg, patches)
+    x = embed_inputs(params, tokens, cfg, patches, _vocab(plan))
     x, aux, _ = decoder_stack(params, x, cfg, "train", plan=plan)
     x = common.rmsnorm(x, params["final_norm"])
     prefix = _prefix(cfg, patches)
@@ -724,6 +796,28 @@ def _ce_chunk(xs, ls, head, pad_mask, cap: float):
     return torch.sum((lse - gold) * (ls >= 0).to(torch.float32))
 
 
+def _ce_chunk_vocab(xs, ls, head, cfg: ModelConfig, group):
+    """``_ce_chunk`` over the vocabulary's blocks: ``head`` is this
+    rank's (d, n) block over ``group``.  The max over the ranks (an
+    all-reduce MAX, no gradient), the sum of exp(logit - max) and the
+    gold logit (from the one rank whose block holds the label) are each
+    summed over ``group`` by ``reduce_from``, so every rank holds the
+    chunk's loss and its block's gradient."""
+    logits = vocab_logits(xs, head, cfg, group)
+    n = logits.shape[-1]
+    top = parallel.all_reduce(logits.detach().amax(dim=-1), group,
+                              dist.ReduceOp.MAX)
+    total = parallel.reduce_from(
+        torch.sum(torch.exp(logits - top[..., None]), dim=-1), group)
+    lse = torch.log(total) + top
+    local = ls - parallel.rank(group) * n
+    inside = (local >= 0) & (local < n)
+    gold = torch.gather(logits, -1,
+                        torch.where(inside, local, 0)[..., None])[..., 0]
+    gold = parallel.reduce_from(torch.where(inside, gold, 0.0), group)
+    return torch.sum((lse - gold) * (ls >= 0).to(torch.float32))
+
+
 def loss_fn(params, batch: dict, cfg: ModelConfig, *,
             device: str | torch.device | None = "cuda", plan=None):
     """Next-token cross-entropy with chunked logits: (loss, metrics).
@@ -739,8 +833,10 @@ def loss_fn(params, batch: dict, cfg: ModelConfig, *,
     other families).  An enc_dec model's loss is over its
     ``dec_tokens``.  Differentiable: the caller decides whether autograd
     records it.  ``plan`` (a ``parallel.Plan``): ``params`` is this
-    rank's shards; the embedding, head and norms are gathered here once,
-    each layer's leaves in the layer."""
+    rank's shards; the norms and prefixes are gathered here once, each
+    layer's leaves in the layer, and where "model" cuts the vocabulary
+    the lookup and the cross-entropy run over its blocks
+    (``vocab_embed``, ``_ce_chunk_vocab``)."""
     if plan is not None:
         params = plan.take_top(params)
     x, tokens, aux = _hidden(params, batch, cfg, device, plan)
@@ -750,24 +846,25 @@ def loss_fn(params, batch: dict, cfg: ModelConfig, *,
                            dim=1)
     else:
         labels = torch.as_tensor(labels, device=x.device).to(torch.int64)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    head, group = _head(params, cfg), _vocab(plan)
+    if group is None:
+        chunk_fn = _ce_chunk
+        extra = (_pad_mask(cfg, 0, cfg.vocab_padded, x.device),
+                 cfg.logit_softcap)
+    else:
+        chunk_fn, extra = _ce_chunk_vocab, (cfg, group)
     s = x.shape[1]
     chunk = attention.div_chunk(s, 512)
-    pad_mask = None
-    if cfg.vocab_padded != cfg.vocab:
-        pad_mask = torch.where(
-            torch.arange(cfg.vocab_padded, device=x.device) < cfg.vocab,
-            0.0, -1e30).to(torch.float32)
     grad = torch.is_grad_enabled()
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for lo in range(0, s, chunk):
         xs, ls = x[:, lo:lo + chunk], labels[:, lo:lo + chunk]
         if grad:
-            part = checkpoint(_ce_chunk, xs, ls, head, pad_mask,
-                              cfg.logit_softcap, use_reentrant=False)
+            part = checkpoint(chunk_fn, xs, ls, head, *extra,
+                              use_reentrant=False)
         else:
-            part = _ce_chunk(xs, ls, head, pad_mask, cfg.logit_softcap)
+            part = chunk_fn(xs, ls, head, *extra)
         tot = tot + part
         cnt = cnt + torch.sum((ls >= 0).to(torch.float32))
     ce = tot / torch.clamp(cnt, min=1.0)
@@ -826,21 +923,23 @@ def prefill(params, batch: dict, cache: list, cfg: ModelConfig, *,
     (last-position logits (B, 1, V), the cache, filled in place).
     ``plan``: ``params`` are this rank's shards, ``batch`` its rows and
     ``cache`` its blocks by the reference's prefill ``cache_pspecs``;
-    the embedding and head are gathered here, each layer's leaves in
-    the layer."""
+    the norms are gathered here, each layer's leaves in the layer; where
+    "model" cuts the vocabulary the logits are this rank's block
+    (``vocab_logits``: (B, 1, Vp / M), padding at -1e30)."""
     if plan is not None:
         params = plan.take_top(params)
     if cfg.enc_dec:
         enc, tokens = _encode(params, batch, cfg, device, plan)
         x, cache = whisper_decoder(params, tokens, enc, cfg, "prefill",
                                    cache=cache, plan=plan)
-        return lm_logits(params, x[:, -1:], cfg), cache
+        return _logits(params, x[:, -1:], cfg, plan), cache
     dev, tokens = _on_device(params, batch["tokens"], device)
-    x = embed_inputs(params, tokens, cfg, _patches(batch, cfg, dev))
+    x = embed_inputs(params, tokens, cfg, _patches(batch, cfg, dev),
+                     _vocab(plan))
     x, _, cache = decoder_stack(params, x, cfg, "prefill", cache=cache,
                                 plan=plan)
     x = common.rmsnorm(x, params["final_norm"])
-    return lm_logits(params, x[:, -1:], cfg), cache
+    return _logits(params, x[:, -1:], cfg, plan), cache
 
 
 @torch.no_grad()
@@ -855,7 +954,8 @@ def decode_step(params, tokens, pos: int, cache: list, cfg: ModelConfig, *,
     (every rank of it calls this with its slice; an enc_dec or ssm model
     has no such cache and refuses it).  ``plan``: as ``prefill``'s, the
     cache laid out by the reference's decode ``cache_pspecs`` (its
-    full-attention positions over ``kv_shard``'s axes).
+    full-attention positions over ``kv_shard``'s axes), the logits this
+    rank's vocabulary block where "model" cuts it.
 
     Returns (logits (B, 1, V), the cache, updated in place)."""
     if kv_shard is not None and (cfg.enc_dec or cfg.family == "ssm"):
@@ -867,12 +967,12 @@ def decode_step(params, tokens, pos: int, cache: list, cfg: ModelConfig, *,
     if cfg.enc_dec:
         x, cache = whisper_decoder(params, tokens, None, cfg, "decode",
                                    cache=cache, pos=int(pos), plan=plan)
-        return lm_logits(params, x, cfg), cache
-    x = _embed_tokens(params, tokens, cfg)
+        return _logits(params, x, cfg, plan), cache
+    x = _embed_tokens(params, tokens, cfg, _vocab(plan))
     eff_pos = pos + cfg.meta_tokens
     posv = torch.full((tokens.shape[0],), eff_pos, dtype=torch.int64,
                       device=dev)
     x, _, cache = decoder_stack(params, x, cfg, "decode", cache=cache,
                                 pos=posv, kv_shard=kv_shard, plan=plan)
     x = common.rmsnorm(x, params["final_norm"])
-    return lm_logits(params, x, cfg), cache
+    return _logits(params, x, cfg, plan), cache

@@ -18,7 +18,8 @@ mesh step shards the batch over its data axes inside one jitted program.
 The model axis: given a ``parallel.Plan``, every rank of a (D, M) mesh
 holds its shards of the parameters and the optimizer state, the M ranks
 of a model group step on the same rows, and the model runs its
-tensor-parallel blocks and gathers its other sharded leaves
+tensor-parallel blocks, its embedding and cross-entropy over the
+vocabulary's blocks, and gathers its other sharded leaves
 (``models.parallel``).  Replicated and model-sharded gradients are
 averaged over the data group; FSDP gradients come out of their gathers'
 reduce-scatter already summed over it and are only scaled.  The
@@ -149,7 +150,10 @@ def make_train_step(cfg: ModelConfig, *, base_lr: float = 3e-4,
 
     With ``plan`` (a ``parallel.Plan``; ``group`` is then its data group)
     the parameters and the optimizer state are this rank's shards, and
-    the metrics add the plan's ``tp_leaves`` and ``gathered_leaves``."""
+    the metrics add the plan's counts (``Plan.counts``).  Where "model"
+    cuts the vocabulary, the loss runs over its blocks and each rank's
+    gradient of its block is that block of one process's gradient, so
+    the shards, the optimizer state and the norm keep their layout."""
     if compression not in COMPRESSION:
         raise ValueError(f"compression must be one of {COMPRESSION}, got "
                          f"{compression!r}")
@@ -233,14 +237,24 @@ def make_train_step(cfg: ModelConfig, *, base_lr: float = 3e-4,
     return train_step
 
 
-def make_eval_step(cfg: ModelConfig, *,
+def make_eval_step(cfg: ModelConfig, *, plan=None,
                    device: str | torch.device | None = "cuda") -> Callable:
-    """(params, batch) -> the loss's metrics, without autograd."""
+    """(params, batch) -> the loss's metrics, without autograd.  ``plan``
+    (a ``parallel.Plan``): the parameters are this rank's shards and the
+    batch its rows, as ``make_train_step(plan=)`` takes them; the
+    metrics are averaged over the data group."""
 
     @torch.no_grad()
     def eval_step(params, batch):
-        _, metrics = transformer.loss_fn(params, batch, cfg, device=device)
-        return metrics
+        _, metrics = transformer.loss_fn(params, batch, cfg, device=device,
+                                         plan=plan)
+        if plan is None or parallel.size(plan.data) == 1:
+            return metrics
+        names = sorted(metrics)
+        mean = parallel.all_reduce(torch.stack(
+            [metrics[k].to(torch.float32) for k in names]), plan.data)
+        mean = mean / parallel.size(plan.data)
+        return {k: mean[i] for i, k in enumerate(names)}
     return eval_step
 
 

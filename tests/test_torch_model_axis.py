@@ -82,9 +82,10 @@ ENC_DEC = "whisper-medium"
 FSDP = DENSE + "+fsdp"
 CLI_RUNS = (DENSE, MOE, HYBRID, ENC_DEC)
 RUNS = CLI_RUNS + (FSDP,)
-# (tensor- or expert-parallel leaves, gathered leaves) at M = 2
-COUNTS = {DENSE: (7, 2), MOE: (7, 1), HYBRID: (7, 13), ENC_DEC: (18, 2),
-          FSDP: (7, 5)}
+# (tensor- or expert-parallel leaves, gathered leaves) at M = 2; the
+# vocabulary's leaves (``embed``, ``lm_head`` unless tied) are neither
+COUNTS = {DENSE: (7, 0), MOE: (7, 0), HYBRID: (7, 11), ENC_DEC: (18, 0),
+          FSDP: (7, 3)}
 TOL = 1e-6
 
 
@@ -446,6 +447,8 @@ def test_mesh_ranks_hold_the_reference_shards(runs, name):
         assert opt == o[1:], name             # o[0] is the step counter
         assert r["params_held"] == sum(math.prod(s) for s in p)
         assert (r["tp_leaves"], r["gathered_leaves"]) == COUNTS[name]
+        assert r["vocab_leaves"] > 0, name
+        assert not {"embed", "lm_head"} & set(r["gathered"]), name
 
 
 def _step_from(name, ck, step: int):

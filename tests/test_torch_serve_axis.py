@@ -32,7 +32,8 @@ equal one process's; each rank's prefill and decode logits within
 and after the last step bitwise the blocks of one process's caches cut
 by ``cache_pspecs`` (the float32 roundings of float64 values that agree
 to ~1e-16); its parameter elements and cache block shapes those the
-reference's specs cut, and its plan's Mamba and RWKV leaves.
+reference's specs cut, its plan's Mamba and RWKV leaves, and its
+vocabulary leaves used by block, never gathered.
 
 For hymba and h2o-danube, the mesh's logits against the reference's
 one-device ``transformer.prefill`` / jitted ``decode_step`` on the same
@@ -158,14 +159,17 @@ for arch in {archs!r}:
                                 lay["prefill"], sizes)]
     logits, pre = make_prefill_step(cfg, plan=plan, device="cpu")(
         params, b, zeros)
+    # the rank's block of the vocabulary, whole, its padding dropped
+    logits = parallel.all_gather(logits[:, -1], -1, plan.vocab)
     arrays = {{"logits": out.logits.numpy(), "tokens": out.tokens.numpy(),
-               "prefill_logits": logits[:, -1].numpy()}}
+               "prefill_logits": logits[:, :cfg.vocab].numpy()}}
     for tag, cache in (("prefill", pre), ("final", out.cache)):
         for i, seg in enumerate(cache):
             for k, t in seg.items():
                 arrays[f"{{tag}}/{{i}}/{{k}}"] = t.numpy()
     np.savez({tmp!r} + f"/{{arch}}.{{rank}}.npz", **arrays)
     info = {{"counts": plan.counts(), "kv_shard": lay["kv_shard"],
+             "gathered": ["/".join(p) for p in plan.gathered()],
              "batch_entry": lay["batch"],
              "params_held": sum(t.numel() for _, t in common.leaves(params))}}
     with open({tmp!r} + f"/{{arch}}.{{rank}}.json", "w") as f:
@@ -367,6 +371,8 @@ def test_ranks_hold_the_reference_shards(served, mesh):
             assert [{k: tuple(got[f"final/{i}/{k}"].shape) for k in seg}
                     for i, seg in enumerate(want)] == want, (arch, r)
             c = info["counts"]
+            assert c["vocab_leaves"] > 0, (arch, r)
+            assert not {"embed", "lm_head"} & set(info["gathered"]), (arch, r)
             assert c["mamba_leaves"] == (8 if cfg.family == "hybrid" else 0)
             assert c["rwkv_leaves"] == (8 if cfg.family == "ssm" else 0)
             kvs = info["kv_shard"]
