@@ -119,11 +119,13 @@ CUDA toolkit.  Phases, each printing one JSON line:
                  launches a step (2 and 1 a layer), every rank's
                  embedding and head used by vocabulary block
                  (``vocab_leaves`` > 0, neither among its gathered
-                 leaves); a line a rank with its peak memory, step
-                 seconds and tensor-parallel, vocabulary and gathered
-                 leaves; ``attention.decode_attend_seqsharded``
-                 on 2 spawned gloo ranks at one of ``gemma3-27b``'s global
-                 layers (32 query and 16 KV heads of 128) over the
+                 leaves) and no attention leaf gathered (Hymba's 25
+                 heads cut over 2: ``ragged_attn``); a line a rank with
+                 its peak memory, step seconds and tensor-parallel,
+                 vocabulary, ragged-attention and gathered leaves;
+                 ``attention.decode_attend_seqsharded`` on 2 spawned
+                 gloo ranks at one of ``gemma3-27b``'s global layers
+                 (32 query and 16 KV heads of 128) over the
                  ``long_500k`` cache of 524,288 slots (8.6 GB of fp32
                  K/V, from ``--seed``), B = 1, at a position inside rank
                  1's half and off a chunk edge, against one-process
@@ -135,10 +137,13 @@ CUDA toolkit.  Phases, each printing one JSON line:
                  plan=)`` on hymba-1.5b at full width and MESH_SERVE_LAYERS
                  layers (fp32, batch 4, a 1,024-token prompt that with
                  the 128 meta tokens wraps the 1,024-slot SWA ring, 16
-                 greedy tokens; the attention gathered, the
-                 full-attention layer's decode positions over "model",
+                 greedy tokens; the 25-head attention on its column
+                 blocks, which cut a head (q and KV projected there,
+                 the projections gathered), the full-attention layer's
+                 decode positions over "model", ``w_in`` by block,
                  ``m_h`` / ``m_conv`` and the scan on 800 channels a
-                 rank, the FFN tensor-parallel), then every arch's
+                 rank, the FFN tensor-parallel; a rank gathers only
+                 ``attn_gamma`` and ``mamba_gamma``), then every arch's
                  ``smoke()`` config (MoE at capacity factor 16); each
                  rank's logits at the prefill and every step within
                  MESH_SERVE_REL x max|logit| of one process's
@@ -832,7 +837,8 @@ def phase_lm(args) -> tuple[dict, dict]:
         ref_out, rst = mamba.mamba_naive(h, p0["mamba"], d_inner=cfg.q_dim)
         torch.cuda.synchronize()
         naive_s = time.perf_counter() - t0
-        xc, _, _ = mamba._mixer_in(h, p0["mamba"], cfg.q_dim, None)
+        xc, _, _ = mamba._mixer_in(h @ p0["mamba"]["w_in"], p0["mamba"],
+                                   cfg.q_dim, None)
         dt, bt, ct, a_mat = mamba._dt_bc(xc, p0["mamba"])
     mix_err = max(float((got - ref_out).abs().max()),
                   float((gst.h - rst.h).abs().max()))
@@ -1221,7 +1227,8 @@ def _layer0_scan_inputs(params, tokens, cfg) -> dict:
         p0 = transformer._layer(params["layers"], 0)
         x = transformer.embed_inputs(params, tokens, cfg)
         h = common.rmsnorm(x, p0["ln1"])
-        xc, _, _ = mamba._mixer_in(h, p0["mamba"], cfg.q_dim, None)
+        xc, _, _ = mamba._mixer_in(h @ p0["mamba"]["w_in"], p0["mamba"],
+                                   cfg.q_dim, None)
         dt, bt, ct, a_mat = mamba._dt_bc(xc, p0["mamba"])
     return {"xc": xc.contiguous(), "dt": dt.contiguous(),
             "bm": bt.contiguous(), "cm": ct.contiguous(),
@@ -1462,6 +1469,27 @@ def _check_vocab_blocks(tag: str, rep: dict) -> bool:
                  f"({rep['gathered']})")
 
 
+def _check_model_blocks(tag: str, rep: dict, serving: bool,
+                        cfg) -> bool:
+    """A rank of the model axis runs every attention block on its column
+    blocks, whatever its head counts (``ragged_attn`` of them cut a
+    head), and, serving, Mamba on its ``w_in`` block: none of those
+    leaves is gathered.  A serving Hymba rank gathers its two gammas and
+    nothing else."""
+    bad = [p for p in rep["gathered"] if "/attn/" in p or "/xattn/" in p
+           or (serving and p.endswith("/w_in"))]
+    ok = check(not bad, f"{tag}: gathers no attention leaf"
+               + (" and no w_in" if serving else "")
+               + f" ({rep['ragged_attn']} ragged attention blocks; "
+               f"gathered {rep['gathered']})")
+    if serving and cfg.family == "hybrid":
+        ok &= check(sorted(rep["gathered"]) == ["layers/attn_gamma",
+                                                "layers/mamba_gamma"],
+                    f"{tag}: gathers attn_gamma and mamba_gamma only, got "
+                    f"{rep['gathered']}")
+    return ok
+
+
 def _model_axis_finish(run: dict) -> tuple[dict, dict]:
     """The started run held to one process: each rank's parameter
     elements against the port's specs (held equal to the reference's by
@@ -1508,6 +1536,7 @@ def _model_axis_finish(run: dict) -> tuple[dict, dict]:
               f"{tag}: holds {rep['params_held']} parameter elements, the "
               f"specs' {held} of {whole}")
         _check_vocab_blocks(tag, rep)
+        _check_model_blocks(tag, rep, False, cfg)
         per_step = {k: v / steps for k, v in rep["launches"].items() if v}
         if cfg.family == "hybrid":     # a checkpointed layer scans twice
             fwd = 2 if cfg.remat != "none" else 1
@@ -1525,6 +1554,7 @@ def _model_axis_finish(run: dict) -> tuple[dict, dict]:
             "peak_bytes": rep["peak_bytes"], "step_s": rep["step_s"],
             "tp_leaves": rep["tp_leaves"],
             "vocab_leaves": rep["vocab_leaves"],
+            "ragged_attn": rep["ragged_attn"],
             "gathered_leaves": rep["gathered_leaves"],
             "launches_per_step": per_step}, "nvidia_smi": nvidia_smi_line()}),
             flush=True)
@@ -1565,6 +1595,7 @@ def _model_axis_finish(run: dict) -> tuple[dict, dict]:
         params_whole=whole, params_held_per_rank=held,
         tp_leaves=reps[0]["tp_leaves"],
         vocab_leaves=reps[0]["vocab_leaves"],
+        ragged_attn=reps[0]["ragged_attn"],
         gathered_leaves=reps[0]["gathered_leaves"],
         peak_bytes=[x["peak_bytes"] for x in reps],
         step_s=[x["step_s"] for x in reps],
@@ -1847,6 +1878,7 @@ def _mesh_serve(args) -> tuple[dict, dict]:
                   f"elements (the specs' {held}) and the decode "
                   f"cache_pspecs blocks")
             _check_vocab_blocks(f"{label} rank {r}", rr)
+            _check_model_blocks(f"{label} rank {r}", rr, True, cfg)
             if cfg.family == "hybrid":     # one scan a layer a call
                 n = cfg.n_layers * gen
                 check(rr["launches"].get("ssm_scan") == n,
@@ -1857,8 +1889,8 @@ def _mesh_serve(args) -> tuple[dict, dict]:
                 launches[k] = launches.get(k, 0) + v
             ranks.append({k: rr[k] for k in (
                 "rank", "coords", "prefill_s", "ms_per_token", "peak_bytes",
-                "launches", "tp_leaves", "vocab_leaves", "gathered_leaves",
-                "mamba_leaves", "rwkv_leaves")})
+                "launches", "tp_leaves", "vocab_leaves", "ragged_attn",
+                "gathered_leaves", "mamba_leaves", "rwkv_leaves")})
         runs.append({"label": req["label"], "batch": b,
                      "prompt": req["prompt"].shape[1], "gen": gen,
                      "kv_shard": lay["kv_shard"], "params_held": held,

@@ -7,6 +7,7 @@ profiled Hymba prefill and a few decode steps.
     python3 chip_trace.py --path dtw [--seed 0] [--dtw-queries 10] [--k 10]
     python3 chip_trace.py --path lm [--seed 0]
     python3 chip_trace.py --path ssm_bwd [--seed 0]
+    python3 chip_trace.py --path mesh_decode [--seed 0]
 
 ``--path block_major`` (the default) builds the same index as
 ``chip_smoke.py`` (random-walk series generated on the card from
@@ -32,7 +33,14 @@ shape (1, 4,224, 1,600, 16): CUDA events over 20 back-to-back calls and
 the profiler's device time by each kernel a call launches, one JSON line
 a shape.  Copied beside another tree's ``src/`` (a parent unpacked by
 ``git archive``, with this tree's ``chip_smoke.py``), it times that
-tree's kernel in the same call.
+tree's kernel in the same call.  ``--path mesh_decode`` serves
+``chip_smoke.py``'s mesh run of hymba-1.5b (full width, MESH_SERVE_LAYERS
+layers, 4 gloo ranks sharing the card at 2x2, ``greedy_generate(plan=)``)
+with a host timer around every collective (``models.parallel``'s
+``all_reduce`` / ``all_gather`` and ``torch.distributed``'s, which the
+sharded decode calls directly): one JSON line with each rank's decode
+ms a token, its collectives a decode step by kind, their count and
+their host ms (each one's device-to-host copy, message and copy back).
 Needs one CUDA card.
 """
 from __future__ import annotations
@@ -210,6 +218,87 @@ def time_ssm_bwd(args) -> int:
     return 0
 
 
+def _traced_serve_rank(rank: int, cfg_d: dict) -> None:
+    """``chip_smoke._serve_rank`` on its first run (Hymba) with a host
+    timer around every collective, split at the first decode step; the
+    timings to ``cfg_d["out"]``."""
+    import collections
+
+    import torch.distributed as dist
+
+    import chip_smoke as cs
+    from repro_torch.models import parallel
+    st = {"phase": "prefill", "ms": collections.defaultdict(float),
+          "n": collections.defaultdict(int), "steps": 0}
+
+    def timed(name, fn):
+        def wrap(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                key = f"{st['phase']}/{name}"
+                st["ms"][key] += (time.perf_counter() - t0) * 1e3
+                st["n"][key] += 1
+        return wrap
+
+    for mod, name in ((parallel, "all_reduce"), (parallel, "all_gather"),
+                      (dist, "all_reduce"), (dist, "all_gather")):
+        setattr(mod, name, timed(f"{mod.__name__.split('.')[-1]}."
+                                 f"{name}", getattr(mod, name)))
+    step = transformer.decode_step
+
+    def decode_step(*a, **k):
+        st["phase"] = "decode"
+        st["steps"] += 1
+        return step(*a, **k)
+
+    transformer.decode_step = decode_step
+    runs = cs._serve_runs
+    cs._serve_runs = lambda seed: runs(seed)[:1]
+    cs._serve_rank(rank, cfg_d)
+    (Path(cfg_d["out"]) / f"trace_r{rank}.json").write_text(json.dumps(st))
+
+
+def trace_mesh_decode(args) -> int:
+    """Host time in the collectives of a 2x2 serving rank's decode."""
+    import shutil
+
+    import chip_smoke as cs
+    d, m = cs.MODEL_AXIS_MESH
+    out = cs.MESH_DIR / "trace"
+    out.mkdir(parents=True, exist_ok=True)
+    try:
+        cfg_d = {"seed": args.seed, "out": str(out),
+                 "init": cs._group_init("trace_mesh"),
+                 "device": str(cs._card())}
+        if not cs._spawn_ranks(_traced_serve_rank, d * m, cfg_d,
+                               cs.MESH_SERVE_TIMEOUT_S):
+            return 1
+        ranks = []
+        for r in range(d * m):
+            rep = json.loads((out / f"serve_r{r}.json").read_text())[0]
+            st = json.loads((out / f"trace_r{r}.json").read_text())
+            steps = st["steps"]
+            dec = {k.split("/", 1)[1]: {"per_step": st["n"][k] / steps,
+                                        "ms_per_step": v / steps}
+                   for k, v in st["ms"].items() if k.startswith("decode/")}
+            ranks.append({"rank": r, "ms_per_token": rep["ms_per_token"],
+                          "prefill_s": rep["prefill_s"],
+                          "decode_steps": steps, "decode": dec,
+                          "prefill_ms": {k.split("/", 1)[1]: v for k, v
+                                         in st["ms"].items()
+                                         if k.startswith("prefill/")}})
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    print(json.dumps({"phase": "trace", "path": "mesh_decode",
+                      "device": torch.cuda.get_device_name(0),
+                      "arch": cs.MESH_SERVE_ARCH,
+                      "layers": cs.MESH_SERVE_LAYERS, "mesh": [d, m],
+                      "ranks": ranks}), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -218,7 +307,7 @@ def main(argv=None) -> int:
     ap.add_argument("--dtw-queries", type=int, default=10)
     ap.add_argument("--k", type=int, default=10)
     ap.add_argument("--path", choices=("block_major", "flat", "dtw", "lm",
-                                       "ssm_bwd"),
+                                       "ssm_bwd", "mesh_decode"),
                     default="block_major")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -229,6 +318,8 @@ def main(argv=None) -> int:
         return trace_lm(args)
     if args.path == "ssm_bwd":
         return time_ssm_bwd(args)
+    if args.path == "mesh_decode":
+        return trace_mesh_decode(args)
     return trace_search(args)
 
 

@@ -18,12 +18,15 @@ all take this one path.  ``mamba_naive`` is the plain sequential oracle
 model group of M ranks (serving): rank r holds channels r·D/M ..
 (r+1)·D/M of ``conv``, ``w_dt``, ``dt_bias``, ``w_b``, ``w_c``,
 ``a_log``, ``d_skip`` and the rows of ``w_out``, and of the state
-(``h`` (B, D/M, N), ``conv`` (B, K-1, D/M)); ``w_in`` comes whole (its
-x and z halves lie on different ranks under the reference's specs) and
-the rank takes its own columns of each half.  ``B_t`` and ``C_t`` are
-sums over every channel: each rank's partial sums are completed by one
-all-reduce.  The scan runs on the rank's (B, S, D/M, N), and the
-``w_out`` rows' partial outputs end in one ``reduce_from``.
+(``h`` (B, D/M, N), ``conv`` (B, K-1, D/M)).  Its block of ``w_in`` is
+columns r·2D/M .. (r+1)·2D/M of the fused x|z, as the reference's
+specs cut it (at M = 2 every x column on rank 0, every z column on
+rank 1): x is projected onto that block, the (B, S, 2D) projection is
+gathered over the group, and the rank takes its own channels of each
+half.  ``B_t`` and ``C_t`` are sums over every channel: each rank's
+partial sums are completed by one all-reduce.  The scan runs on the
+rank's (B, S, D/M, N), and the ``w_out`` rows' partial outputs end in
+one ``reduce_from``.
 """
 from __future__ import annotations
 
@@ -99,13 +102,13 @@ def _ssm_coeffs(xc: torch.Tensor, p: dict):
     return a.to(torch.float32), b.to(torch.float32), ct
 
 
-def _mixer_in(x: torch.Tensor, p: dict, d_inner: int,
+def _mixer_in(xz: torch.Tensor, p: dict, d_inner: int,
               state: MambaState | None):
+    """The conv over the x half of the projection ``xz`` (B, S, 2D)."""
     k = p["conv"].shape[0]
-    xz = x @ p["w_in"]
     xi, z = xz[..., :d_inner], xz[..., d_inner:]
     hist = (state.conv if state is not None
-            else x.new_zeros((x.shape[0], k - 1, d_inner)))
+            else xz.new_zeros((xz.shape[0], k - 1, d_inner)))
     xc = F.silu(_conv_causal(xi, p["conv"], hist))
     tail = torch.cat([hist, xi], dim=1)[:, -(k - 1):]
     return xc, z, tail
@@ -118,21 +121,24 @@ def _mixer_out(y: torch.Tensor, xc: torch.Tensor, z: torch.Tensor, p: dict,
     return y @ p["w_out"]
 
 
-def _channels(p: dict, d_inner: int, tp) -> tuple[dict, int]:
-    """A channel-parallel rank's parameters: its x and z columns of the
-    whole ``w_in``, beside its own blocks of the rest.  -> (p, D/M)."""
+def _channels(x: torch.Tensor, p: dict, d_inner: int, tp
+              ) -> tuple[torch.Tensor, int]:
+    """A channel-parallel rank's x|z projection: ``x`` onto its block of
+    ``w_in``'s fused columns, the blocks gathered over ``tp``, then its
+    own channels of the x half and of the z half.  -> ((B, S, 2·D/M),
+    D/M)."""
     m, r = parallel.size(tp), dist.get_rank(tp)
     dl = d_inner // m
     w_in = p["w_in"]
-    if w_in.shape[-1] != 2 * d_inner or p["conv"].shape[-1] != dl:
-        raise ValueError(f"channel-parallel Mamba on {m} ranks takes w_in "
-                         f"whole (2 x {d_inner} columns) and {dl} channels "
-                         f"of the rest, got {w_in.shape[-1]} and "
+    if w_in.shape[-1] != 2 * dl or p["conv"].shape[-1] != dl:
+        raise ValueError(f"channel-parallel Mamba on {m} ranks takes "
+                         f"{2 * dl} columns of w_in and {dl} channels of "
+                         f"the rest, got {w_in.shape[-1]} and "
                          f"{p['conv'].shape[-1]}")
-    cols = torch.cat([w_in[:, r * dl:(r + 1) * dl],
-                      w_in[:, d_inner + r * dl:d_inner + (r + 1) * dl]],
-                     dim=1)
-    return {**p, "w_in": cols}, dl
+    xz = parallel.gather_acts(parallel.copy_to(x, tp) @ w_in, tp)
+    return torch.cat([xz[..., r * dl:(r + 1) * dl],
+                      xz[..., d_inner + r * dl:d_inner + (r + 1) * dl]],
+                     dim=-1), dl
 
 
 def mamba_mix(x: torch.Tensor, p: dict, *, d_inner: int,
@@ -145,9 +151,10 @@ def mamba_mix(x: torch.Tensor, p: dict, *, d_inner: int,
     channel-parallel (the module's docstring); ``state`` then holds this
     rank's channels, and so does the state returned."""
     if parallel.size(tp) > 1:
-        p, d_inner = _channels(p, d_inner, tp)
-        x = parallel.copy_to(x, tp)
-    xc, z, tail = _mixer_in(x, p, d_inner, state)
+        xz, d_inner = _channels(x, p, d_inner, tp)
+    else:
+        xz = x @ p["w_in"]
+    xc, z, tail = _mixer_in(xz, p, d_inner, state)
     dt, bt, ct, a_mat = _dt_bc(xc, p, tp)
     h0 = state.h if state is not None else None
     y, h_last = ops.ssm_scan(xc.contiguous(), dt.contiguous(),
@@ -164,7 +171,7 @@ def mamba_naive(x: torch.Tensor, p: dict, *, d_inner: int,
     """Sequential oracle: the same math, a plain per-step loop over the
     materialised (B, S, D, N) coefficients."""
     b, s, _ = x.shape
-    xc, z, tail = _mixer_in(x, p, d_inner, state)
+    xc, z, tail = _mixer_in(x @ p["w_in"], p, d_inner, state)
     a, bb, ct = _ssm_coeffs(xc, p)
     h = (state.h.to(torch.float32) if state is not None
          else torch.zeros((b, d_inner, p["w_b"].shape[1]),

@@ -18,6 +18,11 @@ insert the collectives.  Here each collective is explicit, on
     slice of it.  Over the data axes (FSDP) each rank's gradient comes
     from its own rows, and the backward is a reduce-scatter SUM: such a
     gradient is already summed over the data ranks.
+  * ``gather_acts(x, group)``: forward an all-gather of the ranks'
+    blocks of an activation along its last dim, backward a
+    reduce-scatter SUM: each rank's consumers compute a part of the
+    gathered tensor's gradient (the heads of an attention whose column
+    blocks cut a head, ``transformer._qkv``).
 
 Messages travel on the device that the group's backend takes
 (``core.frontier.comm_device``): the card for NCCL, the host for gloo.
@@ -27,12 +32,16 @@ numbers.
 
 ``Plan`` decides once, from the reference's specs (``launch.specs.
 param_pspecs``), which blocks run tensor-parallel: attention whose
-``wq``/``wk``/``wv`` columns and ``wo`` rows lie over "model" by whole
-heads (column-parallel projections, a row-parallel ``wo``, one
-``reduce_from``); an FFN whose ``ff`` dim lies over "model"; a MoE
-whose experts split over "model" (``moe.moe_ffn_ep``).  A serving plan
-(``serve=True``) adds three forward-only kinds: Hymba's Mamba by
-channel (its ``d_inner`` leaves over "model", ``mamba.mamba_mix(tp=)``),
+``wq``/``wk``/``wv`` columns and ``wo`` rows lie over "model"
+(column-parallel projections, a row-parallel ``wo``, one
+``reduce_from``), by whole heads where the KV heads divide M, else
+"ragged": the cut falls inside a head, and the rank gathers the
+projected activations of the heads it needs (``transformer._qkv``); an
+FFN whose ``ff`` dim lies over "model"; a MoE whose experts split over
+"model" (``moe.moe_ffn_ep``).  A serving plan (``serve=True``) adds
+three forward-only kinds: Hymba's Mamba by channel (its ``d_inner``
+leaves over "model", its ``w_in`` block's projection gathered,
+``mamba.mamba_mix(tp=)``),
 RWKV's time mix by head (``w_r``/``w_k``/``w_v``/``w_g`` columns,
 ``w_o`` rows, ``bonus_u``) and its channel mix by ``ff``
 (``rwkv.rwkv_layer(tp=, ffn_tp=)``).  Where "model" cuts the
@@ -61,11 +70,10 @@ MAMBA_BLOCK = ("layers", "mamba")
 # RWKV's leaves lie in "layers" itself: its two halves are named blocks
 RWKV_TIME, RWKV_CHANNEL = ("layers", "time_mix"), ("layers", "channel_mix")
 # the leaves a serving block keeps local, each with the dim that "model"
-# must cut (of the stacked (L, ...) leaf); Mamba's ``w_in`` is gathered
-# (its x and z halves lie on different ranks), as are RWKV's ``w_cr``,
-# ``ln_x``, token-shift mixes and decay LoRA
-MAMBA_LOCAL = dict(conv=-1, w_dt=1, dt_bias=-1, w_b=1, w_c=1, a_log=1,
-                   d_skip=-1, w_out=1)
+# must cut (of the stacked (L, ...) leaf); RWKV's ``w_cr``, ``ln_x``,
+# token-shift mixes and decay LoRA are gathered
+MAMBA_LOCAL = dict(w_in=-1, conv=-1, w_dt=1, dt_bias=-1, w_b=1, w_c=1,
+                   a_log=1, d_skip=-1, w_out=1)
 RWKV_TIME_LOCAL = dict(w_r=-1, w_k=-1, w_v=-1, w_g=-1, w_o=1, bonus_u=1)
 RWKV_CHANNEL_LOCAL = dict(w_ck=-1, w_cv=1)
 # the vocabulary's leaves, each with its vocab dim
@@ -151,7 +159,7 @@ class _Gather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        if ctx.kind != MODEL:                  # FSDP: a reduce-scatter SUM
+        if ctx.kind != MODEL:      # FSDP, activations: a reduce-scatter SUM
             g = all_reduce(g, ctx.group)
         return _slice(g, ctx.dim, ctx.group), None, None, None
 
@@ -176,6 +184,15 @@ def gather_leaf(shard: torch.Tensor, dim: int, group, kind: str
     return _Gather.apply(shard, dim, group, kind)
 
 
+def gather_acts(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's block of an activation, joined along the last dim in
+    rank order; the backward is a reduce-scatter SUM (each rank's
+    consumers give a part of the gradient)."""
+    if size(group) == 1:
+        return x
+    return _Gather.apply(x, -1, group, "acts")
+
+
 # ---------------------------------------------------------------------------
 # One rank's plan
 # ---------------------------------------------------------------------------
@@ -183,6 +200,13 @@ def gather_leaf(shard: torch.Tensor, dim: int, group, kind: str
 
 def _is(spec: tuple, dim: int, axis: str = MODEL) -> bool:
     return len(spec) >= abs(dim) and spec[dim] == axis
+
+
+def ragged(cfg, m: int) -> bool:
+    """Whether a tensor-parallel attention over ``m`` ranks cuts a KV
+    head (and then maybe a q head): its column blocks are not whole
+    heads."""
+    return m > 1 and cfg.n_kv_heads % m != 0
 
 
 def _tensor_parallel(cfg, flat: dict, m: int) -> dict:
@@ -196,8 +220,7 @@ def _tensor_parallel(cfg, flat: dict, m: int) -> dict:
         if blk + ("wq",) not in flat:
             continue
         cols = all(_is(flat[blk + (n,)], -1) for n in names[:3])
-        if cols and _is(flat[blk + ("wo",)], -2) \
-                and cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0:
+        if cols and _is(flat[blk + ("wo",)], -2):
             out[blk] = tuple(blk + (n,) for n in names)
     for blk in FFN_BLOCKS:
         names = tuple(n for n in ("wg", "wu", "wd") if blk + (n,) in flat)
@@ -224,8 +247,9 @@ def _local(flat: dict, prefix: tuple, dims: dict) -> tuple | None:
 
 def _serving_parallel(cfg, flat: dict, m: int) -> dict:
     """The forward-only blocks of a serving plan: Hymba's Mamba by
-    channel where ``q_dim`` (its ``d_inner``) divides ``m``, RWKV's time
-    mix by whole heads and its channel mix by ``ff``."""
+    channel where ``q_dim`` (its ``d_inner``) divides ``m``, ``w_in`` by
+    its block of the fused x|z columns, RWKV's time mix by whole heads
+    and its channel mix by ``ff``."""
     out: dict = {}
     if m <= 1:
         return out
@@ -286,6 +310,8 @@ class Plan:
         self.vocab = model if self.vocab_leaves else None
         self.local = self.keep | frozenset(self.vocab_leaves)
         self._by_kind = {
+            "ragged_attn": sum(b in blocks for b in ATTN_BLOCKS)
+            if ragged(cfg, m) else 0,
             "mamba_leaves": len(serving.get(MAMBA_BLOCK, ())),
             "rwkv_leaves": len(serving.get(RWKV_TIME, ()))
             + len(serving.get(RWKV_CHANNEL, ()))}
@@ -311,9 +337,10 @@ class Plan:
     def counts(self) -> dict:
         """Leaves used tensor- or expert-parallel over "model" (of them,
         a serving plan's Mamba leaves by channel and RWKV leaves by head
-        or ``ff``), the vocabulary's leaves used by vocab block, and the
-        other leaves gathered where they are used (over "model", the
-        data axes, or both)."""
+        or ``ff``), the attention blocks among them whose column blocks
+        cut a head (``ragged_attn``), the vocabulary's leaves used by
+        vocab block, and the other leaves gathered where they are used
+        (over "model", the data axes, or both)."""
         return {"tp_leaves": len(self.keep),
                 "gathered_leaves": len(self.gathered()),
                 "vocab_leaves": len(self.vocab_leaves), **self._by_kind}

@@ -166,61 +166,137 @@ def param_specs(cfg: ModelConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _qkv(x, p, cfg: ModelConfig, positions, m: int = 1):
-    """Projected q, k, v; RoPE at ``positions`` unless it is None (an
-    enc_dec model has no RoPE).  ``m``: the projections hold 1/m of the
-    heads (tensor-parallel)."""
-    b, s, _ = x.shape
-    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads // m, cfg.head_dim)
-    k = (x @ p["wk"]).reshape(b, s, cfg.n_kv_heads // m, cfg.head_dim)
-    v = (x @ p["wv"]).reshape(b, s, cfg.n_kv_heads // m, cfg.head_dim)
+def _q_heads(cfg: ModelConfig, tp, every_head: bool = False):
+    """(h0, h1, group): the q heads [h0, h1) this rank attends over the
+    model group ``tp``, and the group its q projection is gathered over
+    (None: its own columns are those heads).  By whole heads, the rank's
+    heads.  Ragged (``parallel.ragged``): the heads that overlap its q
+    columns [r·q/M, (r+1)·q/M) (a head cut between two ranks is attended
+    on both), gathered unless they are its own whole heads; with
+    ``every_head``, every head."""
+    m, r = parallel.size(tp), parallel.rank(tp)
+    if not parallel.ragged(cfg, m):
+        n = cfg.n_heads // m
+        return r * n, (r + 1) * n, None
+    if every_head:
+        return 0, cfg.n_heads, tp
+    qc, hd = cfg.q_dim // m, cfg.head_dim
+    return r * qc // hd, -(-(r + 1) * qc // hd), \
+        tp if cfg.n_heads % m else None
+
+
+def _proj(x, p, names: tuple, hd: int, group) -> list:
+    """``x``'s projections onto the leaves ``names``, each (B, S, heads,
+    hd): onto this rank's column blocks, or with ``group`` onto every
+    rank's, the blocks gathered in one message ([a₀|b₀|a₁|b₁|…]) and put
+    back in column order."""
+    parts = [x @ p[n] for n in names]
+    m = parallel.size(group)
+    if m > 1:
+        widths = [t.shape[-1] for t in parts]
+        every = parallel.gather_acts(torch.cat(parts, dim=-1), group)
+        parts = [t.flatten(-2) for t in every.unflatten(
+            -1, (m, sum(widths))).split(widths, dim=-1)]
+    b, s = x.shape[:2]
+    return [t.reshape(b, s, -1, hd) for t in parts]
+
+
+def _qkv(x, p, cfg: ModelConfig, positions, tp=None, *,
+         every_head: bool = False, kv_x=None):
+    """Projected q, k, v (B, S, heads, hd), the q/k norms and RoPE at
+    ``positions`` (none if it is None: an enc_dec model has no RoPE)
+    applied on whole heads, and h0, q's first head.  ``kv_x``: what k
+    and v project from (cross-attention), else ``x``.  ``tp``: a model
+    group over which ``wq``/``wk``/``wv`` hold this rank's column
+    blocks: by whole heads, q, k and v hold the rank's heads; ragged, k
+    and v are gathered whole and q holds ``_q_heads``' heads."""
+    h0, h1, gq = _q_heads(cfg, tp, every_head)
+    gkv = tp if parallel.ragged(cfg, parallel.size(tp)) else None
+    hd = cfg.head_dim
+    if kv_x is None and gq is gkv:
+        q, k, v = _proj(x, p, ("wq", "wk", "wv"), hd, gq)
+    else:
+        (q,) = _proj(x, p, ("wq",), hd, gq)
+        k, v = _proj(x if kv_x is None else kv_x, p, ("wk", "wv"), hd, gkv)
+    if gq is not None:
+        q = q[:, :, h0:h1]
     if cfg.qk_norm:
         q = common.rmsnorm(q, p["q_gamma"])
         k = common.rmsnorm(k, p["k_gamma"])
     if positions is not None:
         q = common.rope(q, positions, cfg.rope_theta)
         k = common.rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return q, k, v, h0
+
+
+def _kv_of(k, v, h0: int, nh: int, cfg: ModelConfig):
+    """The K/V heads that q heads [h0, h0 + nh) read, in
+    ``attention.attend``'s grouped layout: ``k`` / ``v`` as they are
+    where they hold exactly those groups; the one KV head the q heads
+    share, or their run of whole groups; else each q head's own KV head
+    (a copy, one group a head)."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    a, z = h0 // g, -(-(h0 + nh) // g)
+    if k.shape[2] == z - a:
+        return k, v
+    if z - a == 1 or (h0 % g == 0 and nh % g == 0):
+        return k[:, :, a:z], v[:, :, a:z]
+    idx = torch.arange(h0, h0 + nh, device=k.device) // g
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _attn_out(out, p, cfg: ModelConfig, tp, h0: int):
+    """The attention's output (B, S, heads, hd) of the q heads from
+    ``h0`` on, through this rank's rows of ``wo`` (its q/M columns of the
+    output: all of them by whole heads), summed over ``tp``."""
+    b, s = out.shape[:2]
+    out = out.reshape(b, s, -1)
+    qc = cfg.q_dim // parallel.size(tp)
+    if out.shape[-1] != qc:
+        out = out.narrow(-1, parallel.rank(tp) * qc - h0 * cfg.head_dim, qc)
+    return parallel.reduce_from(out @ p["wo"], tp)
 
 
 def _tp_enter(x, p, tp):
     """A tensor-parallel attention's inputs: ``x`` and the replicated
     q/k norms through ``copy_to`` (each rank's heads give a part of
-    their gradients).  -> (x, p, m)."""
-    m = parallel.size(tp)
-    if m == 1:
-        return x, p, 1
+    their gradients).  -> (x, p)."""
+    if parallel.size(tp) == 1:
+        return x, p
     norms = {g: parallel.copy_to(p[g], tp) for g in ("q_gamma", "k_gamma")
              if g in p}
-    return parallel.copy_to(x, tp), {**p, **norms}, m
+    return parallel.copy_to(x, tp), {**p, **norms}
 
 
 def attn_train(x, p, cfg: ModelConfig, kind: str, *, causal: bool = True,
                tp=None):
     """Full-sequence attention (forward, loss and prefill compute);
     ``causal=False`` for Whisper's encoder.  ``tp``: a model group over
-    which ``wq``/``wk``/``wv`` hold this rank's heads' columns and ``wo``
-    their rows; the ranks' outputs are summed by one ``reduce_from``.
+    which ``wq``/``wk``/``wv`` hold this rank's column blocks and ``wo``
+    the same rows of q; the rank attends ``_q_heads``' heads and the
+    ranks' outputs are summed by one ``reduce_from``.
 
-    Returns (out, (k, v)) so prefill can write the cache."""
-    b, s, _ = x.shape
-    x, p, m = _tp_enter(x, p, tp)
+    Returns (out, (k, v)) so prefill can write the cache: the rank's KV
+    heads by whole heads, every KV head ragged."""
+    s = x.shape[1]
+    x, p = _tp_enter(x, p, tp)
     positions = None if cfg.enc_dec \
         else torch.arange(s, device=x.device)[None, :]
-    q, k, v = _qkv(x, p, cfg, positions, m)
+    q, k, v, h0 = _qkv(x, p, cfg, positions, tp)
     window = cfg.window if kind == "swa" else 0
-    out = attention.attend(q, k, v, causal=causal, window=window,
+    out = attention.attend(q, *_kv_of(k, v, h0, q.shape[2], cfg),
+                           causal=causal, window=window,
                            chunk=attention.div_chunk(s, cfg.scan_chunk))
-    out = out.reshape(b, s, cfg.q_dim // m) @ p["wo"]
-    return parallel.reduce_from(out, tp), (k, v)
+    return _attn_out(out, p, cfg, tp, h0), (k, v)
 
 
 def _check_heads(cache_k, k) -> None:
-    """A cache must hold the heads the attention computes: a rank's
-    under tensor parallelism, else all of them."""
+    """A cache must hold the KV heads the attention gives: a rank's
+    under whole-head tensor parallelism, else all of them (a ragged
+    block gathers them whole, as ``cache_pspecs`` leaves them)."""
     if cache_k.shape[-2] != k.shape[-2]:
         raise ValueError(f"the cache holds {cache_k.shape[-2]} KV heads, "
-                         f"the attention computes {k.shape[-2]}")
+                         f"the attention gives {k.shape[-2]}")
 
 
 def attn_decode(x, p, cfg: ModelConfig, kind: str, cache, pos,
@@ -229,10 +305,11 @@ def attn_decode(x, p, cfg: ModelConfig, kind: str, cache, pos,
     ``pos`` (B,) int64; ``kv_shard`` a group over which a full-attention
     cache splits its positions (this rank's slice in ``cache``); ``tp``
     a model group over which the attention runs by head (the cache holds
-    this rank's KV heads).  Returns (out, cache)."""
-    b = x.shape[0]
-    x, p, m = _tp_enter(x, p, tp)
-    q, k, v = _qkv(x, p, cfg, pos[:, None], m)
+    this rank's KV heads) or ragged: then every rank attends every head
+    (the sharded merge over "model" needs the same heads on each) and
+    keeps its columns of the output.  Returns (out, cache)."""
+    x, p = _tp_enter(x, p, tp)
+    q, k, v, h0 = _qkv(x, p, cfg, pos[:, None], tp, every_head=True)
     _check_heads(cache["k"], k)
     window = cfg.window if kind == "swa" else 0
     if kv_shard is not None and not window:
@@ -242,8 +319,7 @@ def attn_decode(x, p, cfg: ModelConfig, kind: str, cache, pos,
         kc, vc = attention.cache_update(cache["k"], cache["v"], k, v, pos,
                                         window=window)
         out = attention.decode_attend(q, kc, vc, pos, window=window)
-    out = out.reshape(b, 1, cfg.q_dim // m) @ p["wo"]
-    return parallel.reduce_from(out, tp), {"k": kc, "v": vc}
+    return _attn_out(out, p, cfg, tp, h0), {"k": kc, "v": vc}
 
 
 def _zero_aux(device) -> moe.MoEAux:
@@ -525,13 +601,6 @@ def encoder_stack(params, frames: torch.Tensor, cfg: ModelConfig,
     return common.rmsnorm(x, params["enc_final_norm"])
 
 
-def _cross_kv(enc_out, p, cfg: ModelConfig, m: int = 1):
-    b, f, _ = enc_out.shape
-    kvh = cfg.n_kv_heads // m
-    return ((enc_out @ p["wk"]).reshape(b, f, kvh, cfg.head_dim),
-            (enc_out @ p["wv"]).reshape(b, f, kvh, cfg.head_dim))
-
-
 def _decoder_layer(x, p_l, enc_out, cfg: ModelConfig, c_l=None, plan=None):
     """One decoder layer over the whole token sequence: causal self-
     attention, cross-attention to ``enc_out``, the FFN.  With ``c_l``
@@ -542,15 +611,15 @@ def _decoder_layer(x, p_l, enc_out, cfg: ModelConfig, c_l=None, plan=None):
                              tp=_tp(plan, ("dec", "attn")))
     x = x + out
     h = common.rmsnorm(x, p_l["ln_x"])
-    b, sq, _ = h.shape
+    sq = h.shape[1]
     tp = _tp(plan, ("dec", "xattn"))
-    h, px, m = _tp_enter(h, p_l["xattn"], tp)
-    q = (h @ px["wq"]).reshape(b, sq, cfg.n_heads // m, cfg.head_dim)
-    xk, xv = _cross_kv(parallel.copy_to(enc_out, tp), px, cfg, m)
-    out = attention.attend(q, xk, xv, causal=False,
+    h, px = _tp_enter(h, p_l["xattn"], tp)
+    q, xk, xv, h0 = _qkv(h, px, cfg, None, tp,
+                         kv_x=parallel.copy_to(enc_out, tp))
+    out = attention.attend(q, *_kv_of(xk, xv, h0, q.shape[2], cfg),
+                           causal=False,
                            chunk=attention.div_chunk(sq, cfg.scan_chunk))
-    x = x + parallel.reduce_from(
-        out.reshape(b, sq, cfg.q_dim // m) @ px["wo"], tp)
+    x = x + _attn_out(out, px, cfg, tp, h0)
     f_out, _ = ffn_block(common.rmsnorm(x, p_l["ln2"]), p_l["ffn"], cfg,
                          _tp(plan, ("dec", "ffn")))
     if c_l is not None:
@@ -567,27 +636,25 @@ def _decoder_layer_decode(x, p_l, cfg: ModelConfig, c_l, pos: int,
     """One decoder layer, one token at ``pos``; its self K/V written into
     the cache.  The cross-attention reads every frame of ``xk`` / ``xv``
     (the reference's reads only whole chunks of 1,024).  ``plan``: the
-    blocks run as ``_decoder_layer``'s, the cache holds this rank's
-    heads where they run by head."""
+    blocks run as ``attn_decode``'s, the cache holds this rank's heads
+    where they run by whole heads."""
     p_l = _take(plan, p_l, "dec")
-    b = x.shape[0]
     h = common.rmsnorm(x, p_l["ln1"])
     tp = _tp(plan, ("dec", "attn"))
-    h, pa, m = _tp_enter(h, p_l["attn"], tp)
-    q, k, v = _qkv(h, pa, cfg, None, m)
+    h, pa = _tp_enter(h, p_l["attn"], tp)
+    q, k, v, h0 = _qkv(h, pa, cfg, None, tp, every_head=True)
     _check_heads(c_l["k"], k)
     kc, vc = attention.cache_update(c_l["k"], c_l["v"], k, v, pos)
-    out = attention.decode_attend(q, kc, vc, pos)
-    x = x + parallel.reduce_from(
-        out.reshape(b, 1, cfg.q_dim // m) @ pa["wo"], tp)
+    x = x + _attn_out(attention.decode_attend(q, kc, vc, pos), pa, cfg, tp,
+                      h0)
     h = common.rmsnorm(x, p_l["ln_x"])
     tp = _tp(plan, ("dec", "xattn"))
-    h, px, m = _tp_enter(h, p_l["xattn"], tp)
-    q = (h @ px["wq"]).reshape(b, 1, cfg.n_heads // m, cfg.head_dim)
+    h, px = _tp_enter(h, p_l["xattn"], tp)
+    h0, _, gq = _q_heads(cfg, tp, every_head=True)
+    (q,) = _proj(h, px, ("wq",), cfg.head_dim, gq)
     out = attention.decode_attend(q, c_l["xk"], c_l["xv"],
                                   c_l["xk"].shape[1] - 1)
-    x = x + parallel.reduce_from(
-        out.reshape(b, 1, cfg.q_dim // m) @ px["wo"], tp)
+    x = x + _attn_out(out, px, cfg, tp, h0)
     f_out, _ = ffn_block(common.rmsnorm(x, p_l["ln2"]), p_l["ffn"], cfg,
                          _tp(plan, ("dec", "ffn")))
     return x + f_out

@@ -449,6 +449,8 @@ def test_mesh_ranks_hold_the_reference_shards(runs, name):
         assert (r["tp_leaves"], r["gathered_leaves"]) == COUNTS[name]
         assert r["vocab_leaves"] > 0, name
         assert not {"embed", "lm_head"} & set(r["gathered"]), name
+        assert not [p for p in r["gathered"]
+                    if "/attn/" in p or "/xattn/" in p], name
 
 
 def _step_from(name, ck, step: int):

@@ -24,8 +24,10 @@ once) equal to the count on real CPU tensors, peak memory included, on
 dense and Hymba ``smoke()`` train, prefill and decode steps;
 ``ssm_scan``'s calls a Hymba prefill and train step; ``run_cell``
 on 16x1 and 32x1, and three serving cells on 16x16 (Mamba by channel,
-RWKV by head, long_500k's positions over the data axis); the roofline
-terms against the H100 peaks.  Exact
+RWKV by head, long_500k's positions over the data axis); at 16x16 the
+decode of nemotron-4-340b and of hymba-1.5b gathering no attention leaf,
+their all-gather column against the same count with those leaves
+gathered whole; the roofline terms against the H100 peaks.  Exact
 throughout except the 2% band: these are integer counts.
 """
 import dataclasses
@@ -49,6 +51,7 @@ from repro_torch.launch import mesh as M  # noqa: E402
 from repro_torch.launch import op_analysis as OA  # noqa: E402
 from repro_torch.launch import roofline as R  # noqa: E402
 from repro_torch.launch import specs as S  # noqa: E402
+from repro_torch.models import parallel  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.train import step as step_lib  # noqa: E402
 from _torch_parity import one_intra_op_thread  # noqa: E402,F401
@@ -369,7 +372,7 @@ def test_serving_cells_counted_over_the_model_axis(arch, shape):
         S.state_shard_shapes(cfg, dryrun.parse_mesh("16x16"))["params"])
     cache = rec["shards"]["cache"]
     if arch == "hymba-1.5b":        # Mamba by channel, positions over model
-        assert rec["mamba_leaves"] == 8
+        assert rec["mamba_leaves"] == 9
         assert rec["kernel_calls"] == {"ssm_scan": cfg.n_layers}
         kinds = [seg.kind for seg in T.segments(cfg)]
         full = cache[kinds.index("full")]
@@ -386,6 +389,39 @@ def test_serving_cells_counted_over_the_model_axis(arch, shape):
         full = cache[kinds.index("full")]
         assert full["k"][1:4] == (1, cell.seq_len // 16,
                                   cfg.n_kv_heads // 16)
+
+
+def _gathering_the_attention(plan) -> None:
+    """``plan`` with its attention blocks gathered whole over "model"
+    where they are used, as they were wherever the column blocks cut a
+    head before those blocks ran where they lie."""
+    attn = {p for b in parallel.ATTN_BLOCKS for p in plan.keep
+            if p[:len(b)] == b}
+    plan.tp_blocks = plan.tp_blocks - set(parallel.ATTN_BLOCKS)
+    plan.keep, plan.local = plan.keep - attn, plan.local - attn
+
+
+@pytest.mark.parametrize("arch", ["nemotron-4-340b", "hymba-1.5b"])
+def test_ragged_attention_leaves_the_all_gather_column(arch):
+    """16x16 decode_32k, where the KV heads do not divide 16 (nemotron's
+    8, Hymba's 5): no attention leaf is gathered, and the all-gather
+    column falls by the four leaves' whole bytes a layer, less the one
+    (q|k|v) message of the token's projections a layer gathered in their
+    place."""
+    new = dryrun.rank_cell(arch, "decode_32k", "16x16")
+    old = dryrun.rank_cell(arch, "decode_32k", "16x16")
+    _gathering_the_attention(old.plan)
+    assert not [p for p in new.plan.gathered() if "attn" in p]
+    assert len(old.plan.gathered()) == len(new.plan.gathered()) + 4
+    assert new.plan.counts()["ragged_attn"] == 1
+    got, was = OA.count(new.fn, *new.args), OA.count(old.fn, *old.args)
+    cfg = get_config(arch)
+    d, q, kv = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    b = new.shards["tokens"][0]
+    leaves = (2 * d * q + 2 * d * kv) * new.dtype.itemsize
+    message = b * (q + 2 * kv) * new.dtype.itemsize
+    assert was.coll_by_op["all-gather"] - got.coll_by_op["all-gather"] \
+        == cfg.n_layers * (leaves - message)
 
 
 def test_roofline_terms_against_peaks():

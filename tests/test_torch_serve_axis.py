@@ -14,8 +14,10 @@ alone for the prefill caches:
     RWKV by head, Whisper's cross caches by head; and Hymba with one KV
     head, whose full-attention positions lie over "model" while its
     batch lies over "data" (the reference's ``b_axes`` layout);
-  * 1x4, batch 2: 2 KV heads do not divide 4, so the attention is
-    gathered and the full-attention positions lie over "model";
+  * 1x4, batch 2: 2 KV heads do not divide 4, so the attention runs
+    ragged (each rank projects onto its column blocks, half a KV head,
+    and gathers the projections) and the full-attention positions lie
+    over "model";
   * 2x2, batch 1, hymba and gemma3: long_500k's layout, the
     full-attention positions over the data ranks.
 
@@ -33,7 +35,8 @@ and after the last step bitwise the blocks of one process's caches cut
 by ``cache_pspecs`` (the float32 roundings of float64 values that agree
 to ~1e-16); its parameter elements and cache block shapes those the
 reference's specs cut, its plan's Mamba and RWKV leaves, and its
-vocabulary leaves used by block, never gathered.
+vocabulary leaves, attention leaves and Mamba ``w_in`` used by block,
+never gathered.
 
 For hymba and h2o-danube, the mesh's logits against the reference's
 one-device ``transformer.prefill`` / jitted ``decode_step`` on the same
@@ -373,7 +376,11 @@ def test_ranks_hold_the_reference_shards(served, mesh):
             c = info["counts"]
             assert c["vocab_leaves"] > 0, (arch, r)
             assert not {"embed", "lm_head"} & set(info["gathered"]), (arch, r)
-            assert c["mamba_leaves"] == (8 if cfg.family == "hybrid" else 0)
+            # attention runs on its column blocks, Mamba on its w_in block
+            assert not [p for p in info["gathered"] if "/attn/" in p
+                        or "/xattn/" in p or p.endswith("/w_in")], \
+                (arch, r, info["gathered"])
+            assert c["mamba_leaves"] == (9 if cfg.family == "hybrid" else 0)
             assert c["rwkv_leaves"] == (8 if cfg.family == "ssm" else 0)
             kvs = info["kv_shard"]
             if mesh == "2x2-b1":
