@@ -8,6 +8,7 @@ profiled Hymba prefill and a few decode steps.
     python3 chip_trace.py --path lm [--seed 0]
     python3 chip_trace.py --path ssm_bwd [--seed 0]
     python3 chip_trace.py --path mesh_decode [--seed 0]
+    python3 chip_trace.py --path mesh_train [--arch hymba-1.5b]
 
 ``--path block_major`` (the default) builds the same index as
 ``chip_smoke.py`` (random-walk series generated on the card from
@@ -28,12 +29,16 @@ and its share of the profiled wall time, the device events a step, and
 the kernels that took the most device time, and each port kernel's
 launches and summed device time (``port_kernels``).  ``--path ssm_bwd``
 times ``ssm_scan_bwd`` alone on random operands from ``--seed`` at
-Hymba's training shape (2, 1,152, 1,600, 16) and train_4k's per-rank
-shape (1, 4,224, 1,600, 16): CUDA events over 20 back-to-back calls and
-the profiler's device time by each kernel a call launches, one JSON line
-a shape.  Copied beside another tree's ``src/`` (a parent unpacked by
-``git archive``, with this tree's ``chip_smoke.py``), it times that
-tree's kernel in the same call.  ``--path mesh_decode`` serves
+Hymba's training shape (2, 1,152, 1,600, 16), train_4k's per-rank
+shape (1, 4,224, 1,600, 16) and a 2x2 mesh training rank's (1, 1,152,
+800, 16) (``chip_smoke.py``'s ``mesh`` phase: the rank's 800 channels),
+and at the last also ``ssm_scan``'s training launch (the state kept
+every 32 steps): CUDA events over 20 back-to-back calls, the profiler's
+device time by each kernel a call launches and the least time
+(``launch.roofline``'s bound), one JSON line a kernel and shape.
+Copied beside another tree's ``src/`` (a parent unpacked by ``git
+archive``, with this tree's ``chip_smoke.py``), it times that tree's
+kernel in the same call.  ``--path mesh_decode`` serves
 ``chip_smoke.py``'s mesh run of hymba-1.5b (full width, MESH_SERVE_LAYERS
 layers, 4 gloo ranks sharing the card at 2x2, ``greedy_generate(plan=)``)
 with a host timer around every collective (``models.parallel``'s
@@ -41,6 +46,12 @@ with a host timer around every collective (``models.parallel``'s
 sharded decode calls directly): one JSON line with each rank's decode
 ms a token, its collectives a decode step by kind, their count and
 their host ms (each one's device-to-host copy, message and copy back).
+``--path mesh_train`` runs ``chip_smoke.py``'s ``launch.train --mesh
+2x2`` run of ``--arch`` (its MODEL_AXIS_RUNS entry: Hymba at full width
+and 4 layers by default) under that script's checks, alone: one JSON
+line with each rank's step seconds, peak memory, launches and gathered
+leaves, each step's distance from one process's and the failed checks.
+Copied beside a parent's tree, it runs that tree's ``chip_smoke.py``.
 Needs one CUDA card.
 """
 from __future__ import annotations
@@ -67,11 +78,12 @@ from repro_torch.core import dtw  # noqa: E402
 from repro_torch.kernels.ssm_scan import (  # noqa: E402
     ssm_scan_with_checkpoints)
 from repro_torch.kernels.ssm_scan_bwd import ssm_scan_bwd  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import roofline, serve  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 
 LM_STEPS = 8          # decode steps traced
 BWD_TRAIN = (2, 1152, 1600, 16)   # Hymba's training shape (hybrid_train)
+BWD_MESH_RANK = (1, 1152, 800, 16)  # a 2x2 mesh training rank's (mesh)
 
 
 def _device_events(prof):
@@ -199,22 +211,32 @@ def trace_search(args) -> int:
 
 
 def time_ssm_bwd(args) -> int:
-    """``ssm_scan_bwd`` alone at BWD_TRAIN and BWD_TRAIN_4K."""
+    """``ssm_scan_bwd`` alone at BWD_TRAIN, BWD_TRAIN_4K and
+    BWD_MESH_RANK, and ``ssm_scan``'s training launch at the last."""
     g = torch.Generator(device="cuda")
     g.manual_seed(args.seed)
     rnd = lambda *sh: torch.randn(sh, generator=g, device="cuda")
-    for b, s, d, n in (BWD_TRAIN, BWD_TRAIN_4K):
+    for b, s, d, n in (BWD_TRAIN, BWD_TRAIN_4K, BWD_MESH_RANK):
         ops = (rnd(b, s, d) * 0.5, rnd(b, s, d).abs() * 0.1,
                rnd(b, s, n) * 0.5, rnd(b, s, n) * 0.5, -rnd(d, n).abs() - 0.1)
         _, _, ckpt = ssm_scan_with_checkpoints(*ops)
         dy = rnd(b, s, d) * 0.1
-        call = lambda: ssm_scan_bwd(*ops, ckpt, dy)
-        by_kernel = device_ms_by_kernel(call)
-        print(json.dumps({
-            "phase": "time", "path": "ssm_bwd", "tree": str(ROOT),
-            "device": torch.cuda.get_device_name(0), "shape": [b, s, d, n],
-            "ms": time_cuda(call), "device_ms": sum(by_kernel.values()),
-            "device_ms_by_kernel": by_kernel}), flush=True)
+        calls = [("ssm_scan_bwd", lambda: ssm_scan_bwd(*ops, ckpt, dy),
+                  roofline.ssm_bwd_bound(b, s, d, n, False))]
+        if (b, s, d, n) == BWD_MESH_RANK:
+            calls.append(("ssm_scan_with_checkpoints",
+                          lambda: ssm_scan_with_checkpoints(*ops),
+                          roofline.ssm_scan_work(b, s, d, n, False,
+                                                 True).bound()))
+        for name, call, bound in calls:
+            by_kernel = device_ms_by_kernel(call)
+            print(json.dumps({
+                "phase": "time", "path": "ssm_bwd", "kernel": name,
+                "tree": str(ROOT), "device": torch.cuda.get_device_name(0),
+                "shape": [b, s, d, n], "ms": time_cuda(call),
+                "device_ms": sum(by_kernel.values()),
+                "device_ms_by_kernel": by_kernel, "bound_ms": bound[0],
+                "bound_by": bound[1]}), flush=True)
     return 0
 
 
@@ -299,6 +321,22 @@ def trace_mesh_decode(args) -> int:
     return 0
 
 
+def run_mesh_train(args) -> int:
+    """chip_smoke's 2x2 training run of ``args.arch``, its checks kept."""
+    import chip_smoke as cs
+    run = [r for r in cs.MODEL_AXIS_RUNS if r[0] == args.arch]
+    if not run:
+        print(f"chip_trace: no 2x2 run of {args.arch}", file=sys.stderr)
+        return 2
+    cs.MESH_DIR.mkdir(parents=True, exist_ok=True)
+    line, _ = cs._model_axis_finish(cs._model_axis_start(*run[0]))
+    print(json.dumps({"phase": "time", "path": "mesh_train", "tree":
+                      str(ROOT), "device": torch.cuda.get_device_name(0),
+                      "nvidia_smi": cs.nvidia_smi_line(), **line,
+                      "failures": cs.FAILURES}), flush=True)
+    return 1 if cs.FAILURES else 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -307,8 +345,10 @@ def main(argv=None) -> int:
     ap.add_argument("--dtw-queries", type=int, default=10)
     ap.add_argument("--k", type=int, default=10)
     ap.add_argument("--path", choices=("block_major", "flat", "dtw", "lm",
-                                       "ssm_bwd", "mesh_decode"),
+                                       "ssm_bwd", "mesh_decode",
+                                       "mesh_train"),
                     default="block_major")
+    ap.add_argument("--arch", default="hymba-1.5b")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_trace: no CUDA card available", file=sys.stderr)
@@ -320,6 +360,8 @@ def main(argv=None) -> int:
         return time_ssm_bwd(args)
     if args.path == "mesh_decode":
         return trace_mesh_decode(args)
+    if args.path == "mesh_train":
+        return run_mesh_train(args)
     return trace_search(args)
 
 

@@ -150,7 +150,7 @@ def rank_cell(arch: str, shape: str, mesh: str = "16x1", *,
             cfg, p_specs,
             model=op_analysis.fake_group(m, "model") if m > 1 else None,
             data=op_analysis.fake_group(nd, "data") if nd > 1 else None,
-            serve=cell.kind != "train", mesh=spec,
+            mesh=spec,
             coords=dict.fromkeys(spec.axis_names, 0))
         whole = dict(common.leaves(params))
         params = common.with_leaves(params, {

@@ -15,18 +15,23 @@ all take this one path.  ``mamba_naive`` is the plain sequential oracle
 (tests and ``chip_smoke.py`` only).
 
 ``mamba_mix(..., tp=group)`` runs the mixer channel-parallel over a
-model group of M ranks (serving): rank r holds channels r·D/M ..
-(r+1)·D/M of ``conv``, ``w_dt``, ``dt_bias``, ``w_b``, ``w_c``,
-``a_log``, ``d_skip`` and the rows of ``w_out``, and of the state
-(``h`` (B, D/M, N), ``conv`` (B, K-1, D/M)).  Its block of ``w_in`` is
+model group of M ranks, in training and in serving: rank r holds
+channels r·D/M .. (r+1)·D/M of ``conv``, ``w_dt``, ``dt_bias``,
+``w_b``, ``w_c``, ``a_log``, ``d_skip`` and the rows of ``w_out``, and
+of the state (``h`` (B, D/M, N), ``conv`` (B, K-1, D/M)).  Its block of ``w_in`` is
 columns r·2D/M .. (r+1)·2D/M of the fused x|z, as the reference's
 specs cut it (at M = 2 every x column on rank 0, every z column on
 rank 1): x is projected onto that block, the (B, S, 2D) projection is
 gathered over the group, and the rank takes its own channels of each
 half.  ``B_t`` and ``C_t`` are sums over every channel: each rank's
-partial sums are completed by one all-reduce.  The scan runs on the
-rank's (B, S, D/M, N), and the ``w_out`` rows' partial outputs end in
-one ``reduce_from``.
+partial sums are completed by one all-reduce.  Every rank's scan reads
+the summed ``B_t``/``C_t`` for its own channels only, so its gradient
+of them is a part too, and the backward all-reduces it as well
+(``copy_to`` of ``reduce_from``).  The scan runs on the rank's
+(B, S, D/M, N), under autograd its training launch and ``ssm_scan_bwd``
+there, and the ``w_out`` rows' partial outputs end in one
+``reduce_from``.  Every other leaf is the rank's channels, so its
+gradient stays local; ``x`` enters through ``copy_to``.
 """
 from __future__ import annotations
 
@@ -80,14 +85,15 @@ def _conv_causal(x: torch.Tensor, kernel: torch.Tensor,
 def _dt_bc(xc: torch.Tensor, p: dict, tp=None):
     """xc (B, S, D) -> dt (B, S, D), B_t, C_t (B, S, N), A (D, N).
     ``tp``: ``xc`` holds this rank's channels; B_t and C_t, sums over
-    every channel, are completed by one all-reduce over the group."""
+    every channel, are completed by one all-reduce over the group, and
+    so are their gradients, each rank's the part of its channels."""
     dt = F.softplus(xc * p["w_dt"][..., 0] + p["dt_bias"])
     bt = xc @ p["w_b"]
     ct = xc @ p["w_c"]
     if parallel.size(tp) > 1:
         n = bt.shape[-1]
-        bt, ct = parallel.reduce_from(torch.cat([bt, ct], dim=-1),
-                                      tp).split(n, dim=-1)
+        bc = parallel.reduce_from(torch.cat([bt, ct], dim=-1), tp)
+        bt, ct = parallel.copy_to(bc, tp).split(n, dim=-1)
     a_mat = -torch.exp(p["a_log"].to(torch.float32))
     return dt, bt, ct, a_mat
 

@@ -23,6 +23,16 @@ insert the collectives.  Here each collective is explicit, on
     reduce-scatter SUM: each rank's consumers compute a part of the
     gathered tensor's gradient (the heads of an attention whose column
     blocks cut a head, ``transformer._qkv``).
+  * ``reduce_scatter(x, group)``: forward the SUM of the ranks' partial
+    outputs, of which this rank keeps its block of the last dim;
+    backward an all-gather, since each rank's partial product needs the
+    whole gradient (RWKV's channel mix, ``rwkv.channel_mix``).
+  * ``gather_replicated(x, group)``: forward an all-gather of such
+    blocks along the last dim into a tensor that replicated consumers
+    read (the residual); backward this rank's slice of the gradient,
+    which every rank already holds whole.  It is ``gather_leaf``'s
+    "model" kind, not ``gather_acts``, whose reduce-scatter would count
+    that replicated gradient M times.
 
 Messages travel on the device that the group's backend takes
 (``core.frontier.comm_device``): the card for NCCL, the host for gloo.
@@ -38,20 +48,19 @@ param_pspecs``), which blocks run tensor-parallel: attention whose
 "ragged": the cut falls inside a head, and the rank gathers the
 projected activations of the heads it needs (``transformer._qkv``); an
 FFN whose ``ff`` dim lies over "model"; a MoE whose experts split over
-"model" (``moe.moe_ffn_ep``).  A serving plan (``serve=True``) adds
-three forward-only kinds: Hymba's Mamba by channel (its ``d_inner``
+"model" (``moe.moe_ffn_ep``); Hymba's Mamba by channel (its ``d_inner``
 leaves over "model", its ``w_in`` block's projection gathered,
-``mamba.mamba_mix(tp=)``),
-RWKV's time mix by head (``w_r``/``w_k``/``w_v``/``w_g`` columns,
-``w_o`` rows, ``bonus_u``) and its channel mix by ``ff``
-(``rwkv.rwkv_layer(tp=, ffn_tp=)``).  Where "model" cuts the
-vocabulary (dim 0 of ``embed``, dim 1 of ``lm_head``), both plans keep
-those blocks local (``Plan.vocab``): the lookup, the head, the
-cross-entropy and the greedy pick run over the vocabulary shards
-(``transformer.vocab_embed``, ``vocab_logits``, ``launch.serve.
-greedy_pick``).  Every other sharded leaf is gathered where it is used
-(``Plan.take``), inside the per-layer checkpoint, so the backward
-gathers it again and no whole stack is held.
+``mamba.mamba_mix(tp=)``); RWKV's time mix by head (``w_r``/``w_k``/
+``w_v``/``w_g`` columns, ``w_o`` rows, ``bonus_u``) and its channel mix
+by ``ff`` (``w_ck`` columns, ``w_cv`` rows, ``w_cr`` columns;
+``rwkv.rwkv_layer(tp=, ffn_tp=)``).  Training and serving take the same
+plan.  Where "model" cuts the vocabulary (dim 0 of ``embed``, dim 1 of
+``lm_head``), the plan keeps those blocks local (``Plan.vocab``): the
+lookup, the head, the cross-entropy and the greedy pick run over the
+vocabulary shards (``transformer.vocab_embed``, ``vocab_logits``,
+``launch.serve.greedy_pick``).  Every other sharded leaf is gathered
+where it is used (``Plan.take``), inside the per-layer checkpoint, so
+the backward gathers it again and no whole stack is held.
 """
 from __future__ import annotations
 
@@ -69,13 +78,13 @@ MOE_BLOCK = ("layers", "moe")
 MAMBA_BLOCK = ("layers", "mamba")
 # RWKV's leaves lie in "layers" itself: its two halves are named blocks
 RWKV_TIME, RWKV_CHANNEL = ("layers", "time_mix"), ("layers", "channel_mix")
-# the leaves a serving block keeps local, each with the dim that "model"
-# must cut (of the stacked (L, ...) leaf); RWKV's ``w_cr``, ``ln_x``,
-# token-shift mixes and decay LoRA are gathered
+# the leaves a Mamba or RWKV block keeps local, each with the dim that
+# "model" must cut (of the stacked (L, ...) leaf); RWKV's ``ln_x``,
+# token-shift mixes and decay LoRA are not cut over "model"
 MAMBA_LOCAL = dict(w_in=-1, conv=-1, w_dt=1, dt_bias=-1, w_b=1, w_c=1,
                    a_log=1, d_skip=-1, w_out=1)
 RWKV_TIME_LOCAL = dict(w_r=-1, w_k=-1, w_v=-1, w_g=-1, w_o=1, bonus_u=1)
-RWKV_CHANNEL_LOCAL = dict(w_ck=-1, w_cv=1)
+RWKV_CHANNEL_LOCAL = dict(w_ck=-1, w_cr=-1, w_cv=1)
 # the vocabulary's leaves, each with its vocab dim
 VOCAB_LOCAL = {("embed",): 0, ("lm_head",): 1}
 STACKS = ("layers", "dec")       # stacked (L, ...) subtrees
@@ -151,6 +160,17 @@ class _ReduceFrom(torch.autograd.Function):
         return g, None
 
 
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _slice(all_reduce(x, group), -1, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, -1, ctx.group), None
+
+
 class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, dim, group, kind):
@@ -191,6 +211,21 @@ def gather_acts(x: torch.Tensor, group) -> torch.Tensor:
     if size(group) == 1:
         return x
     return _Gather.apply(x, -1, group, "acts")
+
+
+def reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
+    """This rank's block of the last dim of the sum of ``x`` over
+    ``group``; the backward is an all-gather."""
+    return x if size(group) == 1 else _ReduceScatter.apply(x, group)
+
+
+def gather_replicated(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's block of an activation that replicated consumers
+    read, joined along the last dim in rank order; the backward keeps
+    this rank's slice of the (whole, replicated) gradient."""
+    if size(group) == 1:
+        return x
+    return _Gather.apply(x, -1, group, MODEL)
 
 
 # ---------------------------------------------------------------------------
@@ -245,11 +280,12 @@ def _local(flat: dict, prefix: tuple, dims: dict) -> tuple | None:
     return None
 
 
-def _serving_parallel(cfg, flat: dict, m: int) -> dict:
-    """The forward-only blocks of a serving plan: Hymba's Mamba by
-    channel where ``q_dim`` (its ``d_inner``) divides ``m``, ``w_in`` by
-    its block of the fused x|z columns, RWKV's time mix by whole heads
-    and its channel mix by ``ff``."""
+def _recurrent_parallel(cfg, flat: dict, m: int) -> dict:
+    """The recurrent blocks that run over a model axis of ``m`` ranks:
+    Hymba's Mamba by channel where ``q_dim`` (its ``d_inner``) divides
+    ``m``, ``w_in`` by its block of the fused x|z columns, RWKV's time mix
+    by whole heads where they divide ``m`` and its channel mix by ``ff``
+    (``w_cr`` by its column block)."""
     out: dict = {}
     if m <= 1:
         return out
@@ -286,24 +322,23 @@ class Plan:
     param_pspecs``); ``model`` and ``data``: this rank's groups of the
     model axis and of the data axes together (None: one rank).  A spec
     entry "model" is cut over ``model``, any other (a data axis or a
-    tuple of them) over ``data``.  ``serve``: also the forward-only
-    blocks (Mamba by channel, RWKV by head and by ``ff``).  ``mesh`` (a
-    ``launch.mesh.MeshSpec``) and ``coords`` ({axis: index}, this
-    rank's place on it): what a serving run needs to cut its batch and
-    caches (``launch.serve.greedy_generate``).  ``vocab``: the model
+    tuple of them) over ``data``.  ``mesh`` (a ``launch.mesh.MeshSpec``)
+    and ``coords`` ({axis: index}, this rank's place on it): what a
+    serving run needs to cut its batch and caches (``launch.serve.
+    greedy_generate``).  ``vocab``: the model
     group where it cuts the vocabulary of ``embed`` (and ``lm_head``),
     whose blocks are then used where they lie, else None."""
 
     def __init__(self, cfg, specs: dict, *, model=None, data=None,
-                 serve: bool = False, mesh=None, coords: dict | None = None):
+                 mesh=None, coords: dict | None = None):
         self.specs = specs
         self.flat = dict(common.leaves(specs))
         self.model, self.data = model, data
         self.mesh, self.coords = mesh, coords
         m = size(model)
         blocks = _tensor_parallel(cfg, self.flat, m)
-        serving = _serving_parallel(cfg, self.flat, m) if serve else {}
-        blocks.update(serving)
+        recurrent = _recurrent_parallel(cfg, self.flat, m)
+        blocks.update(recurrent)
         self.tp_blocks = frozenset(blocks)
         self.keep = frozenset(p for paths in blocks.values() for p in paths)
         self.vocab_leaves = _vocab_parallel(self.flat, m)
@@ -312,9 +347,9 @@ class Plan:
         self._by_kind = {
             "ragged_attn": sum(b in blocks for b in ATTN_BLOCKS)
             if ragged(cfg, m) else 0,
-            "mamba_leaves": len(serving.get(MAMBA_BLOCK, ())),
-            "rwkv_leaves": len(serving.get(RWKV_TIME, ()))
-            + len(serving.get(RWKV_CHANNEL, ()))}
+            "mamba_leaves": len(recurrent.get(MAMBA_BLOCK, ())),
+            "rwkv_leaves": len(recurrent.get(RWKV_TIME, ()))
+            + len(recurrent.get(RWKV_CHANNEL, ()))}
 
     def group(self, entry):
         return self.model if entry == MODEL else self.data
@@ -336,8 +371,8 @@ class Plan:
 
     def counts(self) -> dict:
         """Leaves used tensor- or expert-parallel over "model" (of them,
-        a serving plan's Mamba leaves by channel and RWKV leaves by head
-        or ``ff``), the attention blocks among them whose column blocks
+        the Mamba leaves by channel and the RWKV leaves by head or
+        ``ff``), the attention blocks among them whose column blocks
         cut a head (``ragged_attn``), the vocabulary's leaves used by
         vocab block, and the other leaves gathered where they are used
         (over "model", the data axes, or both)."""

@@ -28,15 +28,22 @@ tokens).  Here the sequence runs in chunks of ``chunk`` and one ragged
 last chunk: the same closed form, the same values up to rounding.
 ``rwkv_naive_wkv`` is the sequential oracle.
 
-Serving over a model group of M ranks: ``time_mix(..., tp=group)`` runs
-by head.  Rank r holds heads r·H/M .. (r+1)·H/M: the columns of
-``w_r``, ``w_k``, ``w_v``, ``w_g``, the rows of ``w_o``, ``bonus_u``
-and the state ``s`` (B, H/M, n, n); the token shift, the mixes and the
-decay LoRA run whole on every rank, which keeps its heads' columns of
-the decays and of ``ln_x``; the ranks' ``w_o`` outputs meet in one
-``reduce_from``.  ``channel_mix(..., tp=group)`` runs by ``ff``:
-``w_ck`` columns and ``w_cv`` rows, one ``reduce_from`` before the
-receptance gate (``w_cr`` whole).
+Over a model group of M ranks, in training and in serving:
+``time_mix(..., tp=group)`` runs by head.  Rank r holds heads r·H/M ..
+(r+1)·H/M: the columns of ``w_r``, ``w_k``, ``w_v``, ``w_g``, the rows
+of ``w_o``, ``bonus_u`` and the state ``s`` (B, H/M, n, n).  The token
+shift, the mixes and the decay LoRA's first product run whole on every
+rank; the decays are computed for the rank's columns only, and ``ln_x``
+is used by those columns.  Those replicated leaves (``mix``,
+``decay_base``, ``decay_a``, ``decay_b``, ``ln_x``) enter through
+``copy_to``, as ``x`` does: each rank's heads give a part of their
+gradients.  The ranks' ``w_o`` outputs meet in one ``reduce_from``.
+``channel_mix(..., tp=group)`` runs by ``ff``: ``w_ck`` columns and
+``w_cv`` rows give partial sums, of which one reduce-scatter leaves the
+rank its d/M columns; the receptance gate runs there, on the rank's
+``w_cr`` columns, and one all-gather restores the row, whose backward
+keeps the rank's slice (``parallel.reduce_scatter``,
+``gather_replicated``).  ``mix_c`` enters through ``copy_to``.
 """
 from __future__ import annotations
 
@@ -56,6 +63,9 @@ class RwkvState(NamedTuple):
 
 
 LORA = 64   # decay LoRA rank (rwkv6 uses 64 for 7B)
+# the time mix's leaves that "model" does not cut: a rank by head uses
+# them for its own heads, so its gradient of them is a part
+TIME_REPLICATED = ("mix", "decay_base", "decay_a", "decay_b", "ln_x")
 
 
 def param_specs(cfg) -> dict:
@@ -98,9 +108,12 @@ def _lerp(x, xs, mu):
     return x + (xs - x) * mu.to(x.dtype)
 
 
-def _decays(xw: torch.Tensor, p: dict) -> torch.Tensor:
-    """Data-dependent log-decay.  Returns log w (B, S, d), strictly < 0."""
-    ww = p["decay_base"] + torch.tanh(xw @ p["decay_a"]) @ p["decay_b"]
+def _decays(xw: torch.Tensor, p: dict, cols: slice = slice(None)
+            ) -> torch.Tensor:
+    """Data-dependent log-decay of the columns ``cols``.  Returns log w
+    (B, S, len(cols)), strictly < 0."""
+    ww = p["decay_base"][cols] \
+        + torch.tanh(xw @ p["decay_a"]) @ p["decay_b"][:, cols]
     return -torch.exp(torch.clamp(ww.to(torch.float32), -12.0, 6.0))
 
 
@@ -161,6 +174,8 @@ def time_mix(x: torch.Tensor, p: dict, *, head_dim: int, chunk: int = 64,
         raise ValueError(f"time mix over {m} ranks takes {h} heads a "
                          f"rank, w_r holds {p['w_r'].shape[-1]} columns")
     x = parallel.copy_to(x, tp)
+    p = {**p, **{k: parallel.copy_to(p[k], tp) for k in TIME_REPLICATED}}
+    cols = slice(col, col + h * n)
     last = state.x_tm if state is not None else x.new_zeros((b, d))
     xs = _token_shift(x, last)
     mu = p["mix"]                                      # (5, d)
@@ -169,7 +184,7 @@ def time_mix(x: torch.Tensor, p: dict, *, head_dim: int, chunk: int = 64,
     k = (xk @ p["w_k"]).reshape(b, s, h, n)
     v = (xv @ p["w_v"]).reshape(b, s, h, n)
     g = xg @ p["w_g"]
-    logw = _decays(xw, p)[..., col:col + h * n].reshape(b, s, h, n)
+    logw = _decays(xw, p, cols).reshape(b, s, h, n)
 
     st = (state.s if state is not None
           else torch.zeros((b, h, n, n), dtype=torch.float32,
@@ -181,8 +196,8 @@ def time_mix(x: torch.Tensor, p: dict, *, head_dim: int, chunk: int = 64,
         o, st = _chunk_wkv(r[:, lo:hi], k[:, lo:hi], v[:, lo:hi],
                            logw[:, lo:hi], p["bonus_u"], st)
         outs.append(o)
-    ln_x = p["ln_x"][col:col + h * n]
-    out = _group_norm(torch.cat(outs, dim=1), ln_x, n).reshape(b, s, h * n)
+    out = _group_norm(torch.cat(outs, dim=1), p["ln_x"][cols], n
+                      ).reshape(b, s, h * n)
     out = (out * F.silu(g.to(torch.float32))).to(x.dtype)
     return parallel.reduce_from(out @ p["w_o"], tp), st, x[:, -1, :]
 
@@ -191,18 +206,23 @@ def channel_mix(x: torch.Tensor, p: dict, *,
                 state: RwkvState | None = None, tp=None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """RWKV6 FFN. x (B, S, d) -> (out, last_x).  ``tp``: a model group
-    over which ``w_ck`` holds this rank's ``ff`` columns and ``w_cv``
-    its rows."""
+    over which ``w_ck`` holds this rank's ``ff`` columns, ``w_cv`` its
+    rows and ``w_cr`` its d/M columns (the module's docstring)."""
     b, s, d = x.shape
+    m = parallel.size(tp)
+    if p["w_cr"].shape[-1] * m != d:
+        raise ValueError(f"channel mix over {m} ranks takes {d // m} "
+                         f"columns of w_cr, got {p['w_cr'].shape[-1]}")
     x = parallel.copy_to(x, tp)
     last = state.x_cm if state is not None else x.new_zeros((b, d))
     xs = _token_shift(x, last)
-    mu = p["mix_c"]
+    mu = parallel.copy_to(p["mix_c"], tp)
     xk = _lerp(x, xs, mu[0])
     xr = _lerp(x, xs, mu[1])
     kk = torch.square(F.relu(xk @ p["w_ck"]))
     rr = torch.sigmoid((xr @ p["w_cr"]).to(torch.float32)).to(x.dtype)
-    return rr * parallel.reduce_from(kk @ p["w_cv"], tp), x[:, -1, :]
+    out = rr * parallel.reduce_scatter(kk @ p["w_cv"], tp)
+    return parallel.gather_replicated(out, tp), x[:, -1, :]
 
 
 def rwkv_layer(x: torch.Tensor, p: dict, *, head_dim: int, chunk: int = 64,

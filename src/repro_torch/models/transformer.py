@@ -37,7 +37,7 @@ whose ranks the full-attention layers' caches split their positions
 (``launch.specs.cache_blocks`` cuts a rank's share of a whole cache),
 the counterpart of the reference's ``Ctx.kv_shard``: those layers decode
 through ``attention.decode_attend_seqsharded``.  ``prefill`` and
-``decode_step`` take ``plan`` (``parallel.Plan``, ``serve=True``): the
+``decode_step`` take ``plan`` (``parallel.Plan``, as ``loss_fn``): the
 parameters are this rank's shards of a (data, model) mesh and the cache
 its blocks by the reference's ``cache_pspecs``; the tensor- and
 expert-parallel blocks, Mamba by channel and RWKV by head run over the
@@ -535,7 +535,7 @@ def _rwkv_layer(x, p_l, cfg: ModelConfig, state=None, plan=None):
 
 
 def _rwkv_train_layer(x, p_l, cfg: ModelConfig, plan=None):
-    return _rwkv_layer(x, _take(plan, p_l, "layers"), cfg)[0]
+    return _rwkv_layer(x, _take(plan, p_l, "layers"), cfg, plan=plan)[0]
 
 
 def _rwkv_stack(params, x, cfg: ModelConfig, mode: str, *, cache=None,

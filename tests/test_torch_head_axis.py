@@ -39,7 +39,7 @@ own float32 weights, at ``tests/test_torch_train.py``'s bars for the
 dense family (loss rtol 1e-5, a gradient within 1e-4 of its max |g|).
 
 Without ranks: the plans of the ten archs at 2x2, 1x4, 16x16 and
-2x16x16 gather no attention leaf and, serving, no ``w_in``; the
+2x16x16 gather no attention leaf and no ``w_in``; the
 variant's specs equal the reference's entry by entry.
 """
 import dataclasses
@@ -352,8 +352,8 @@ def _rank_main(rank: int, world: int, tmp: str) -> None:
         spec = dict(common.leaves(pspecs))
         model, data = groups(shape)
         w = dict(np.load(f"{tmp}/w_{arch}.npz"))
-        plan = parallel.Plan(cfg, pspecs, model=model, data=data,
-                             serve=batch is not None, mesh=ms, coords=at)
+        plan = parallel.Plan(cfg, pspecs, model=model, data=data, mesh=ms,
+                             coords=at)
         tag = _run_id(arch, shape, batch)
         out[f"{tag}/gathered"] = np.asarray(
             ["/".join(p) for p in plan.gathered()] or [""])
@@ -626,13 +626,12 @@ def no_fake_group_left():
     OA.close_fake_groups()
 
 
-def _plan(cfg, shape, serve_: bool):
+def _plan(cfg, shape):
     ms = MeshSpec(shape, ("pod", "data", "model")[-len(shape):])
     m, nd = shape[-1], math.prod(shape[:-1])
     return parallel.Plan(cfg, S.param_pspecs(cfg, ms),
                          model=OA.fake_group(m, "model"),
-                         data=OA.fake_group(nd, "data") if nd > 1 else None,
-                         serve=serve_)
+                         data=OA.fake_group(nd, "data") if nd > 1 else None)
 
 
 PLAN_MESHES = [(2, 2), (1, 4), (16, 16), (2, 16, 16)]
@@ -643,34 +642,29 @@ PLAN_MESHES = [(2, 2), (1, 4), (16, 16), (2, 16, 16)]
 def test_plans_gather_no_attention_and_no_w_in(no_fake_group_left, shape):
     for arch in list_archs():
         cfg = get_config(arch, smoke=shape[-1] < 16)
-        for serve_ in (False, True):
-            plan = _plan(cfg, shape, serve_)
-            paths = ["/".join(p) for p in plan.gathered()]
-            assert not [p for p in paths if "/attn/" in p or "/xattn/" in p
-                        or (serve_ and p.endswith("/w_in"))], (arch, paths)
-            n = {"enc_dec": 3, "ssm": 0}.get(cfg.family, 1)
-            assert plan.counts()["ragged_attn"] == n * parallel.ragged(
-                cfg, shape[-1]), arch
+        plan = _plan(cfg, shape)
+        paths = ["/".join(p) for p in plan.gathered()]
+        assert not [p for p in paths if "/attn/" in p or "/xattn/" in p
+                    or p.endswith("/w_in")], (arch, paths)
+        n = {"enc_dec": 3, "ssm": 0}.get(cfg.family, 1)
+        assert plan.counts()["ragged_attn"] == n * parallel.ragged(
+            cfg, shape[-1]), arch
 
 
 @pytest.mark.parametrize("shape", [(2, 2), (1, 4), (16, 16), (2, 16, 16)],
                          ids=["2x2", "1x4", "16x16", "2x16x16"])
 def test_hymba_and_rwkv_gather_over_model(no_fake_group_left, shape):
-    """Over "model" a Hymba serving rank gathers its two gammas (7 leaves
-    before), a training rank those and the 9 Mamba leaves (15 before);
-    RWKV as before: ``w_cr`` serving, its 9 gathered leaves training."""
+    """Over "model" a Hymba rank, training or serving, gathers its two
+    gammas (a training rank gathered those and the 9 Mamba leaves
+    before), and an RWKV rank nothing (``w_cr`` serving and its 9
+    tensor-parallel leaves training before): one plan for both."""
     over = lambda plan: sorted("/".join(p) for p in plan.gathered()
                                if "model" in plan.axes_of(p))
-    gammas = ["layers/attn_gamma", "layers/mamba_gamma"]
-    hymba = get_config("hymba-1.5b")
-    assert over(_plan(hymba, shape, True)) == gammas
-    train = over(_plan(hymba, shape, False))
-    assert len(train) == 11 and set(gammas) < set(train)
-    assert all(p.startswith("layers/mamba/") for p in train
-               if p not in gammas)
-    rwkv = get_config("rwkv6-7b")
-    assert over(_plan(rwkv, shape, True)) == ["layers/w_cr"]
-    assert len(over(_plan(rwkv, shape, False))) == 9
+    hymba = _plan(get_config("hymba-1.5b"), shape)
+    assert over(hymba) == ["layers/attn_gamma", "layers/mamba_gamma"]
+    assert hymba.counts()["mamba_leaves"] == 9
+    rwkv = _plan(get_config("rwkv6-7b"), shape)
+    assert over(rwkv) == [] and rwkv.counts()["rwkv_leaves"] == 9
 
 
 @pytest.mark.parametrize("shape", [(1, 2), (1, 4), (2, 2)],

@@ -19,18 +19,21 @@ leaf gathered over "model" and of one gathered over the data ranks
 starts its own 4 gloo ranks), 2 steps of 4 x 32 tokens, a checkpoint
 every step: h2o-danube-1.8b (tensor-parallel attention and FFN),
 granite-moe-1b-a400m (tensor-parallel attention, experts through
-``moe.moe_ffn_ep`` with a gradient), hymba-1.5b (gathered attention
-and Mamba, tensor-parallel FFN) and whisper-medium (tensor-parallel
-encoder, decoder and cross-attention) ``smoke()``, and the FSDP +
+``moe.moe_ffn_ep`` with a gradient), hymba-1.5b (tensor-parallel
+attention and FFN, Mamba by channel, gathering only its two gammas over
+"model"), whisper-medium (tensor-parallel
+encoder, decoder and cross-attention) and rwkv6-7b (time mix by head,
+channel mix by ``ff``, nothing gathered) ``smoke()``, and the FSDP +
 Adafactor variant of h2o-danube's through the library's rank entry
 (``launch.train.rank_main``).  Each rank's parameter and optimizer-state
-shapes equal the reference's specs cut.  Each step equals one process's
-same step over the whole batch in 2 microbatches (each data rank's rows:
-the same per-call token counts, so the same MoE capacity) from the same
-state, the weights both build for step 0 and the mesh's checkpoint of
-the step before for step 1: the checkpoint's optimizer state atol 1e-6,
-the last step's loss and gradient norm rtol 1e-6, the parameters atol
-1e-6 (Adafactor's against one process's, AdamW's against AdamW applied
+shapes equal the reference's specs cut.  Each step (RWKV's loss and
+gradient norm only, its moments in ``test_torch_recurrent_axis.py``)
+equals one process's same step over the whole batch in 2 microbatches
+(each data rank's rows: the same per-call token counts, so the same MoE
+capacity) from the same state, the weights both build for step 0 and
+the mesh's checkpoint of the step before for step 1: the checkpoint's
+optimizer state atol 1e-6, the last step's loss and gradient norm
+rtol 1e-6, the parameters atol 1e-6 (Adafactor's against one process's, AdamW's against AdamW applied
 to the checkpoint's own moments).  AdamW's parameters are not held to
 one process's directly, nor is step 1 held to one process's second
 step: with eps 1e-8, an element whose gradient lies within a few eps of
@@ -78,14 +81,19 @@ RANK_TIMEOUT = 300
 BATCH, SEQ, STEPS, LR = 4, 32, 2, 1e-2
 MESH = (2, 2)
 DENSE, MOE, HYBRID = "h2o-danube-1.8b", "granite-moe-1b-a400m", "hymba-1.5b"
-ENC_DEC = "whisper-medium"
+ENC_DEC, SSM = "whisper-medium", "rwkv6-7b"
 FSDP = DENSE + "+fsdp"
-CLI_RUNS = (DENSE, MOE, HYBRID, ENC_DEC)
+CLI_RUNS = (DENSE, MOE, HYBRID, ENC_DEC, SSM)
 RUNS = CLI_RUNS + (FSDP,)
+# the runs whose checkpoints are held here: RWKV's float32 WKV moves
+# bonus_u's gradient (|g| ~ 30) beyond the moments' absolute TOL by its
+# noise alone, so test_torch_recurrent_axis.py holds a 2x2 RWKV step's
+# moments on float64 weights
+CKPT_RUNS = tuple(r for r in RUNS if r != SSM)
 # (tensor- or expert-parallel leaves, gathered leaves) at M = 2; the
 # vocabulary's leaves (``embed``, ``lm_head`` unless tied) are neither
-COUNTS = {DENSE: (7, 0), MOE: (7, 0), HYBRID: (7, 11), ENC_DEC: (18, 0),
-          FSDP: (7, 3)}
+COUNTS = {DENSE: (7, 0), MOE: (7, 0), HYBRID: (16, 2), ENC_DEC: (18, 0),
+          SSM: (9, 0), FSDP: (7, 3)}
 TOL = 1e-6
 
 
@@ -517,7 +525,7 @@ def _check_checkpoint(ck, name, step, want_params, want_opt, prev,
     return params
 
 
-@pytest.mark.parametrize("name", RUNS)
+@pytest.mark.parametrize("name", CKPT_RUNS)
 def test_mesh_checkpoints_equal_one_process(runs, name):
     ck = runs["ck"][name]
     prev = serve.build_params(_cfg(name), 0, "cpu")

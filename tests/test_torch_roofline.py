@@ -381,7 +381,7 @@ def test_serving_cells_counted_over_the_model_axis(arch, shape):
                                   cfg.n_kv_heads)
         assert full["m_h"][2] == cfg.q_dim // 16
     elif arch == "rwkv6-7b":        # the time mix by head
-        assert rec["rwkv_leaves"] == 8
+        assert rec["rwkv_leaves"] == 9
         assert cache[0]["s"][1:3] == (cell.global_batch // 16,
                                       cfg.d_model // cfg.rwkv_head_dim // 16)
     else:                           # long_500k: positions over the data axis
@@ -389,6 +389,40 @@ def test_serving_cells_counted_over_the_model_axis(arch, shape):
         full = cache[kinds.index("full")]
         assert full["k"][1:4] == (1, cell.seq_len // 16,
                                   cfg.n_kv_heads // 16)
+
+
+RECURRENT_16X16 = (("hymba-1.5b", "train_4k"), ("rwkv6-7b", "train_4k"),
+                   ("rwkv6-7b", "decode_32k"))
+
+
+@pytest.mark.parametrize("arch,shape", RECURRENT_16X16,
+                         ids=[f"{a}-{s}" for a, s in RECURRENT_16X16])
+def test_recurrent_blocks_gather_nothing_over_the_model_axis(arch, shape):
+    """16x16: a Hymba training rank gathers over "model" only its two
+    gammas, its Mamba by channel; an RWKV rank, training or decoding,
+    gathers nothing over "model": its time mix by head, its channel mix
+    by ``ff`` with ``w_cr`` by column.  RWKV's train_4k rank then fits
+    an H100's 80 GB (189.7 GiB of predicted peak when it gathered its
+    9 leaves), and its decode no longer gathers ``w_cr``: the
+    all-gather column stays below one layer's whole ``w_cr``."""
+    cell = dryrun.rank_cell(arch, shape, "16x16")
+    plan = cell.plan
+    over = sorted("/".join(p) for p in plan.gathered()
+                  if "model" in plan.axes_of(p))
+    rec = dryrun.run_cell(arch, shape, "16x16", verbose=False)
+    cfg = get_config(arch)
+    assert rec["status"] == "ok"
+    if arch == "hymba-1.5b":
+        assert over == ["layers/attn_gamma", "layers/mamba_gamma"]
+        assert rec["mamba_leaves"] == 9
+        assert rec["kernel_calls"]["ssm_scan_bwd"] > 0
+        return
+    assert over == [] and rec["rwkv_leaves"] == 9
+    if shape == "train_4k":
+        assert rec["bytes_per_device"]["peak"] < 80e9
+    else:
+        w_cr = cfg.d_model * cfg.d_model * cell.dtype.itemsize
+        assert rec["coll_by_op"]["all-gather"] < w_cr
 
 
 def _gathering_the_attention(plan) -> None:

@@ -35,8 +35,8 @@ and after the last step bitwise the blocks of one process's caches cut
 by ``cache_pspecs`` (the float32 roundings of float64 values that agree
 to ~1e-16); its parameter elements and cache block shapes those the
 reference's specs cut, its plan's Mamba and RWKV leaves, and its
-vocabulary leaves, attention leaves and Mamba ``w_in`` used by block,
-never gathered.
+vocabulary leaves, attention leaves, Mamba's ``w_in`` and RWKV's
+``w_cr`` used by block, never gathered.
 
 For hymba and h2o-danube, the mesh's logits against the reference's
 one-device ``transformer.prefill`` / jitted ``decode_step`` on the same
@@ -142,8 +142,7 @@ for arch in {archs!r}:
                         coords, sizes)
         for p, _ in common.leaves(T.param_specs(cfg))}})
     plan = parallel.Plan(cfg, pspecs, model=dm.get_group("model"),
-                         data=dm.get_group("data"), serve=True, mesh=ms,
-                         coords=coords)
+                         data=dm.get_group("data"), mesh=ms, coords=coords)
     prompt, frames = w["req/prompt"], w.get("req/frames")
     if frames is not None:
         frames = frames.astype(np.float64)
@@ -376,12 +375,13 @@ def test_ranks_hold_the_reference_shards(served, mesh):
             c = info["counts"]
             assert c["vocab_leaves"] > 0, (arch, r)
             assert not {"embed", "lm_head"} & set(info["gathered"]), (arch, r)
-            # attention runs on its column blocks, Mamba on its w_in block
+            # attention runs on its column blocks, Mamba on its w_in block,
+            # RWKV's channel mix on its w_cr block
             assert not [p for p in info["gathered"] if "/attn/" in p
-                        or "/xattn/" in p or p.endswith("/w_in")], \
-                (arch, r, info["gathered"])
+                        or "/xattn/" in p or p.endswith("/w_in")
+                        or p.endswith("/w_cr")], (arch, r, info["gathered"])
             assert c["mamba_leaves"] == (9 if cfg.family == "hybrid" else 0)
-            assert c["rwkv_leaves"] == (8 if cfg.family == "ssm" else 0)
+            assert c["rwkv_leaves"] == (9 if cfg.family == "ssm" else 0)
             kvs = info["kv_shard"]
             if mesh == "2x2-b1":
                 assert kvs == ["data"], arch
